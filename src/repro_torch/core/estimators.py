@@ -1,0 +1,106 @@
+"""Gradient estimators pluggable into the round engine (port of
+``repro/core/estimators.py``).
+
+This slice ports ``marina``, Byz-VR-MARINA (Alg. 1): a Bernoulli(p) coin
+c_k picks anchor full gradients or the compressed variance-reduced
+difference g^k + Q(∇f_i(x^{k+1}) - ∇f_i(x^k)). The reference branches
+with ``lax.cond``; here the coin is read on the host and a Python ``if``
+takes one branch. The other registry entries are named so specs
+validate, and raise ``NotImplementedError`` when built.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch import random as R
+from repro_torch.core import tree_utils as tu
+from repro_torch.core.engine import (GradientEstimator, RoundOutput,
+                                     message_phase, stacked_grads)
+
+
+@dataclasses.dataclass
+class MarinaEstimator(GradientEstimator):
+    """Alg. 1 (lines 4-10)."""
+    name = "marina"
+    rng = ("bern", "grad", "q", "attack", "agg")
+    update_params_first = True
+
+    def init_extras(self, cfg, loss_fn, params, anchor, key):
+        # paper: g^0 = ARAgg(∇f_1(x^0), ..., ∇f_n(x^0))
+        k_grad, k_attack, k_agg = R.split(key, 3)
+        wkeys = tu.per_worker_keys(k_grad, cfg.n_workers)
+        _, grads = stacked_grads(loss_fn, params, anchor, wkeys)
+        return message_phase(cfg, k_attack, k_agg, grads), {}
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys):
+        from repro_torch.core import wire
+
+        n = cfg.n_workers
+        c_k = bool(R.bernoulli(keys["bern"], cfg.p))
+        wkeys = tu.per_worker_keys(keys["grad"], n)
+        if c_k:
+            loss, grads = stacked_grads(loss_fn, params, anchor, wkeys)
+            g = message_phase(cfg, keys["attack"], keys["agg"], grads)
+        else:
+            qkeys = tu.per_worker_keys(
+                keys["q"], n, common=cfg.compressor.common_randomness)
+
+            def one(b, kg):
+                gn, ln = grad_and_value(loss_fn)(params, b, kg)
+                go, _ = grad_and_value(loss_fn)(old_params, b, kg)
+                return ln, tu.tree_sub(gn, go)
+
+            losses, deltas = vmap(one)(batch, wkeys)
+            loss = losses.mean()
+            if wire.wire_supported(cfg, deltas):
+                # candidate = g^k + Q(delta): g^k rides as the shared (1, d)
+                # reconstruction base, Q(delta) as the wire payload
+                cand = wire.pack_candidates(cfg.compressor, qkeys, deltas,
+                                            base=state["g"], base_shared=True)
+            else:
+                qs = [tu.compress_tree(cfg.compressor, qkeys[i],
+                                       {k: v[i] for k, v in deltas.items()})
+                      for i in range(n)]
+                cand = {k: state["g"][k][None]
+                        + torch.stack([q[k] for q in qs])
+                        for k in sorted(deltas)}
+            g = message_phase(cfg, keys["attack"], keys["agg"], cand)
+        dims = [p.numel() for p in tu.leaves(params)]
+        wire_bits = (32.0 * sum(dims) if c_k else wire.tree_wire_bits(
+            cfg.compressor, tu.tree_map(lambda p: p[None], params)))
+        return RoundOutput(loss=loss, g_new=g,
+                           metrics={"c_k": int(c_k), "wire_bits": wire_bits})
+
+    def round_bits(self, cfg, d, full_round=True):
+        if full_round:
+            return 32 * d
+        return int(cfg.compressor.bits_per_vector(d))
+
+
+def _marina_factory(cfg, **kw):
+    return MarinaEstimator(**kw)
+
+
+def _not_ported(name):
+    def factory(cfg, **kw):
+        raise NotImplementedError(
+            f"method {name!r} is not ported yet (ROADMAP queue 1, item 6)")
+    return factory
+
+
+ESTIMATORS = {
+    "marina": _marina_factory,
+    **{nm: _not_ported(nm) for nm in ("sgd", "sgdm", "csgd", "diana", "mvr",
+                                      "svrg", "byz_ef21", "cmfilter",
+                                      "saga")},
+}
+
+
+def get_estimator(name: str, cfg, **kw) -> GradientEstimator:
+    if name not in ESTIMATORS:
+        raise KeyError(f"unknown method {name!r}; known: {sorted(ESTIMATORS)}")
+    return ESTIMATORS[name](cfg, **kw)

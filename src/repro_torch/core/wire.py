@@ -1,0 +1,222 @@
+"""The wire protocol layer: compressed payloads from worker to kernel
+(port of ``repro/core/wire.py``, sparse RandK wire, unguarded).
+
+Under ``agg_mode="pallas"`` MARINA's VR round hands the engine a
+``WireCandidates`` payload instead of the dense candidate tree; the
+robust-aggregation kernel rebuilds ``cand = base + decode(payload)`` per
+tile, so the dense (n, d) candidates never exist in device memory.
+
+* ``pack_candidates``  — per (worker, leaf) packing on compress_tree's key
+                         schedule (fold_in(worker_key, leaf_index)), so the
+                         RandK supports equal the dense compressor's.
+* ``decoded_payload``  — dense tree equal to compress_tree per worker.
+* ``reconstruct``      — the dense candidate tree (base + decoded).
+* ``wire_stats``       — good-worker mean/std read from the wire with flat
+                         scatter-adds, never an (n, d) scatter.
+* ``wire_message_phase`` — attack + aggregation over the wire.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch import random as R
+from repro_torch.core import tree_utils as tu
+from repro_torch.core.compressors import _MAX_UNITS
+from repro_torch.kernels import quantize
+
+
+@dataclasses.dataclass(frozen=True)
+class WireCandidates:
+    """A stacked candidate tree in wire form. ``payloads[j]`` is leaf j's
+    packed dict (worker-stacked); ``base`` None or a tuple of (rows, d_j)
+    bases; ``names`` the tree's sorted keys; ``dtypes`` the oracle
+    candidate dtypes, ``src_dtypes`` the compressed leaves' own."""
+    fmt: str
+    n: int
+    payloads: tuple
+    base: Optional[tuple]
+    names: tuple
+    shapes: tuple
+    dtypes: tuple
+    src_dtypes: tuple
+
+
+def _leaf_d(shape) -> int:
+    return int(math.prod(shape)) if shape else 1
+
+
+def wire_supported(cfg, stacked=None) -> bool:
+    """Whether (cfg, candidate tree) routes through the fused wire: the
+    pallas backend, a kernel wire format, and RandK leaves inside the
+    per-coordinate selection regime."""
+    comp = getattr(cfg, "compressor", None)
+    if comp is None or getattr(cfg, "agg_mode", None) != "pallas":
+        return False
+    fmt = comp.wire_format
+    if fmt is None or fmt == "dense32" or comp.fallback_only:
+        return False
+    if fmt == "sparse" and stacked is not None:
+        if any(_leaf_d(l.shape[1:]) > _MAX_UNITS for l in tu.leaves(stacked)):
+            return False
+    return True
+
+
+def pack_candidates(compressor, qkeys, stacked: dict, *, base=None,
+                    base_shared: bool = False) -> WireCandidates:
+    """Pack the stacked tree; leaf i of worker w packs under
+    fold_in(qkeys[w], i), as compress_tree does."""
+    if compressor.wire_format != "sparse":
+        raise NotImplementedError(
+            f"wire format {compressor.wire_format!r} is not ported yet "
+            "(ROADMAP queue 2)")
+    names = tuple(sorted(stacked))
+    n = stacked[names[0]].shape[0]
+    base_leaves = tu.leaves(base) if base is not None else [None] * len(names)
+    payloads, bases, shapes, dtypes, src_dtypes = [], [], [], [], []
+    for i, name in enumerate(names):
+        leaf = stacked[name]
+        payloads.append(quantize.pack_sparse(
+            R.fold_in(qkeys, i), leaf.reshape(n, -1), compressor.ratio,
+            topk=compressor.contractive_fn is not None))
+        shapes.append(tuple(leaf.shape[1:]))
+        src_dtypes.append(leaf.dtype)
+        b = base_leaves[i]
+        if b is None:
+            bases.append(None)
+            dtypes.append(leaf.dtype)
+        else:
+            bases.append(b.reshape(1 if base_shared else n, -1))
+            dtypes.append(torch.promote_types(b.dtype, leaf.dtype))
+    return WireCandidates(
+        fmt="sparse", n=n, payloads=tuple(payloads),
+        base=None if base is None else tuple(bases), names=names,
+        shapes=tuple(shapes), dtypes=tuple(dtypes),
+        src_dtypes=tuple(src_dtypes))
+
+
+def decoded_payload(wc: WireCandidates) -> dict:
+    """Stacked dense tree equal to compress_tree per worker."""
+    return {name: quantize.decode(wc.fmt, p, _leaf_d(sh)).to(dt)
+            .reshape((wc.n,) + sh)
+            for name, p, sh, dt in zip(wc.names, wc.payloads, wc.shapes,
+                                       wc.src_dtypes)}
+
+
+def reconstruct(wc: WireCandidates) -> dict:
+    """The dense candidate tree: decode -> candidate dtype -> + base ->
+    candidate dtype."""
+    out = {}
+    for j, (name, p, sh, dt) in enumerate(zip(wc.names, wc.payloads,
+                                              wc.shapes, wc.dtypes)):
+        x = quantize.decode(wc.fmt, p, _leaf_d(sh)).to(dt)
+        if wc.base is not None:
+            x = (x.float() + wc.base[j].float()).to(dt)
+        out[name] = x.expand(wc.n, -1).reshape((wc.n,) + sh)
+    return out
+
+
+def wire_srcs(wc: WireCandidates) -> list:
+    """Per-leaf ``quantize.WireSrc`` kernel inputs."""
+    return [quantize.WireSrc(
+        fmt=wc.fmt, n=wc.n, d=_leaf_d(sh),
+        arrays=tuple((nm, a.reshape(wc.n, -1)) for nm, a in p.items()),
+        base=None if wc.base is None else wc.base[j], cand_dtype=dt)
+        for j, (p, sh, dt) in enumerate(zip(wc.payloads, wc.shapes,
+                                            wc.dtypes))]
+
+
+def _semantic_bits(fmt, d, *, k=None, vbits=32) -> float:
+    """Bits one worker's leaf payload carries (sparse: values + 32-bit
+    indices)."""
+    if fmt == "sparse":
+        return k * (vbits + 32)
+    raise NotImplementedError(
+        f"wire format {fmt!r} is not ported yet (ROADMAP queue 2)")
+
+
+def tree_wire_bits(compressor, stacked: dict) -> float:
+    """Per-worker wire bits of one compressed upload of ``stacked``, from
+    static shapes (the twin of the reference's measured bits)."""
+    fmt = compressor.wire_format
+    leaves = tu.leaves(stacked)
+    dims = [_leaf_d(l.shape[1:]) for l in leaves]
+    if fmt in (None, "dense32") or compressor.fallback_only:
+        return compressor.tree_bits(dims)
+    total = 0.0
+    for leaf, d in zip(leaves, dims):
+        total += _semantic_bits(fmt, d, k=max(int(compressor.ratio * d), 1),
+                                vbits=leaf.element_size() * 8)
+    return float(total)
+
+
+def wire_stats(wc: WireCandidates, good_mask):
+    """Good-worker per-coordinate (mean, std) of the candidates, as
+    per-leaf flat (d_j,) lists, from the sparse wire: a flat scatter-add
+    for Σ w·q and gathered cross-terms for Σ w·(x - m)²."""
+    g = good_mask.float()
+    cnt = torch.clamp(g.sum(), min=1.0)
+    w = g[:, None]
+    means, stds = [], []
+    for j, (p, sh, dt) in enumerate(zip(wc.payloads, wc.shapes, wc.dtypes)):
+        if wc.fmt != "sparse" or dt != torch.float32:
+            raise NotImplementedError(
+                "wire stats of non-float32 or non-sparse payloads are not "
+                "ported yet (ROADMAP queue 2)")
+        d = _leaf_d(sh)
+        base = None if wc.base is None else wc.base[j]
+        vals = p["vals"].float()                          # (n, k)
+        idx = p["idx"].long()                             # (n, k)
+        fi = idx.reshape(-1)
+        zeros = torch.zeros(d, dtype=torch.float32, device=vals.device)
+        qsum = zeros.index_add(0, fi, (w * vals).reshape(-1))
+        if base is None:
+            m = qsum / cnt
+            s2 = zeros.index_add(0, fi, (w * vals * vals).reshape(-1))
+            var = s2 / cnt - m.square()
+        else:
+            bf = base.float()                             # (rows, d)
+            per_worker = bf.shape[0] == wc.n
+            bmean = (bf * w).sum(0) / cnt if per_worker else bf[0]
+            m = bmean + qsum / cnt
+            db = bf - m[None]
+            t1 = ((db.square() * w).sum(0) if per_worker
+                  else cnt * db[0].square())
+            bg = torch.gather(bf, 1, idx) if per_worker else bf[0][idx]
+            mg = m[idx]
+            cross = zeros.index_add(
+                0, fi, (w * vals * (2.0 * (bg - mg) + vals)).reshape(-1))
+            var = (t1 + cross) / cnt
+        means.append(m)
+        stds.append(torch.sqrt(torch.clamp(var, min=0.0)))
+    return means, stds
+
+
+def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
+    """Omniscient attack + robust aggregation over a wire payload: the
+    kernel-fusable attacks ride into the kernel; other backends
+    reconstruct densely."""
+    from repro_torch.core import engine
+    from repro_torch.core.sharded_agg import AttackCtx, \
+        tree_aggregate_pallas_wire
+    if cfg.agg_mode != "pallas":
+        sent = engine.apply_attack(cfg, attack_key, reconstruct(wc))
+        return engine.aggregate(cfg, agg_key, sent)
+    if cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF"):
+        return tree_aggregate_pallas_wire(cfg, agg_key, wc)
+    if cfg.attack.coord_apply is None:
+        raise NotImplementedError(
+            f"attack {cfg.attack.name!r} over the wire is not ported yet "
+            "(ROADMAP queue 1, item 3)")
+    mask = cfg.byz_mask(wc.payloads[0]["vals"].device)
+    means = stds = None
+    if cfg.attack.needs_mean or cfg.attack.needs_std:
+        means, stds = wire_stats(wc, ~mask)
+        if not cfg.attack.needs_std:
+            stds = None
+    ctx = AttackCtx(fn=cfg.attack.coord_apply, mask=mask, means=means,
+                    stds=stds)
+    return tree_aggregate_pallas_wire(cfg, agg_key, wc, attack_ctx=ctx)

@@ -1,0 +1,202 @@
+"""Counter-based random numbers that reproduce ``jax.random`` bit for bit.
+
+Every trajectory of the reference is a pure function of (spec, seed)
+through ``jax.random``'s threefry2x32 generator: minibatch ``randint``,
+the c_k ``bernoulli`` coin, RandK and bucketing ``permutation``s, and the
+synthetic data's ``normal``s. A ``torch.Generator`` cannot produce those
+streams, so this module re-implements them in plain PyTorch.
+
+A key is an int64 tensor whose last axis holds the two uint32 words of a
+JAX key (values masked to 32 bits; int64 because ``torch.uint32`` lacks
+most ops). Keys may carry leading batch axes: ``split``, ``fold_in`` and
+every sampler broadcast over them, so one call serves all workers.
+
+Layout follows JAX 0.9.0 with ``jax_threefry_partitionable=True``:
+
+* ``split(key, num)[i]`` and ``fold_in(key, i)`` are both
+  threefry2x32(key, (0, i));
+* ``random_bits(key, shape)`` hashes the flat iota split into (hi, lo)
+  words and xors the two output words;
+* ``uniform`` fills the mantissa of a float in [1, 2) and subtracts 1;
+* ``randint`` combines two bit streams by modular arithmetic in uint32;
+* ``permutation`` sorts by fresh 32-bit keys in
+  ceil(3·ln(n)/ln(2³²−1)) stable rounds;
+* ``normal`` is sqrt(2)·erfinv(u) with XLA's single-precision erfinv
+  polynomial (Giles), kept here so generated data agrees to 1–2 ulp.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _u32(x):
+    return x & _MASK
+
+
+def _rotl(v, r: int):
+    return ((v << r) | (v >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1, k2, x0, x1):
+    """The 20-round threefry2x32 hash on broadcastable int64 tensors of
+    uint32 values; returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x0 = _u32(x0 + ks[0])
+    x1 = _u32(x1 + ks[1])
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = _u32(x0 + x1)
+            x1 = _rotl(x1, r) ^ x0
+        x0 = _u32(x0 + ks[(i + 1) % 3])
+        x1 = _u32(x1 + ks[(i + 2) % 3] + (i + 1))
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: (0, seed)."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
+                        device=device)
+
+
+def _words(key):
+    """Split a (..., 2) key into its two words, each (..., 1) so they
+    broadcast against a trailing counter axis."""
+    return key[..., 0:1], key[..., 1:2]
+
+
+def _hash_counters(key, lo, shape):
+    """threefry(key, (0, lo)) with lo a flat counter vector; output words
+    shaped key.shape[:-1] + shape."""
+    k1, k2 = _words(key)
+    y0, y1 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    out_shape = tuple(key.shape[:-1]) + tuple(shape)
+    return y0.reshape(out_shape), y1.reshape(out_shape)
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """(..., 2) -> (..., num, 2)."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = _hash_counters(key, lo, (num,))
+    return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in(key, data) -> torch.Tensor:
+    """``jax.random.fold_in``. ``data`` is an int or an int tensor; a
+    tensor of shape S gives keys of shape key.shape[:-1] + S + (2,)."""
+    if isinstance(data, int):
+        lo = torch.tensor([data & _MASK], dtype=torch.int64, device=key.device)
+        y0, y1 = _hash_counters(key, lo, ())
+    else:
+        data = torch.as_tensor(data, device=key.device).to(torch.int64)
+        y0, y1 = _hash_counters(key, _u32(data.reshape(-1)), data.shape)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits(key, shape: Sequence[int] = ()) -> torch.Tensor:
+    """32 random bits per element (as int64 in [0, 2³²)), shape
+    key.shape[:-1] + shape."""
+    shape = tuple(shape)
+    size = math.prod(shape)
+    if size >= 2 ** 32:
+        raise NotImplementedError("random_bits beyond 2**32 elements")
+    lo = torch.arange(size, dtype=torch.int64, device=key.device)
+    y0, y1 = _hash_counters(key, lo, shape)
+    return y0 ^ y1
+
+
+def _bits_to_unit(bits):
+    """uint32 bits -> float32 in [0, 1) through the mantissa of [1, 2)."""
+    fb = (bits >> 9) | 0x3F800000
+    return fb.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key, shape: Sequence[int] = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 uniform on [minval, maxval)."""
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    floats = _bits_to_unit(random_bits(key, shape))
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def bernoulli(key, p: float, shape: Sequence[int] = ()) -> torch.Tensor:
+    """bool tensor, True with probability p (uniform < float32(p))."""
+    pf = torch.tensor(p, dtype=torch.float32, device=key.device)
+    return uniform(key, shape) < pf
+
+
+def randint(key, shape: Sequence[int], minval: int, maxval: int):
+    """int64 values in [minval, maxval) with JAX's 2×32-bit modular
+    reduction (the values JAX returns as int32)."""
+    keys = split(key, 2)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    span = max(int(maxval) - int(minval), 1) & _MASK
+    multiplier = _u32((2 ** 16 % span) ** 2) % span
+    offset = _u32((higher % span) * multiplier)
+    offset = _u32(offset + lower % span) % span
+    return offset + int(minval)
+
+
+def _shuffle_rounds(n: int) -> int:
+    return int(np.ceil(3 * np.log(max(1, n))
+                       / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(key, n: int) -> torch.Tensor:
+    """A random permutation of arange(n), shape key.shape[:-1] + (n,):
+    repeated stable sorts by fresh 32-bit keys, as ``jax.random``'s
+    ``_shuffle`` (``lax.sort_key_val`` is stable)."""
+    batch = tuple(key.shape[:-1])
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    x = x.expand(batch + (n,))
+    for _ in range(_shuffle_rounds(n)):
+        keys = split(key, 2)
+        key, subkey = keys[..., 0, :], keys[..., 1, :]
+        order = torch.sort(random_bits(subkey, (n,)), dim=-1,
+                           stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x.contiguous()
+
+
+# Giles' single-precision erfinv, as XLA lowers ``lax.erf_inv`` for f32.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function by Giles' polynomial. The Horner
+    steps are fused multiply-adds, as XLA's CPU backend contracts them:
+    the float32 product is exact in float64, so one float64 add and one
+    rounding to float32 give the fused result."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    coef = [torch.tensor(c, dtype=torch.float32, device=x.device).double()
+            for c in _ERFINV_LT5 + _ERFINV_GE5]
+    p = torch.where(lt, coef[0], coef[9]).float()
+    for a, b in zip(coef[1:9], coef[10:]):
+        p = (torch.where(lt, a, b) + p.double() * w).float()
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       out)
+
+
+def normal(key, shape: Sequence[int] = ()) -> torch.Tensor:
+    """float32 standard normals: sqrt(2)·erfinv(u), u uniform on
+    (-1, 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return erfinv(u) * float(np.float32(np.sqrt(2)))
