@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card and times both,
-then drives the port's main path — Byz-VR-MARINA with RandK, ALIE and
-bucketed coordinate-wise median on a9a-width logistic regression — through
-``repro_torch.api.run`` and checks that every aggregation went through the
-kernel and that the first rounds agree with the plain CPU path. Any failure
-raises and exits non-zero. The last line is the device JSON; the line
-before it is the per-kernel JSON. Needs one CUDA card; exits non-zero
-without one. Imports nothing of JAX.
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, all at once), holds each against its plain
+PyTorch version on the card, checks that the norm kernels repeat bit for
+bit, and times kernel, plain version and a library call. Then it drives
+the port's main path — Byz-VR-MARINA with RandK, ALIE and bucketing s = 2
+on a9a-width logistic regression — through ``repro_torch.api.run`` three
+times, with coordinate-wise median, RFA and Krum, and checks that every
+aggregation went through the kernels (launch counts against each rule's
+formula) and that the first rounds agree with the plain CPU path. Any
+failure raises and exits non-zero. The last line is the device JSON; the
+line before it is the per-kernel JSON. Needs one CUDA card; exits
+non-zero without one. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ MAIN_STEPS = 300
 CPU_CHECK_STEPS = 30
 TRAJ_TOL = 2e-5
 KERNEL_TOL = 1e-5                # x max|input|: W·x sums in another order
+SUM_TOL = 1e-5                   # x the largest entry: sums over d in
+WIDE_SUM_TOL = 1e-4              # another order (main path / full width)
 
 MAIN_SPEC = dict(
     task="logreg", method="marina", n_workers=5, n_byz=1, attack="ALIE",
@@ -60,7 +65,20 @@ WIDE_CASES = [
 REPLACES = {
     "dense": "src/repro/kernels/robust_agg.py:142",
     "sparse_wire": "src/repro/kernels/quantize.py:383",
+    "pair_gram": "src/repro/kernels/norm_agg.py:220",
+    "rfa_iter": "src/repro/kernels/norm_agg.py:262",
+    "weighted_sum": "src/repro/kernels/norm_agg.py:297",
 }
+
+# the norm kernels' cases: (kind, label, n, d, k or None, base rows, s);
+# ALIE on max(1, n // 5) rows as above
+NORM_MAIN_CASES = [c[:7] for c in MAIN_CASES]
+NORM_WIDE_CASES = [c[:7] for c in WIDE_CASES[:2]] + [
+    ("dense", f"MAX_FUSED_WORKERS, s={s}", 64, 1_048_576, None, 0, s)
+    for s in (0, 2)]
+NORM_KERNELS = ("pair_gram", "rfa_iter", "weighted_sum")
+NO_LIBRARY = {"rfa_iter": "no single PyTorch call computes z = wᵀ·xb and "
+                          "the distances of the rows to it"}
 
 
 def gpu_line() -> str:
@@ -88,10 +106,11 @@ def cuda_ms(fn) -> float:
     return statistics.median(times)
 
 
-def make_case(n, d, k, base_rows, s, rule, dev):
-    """Inputs of one kernel call, made on the card from a fixed seed."""
+def make_inputs(n, d, k, base_rows, s, dev):
+    """(x, w, mask, mean, std) of one kernel call, made on the card from a
+    fixed seed, and the bytes of x (dense stack, or wire payload, base and
+    row pointers)."""
     from repro_torch import random as R
-    from repro_torch.core.attacks import CoordAttack
     from repro_torch.kernels import norm_agg, quantize
     g = torch.Generator(device=dev).manual_seed(n * 7919 + d)
     mask = torch.arange(n, device=dev) < max(1, n // 5)
@@ -114,9 +133,16 @@ def make_case(n, d, k, base_rows, s, rule, dev):
     if s > 1:
         perm = R.permutation(R.PRNGKey(n, device=dev), n)
         w = norm_agg.bucket_matrix(perm, n, s)
+    return (x, w, mask, mean, std), in_bytes
+
+
+def make_case(n, d, k, base_rows, s, rule, dev):
+    """Inputs of one robust_agg call, its bytes and operations."""
+    from repro_torch.core.attacks import CoordAttack
+    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev)
+    w = args[1]
     m = n if w is None else w.shape[0]
     kw = dict(rule=rule, trim=1, attack=CoordAttack("ALIE", 1.06))
-    args = (x, w, mask, mean, std)
     bytes_moved = in_bytes + 3 * d * 4            # + mean, std, out
     rule_ops = m if rule == "mean" else m * max(1, math.ceil(math.log2(m)))
     ops = d * (2 + (2 * m * n if w is not None else 0) + rule_ops)
@@ -160,13 +186,11 @@ def kernel_case(case, dev):
     plain_ms = cuda_ms(lambda: robust_agg_plain(*args, **kw))
     lib = library_call(args, kw)
     library_ms = None if lib is None else cuda_ms(lib)
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    bound_ms, bound_by = bound_of(bytes_moved, ops)
     row = {"kind": kind, "label": label, "n": n, "d": d, "k": k,
            "base_rows": base_rows, "s": s, "rule": rule,
            "max_abs_err": err, "err_limit": limit, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": ("bytes" if bytes_moved / HBM_BYTES_PER_S
-                        >= ops / FP32_OPS_PER_S else "operations"),
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms, "bytes": bytes_moved, "ops": ops}
     print(f"[kernel] {kind:11s} {label}: n={n} d={d} k={k} s={s} {rule} | "
           f"max abs err {err:.3e} (limit {limit:.3e}) | kernel {ms:.4f} ms"
@@ -179,57 +203,204 @@ def kernel_case(case, dev):
     return row
 
 
-def main_path(dev):
-    from repro_torch.api import RunSpec, run
+def bound_of(bytes_moved, ops):
+    """(ms, what bounds it): the least time for these bytes and operations
+    on the card."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S
+    by_ops = ops / FP32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def norm_case(case, dev):
+    """Each norm kernel on one case: against its plain version, twice for
+    bit-for-bit repeatability, and timed beside its plain version and a
+    library call. Returns one row per kernel."""
+    from repro_torch.core.attacks import CoordAttack
+    from repro_torch.kernels import norm_agg as N
+    kind, label, n, d, k, base_rows, s = case
+    (x, w, mask, mean, std), in_bytes = make_inputs(n, d, k, base_rows, s,
+                                                    dev)
+    alie = CoordAttack("ALIE", 1.06)
+    m = n if w is None else w.shape[0]
+    g = torch.Generator(device=dev).manual_seed(m)
+    wr = torch.rand(m, device=dev, generator=g) + 0.1
+    wr = wr / wr.sum()
+    wn = wr if w is None else wr @ w                   # w_eff, as the drivers
+    sent = N.prologue(N.stack(x), None, mask, mean, std, alie)
+    xb = sent if w is None else w @ sent
+    scale = max(1.0, float(sent.abs().max()))
+    sum_tol = WIDE_SUM_TOL if d > 1_000_000 else SUM_TOL
+    base_bytes = in_bytes + 2 * d * 4                   # + mean, std
+    w_ops = 2 + (2 * m * n if w is not None else 0)     # forge, W·x
+    spec = {
+        "pair_gram": (
+            lambda: N.pair_gram(x, w, mask, mean, std, attack=alie),
+            lambda: N.pair_gram_plain(x, w, mask, mean, std, attack=alie),
+            lambda: torch.matmul(xb, xb.T),
+            base_bytes + m * m * 4, d * (w_ops + m * (m + 1))),
+        "rfa_iter": (
+            lambda: N.rfa_iter(x, wr, w, mask, mean, std, attack=alie),
+            lambda: N.rfa_iter_plain(x, wr, w, mask, mean, std,
+                                     attack=alie),
+            None, base_bytes + 2 * m * 4 + d * 4, d * (w_ops + 5 * m)),
+        "weighted_sum": (
+            lambda: N.weighted_sum(x, wn, mask, mean, std, attack=alie),
+            lambda: N.weighted_sum_plain(x, wn, mask, mean, std,
+                                         attack=alie),
+            lambda: torch.mv(sent.T, wn),
+            base_bytes + n * 4 + d * 4, d * (2 + 2 * n)),
+    }
+    rows = []
+    for name, (kern, plain, lib, bytes_moved, ops) in spec.items():
+        first, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if name == "rfa_iter":
+            repeat = all(torch.equal(a, b) for a, b in zip(first, again))
+            errs = [float((first[0] - want[0]).abs().max()),
+                    float((first[1] - want[1]).abs().max())]
+            limits = [KERNEL_TOL * scale,
+                      sum_tol * max(1.0, float(want[1].max()))]
+            ok = all(torch.isfinite(t).all() for t in first)
+        else:
+            repeat = torch.equal(first, again)
+            errs = [float((first - want).abs().max())]
+            limits = [sum_tol * max(1.0, float(want.abs().max()))
+                      if name == "pair_gram" else KERNEL_TOL * scale]
+            ok = bool(torch.isfinite(first).all())
+        if not (ok and repeat and all(e <= lim for e, lim in zip(errs,
+                                                                  limits))):
+            raise AssertionError(
+                f"{name} {label}: errors {errs} vs limits {limits}, "
+                f"finite {ok}, bitwise repeat {repeat}")
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain)
+        library_ms = None if lib is None else cuda_ms(lib)
+        bound_ms, bound_by = bound_of(bytes_moved, ops)
+        row = {"kernel": name, "kind": kind, "label": label, "n": n, "d": d,
+               "k": k, "base_rows": base_rows, "s": s,
+               "max_abs_err": max(errs), "errs": errs, "err_limits": limits,
+               "bitwise_repeat": repeat, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "bytes": bytes_moved, "ops": ops}
+        rows.append(row)
+        lib_txt = ("n/a" if library_ms is None else f"{library_ms:.4f} ms")
+        print(f"[kernel] {name:12s} {kind:11s} {label}: n={n} d={d} k={k} "
+              f"s={s} | errs {', '.join(f'{e:.3e}' for e in errs)} (limits "
+              f"{', '.join(f'{v:.3e}' for v in limits)}) repeat bitwise | "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"{bound_ms:.4f} ms ({bound_by}) library {lib_txt}",
+              flush=True)
+        del first, again, want
+    del x, w, mean, std, sent, xb, spec
+    torch.cuda.empty_cache()
+    return rows
+
+
+def reset_counts():
+    from repro_torch.kernels import norm_agg
     from repro_torch.kernels.robust_agg import robust_agg
-    spec = RunSpec(**MAIN_SPEC)
     robust_agg.launches = robust_agg.wire_launches = 0
+    for name in NORM_KERNELS:
+        getattr(norm_agg, name).launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import norm_agg
+    from repro_torch.kernels.robust_agg import robust_agg
+    counts = {"robust_agg": robust_agg.launches,
+              "robust_agg_wire": robust_agg.wire_launches}
+    counts.update({name: getattr(norm_agg, name).launches
+                   for name in NORM_KERNELS})
+    return counts
+
+
+def expected_counts(aggregator, full, vr) -> dict:
+    """Launches of one run: one init aggregation and F full rounds on the
+    packed b+w segment, V VR rounds on two wire leaves; RFA makes T = 8
+    Weiszfeld passes and a weighted sum per segment, Krum a Gram and a
+    weighted sum."""
+    agg_rounds = 1 + full
+    counts = dict.fromkeys(("robust_agg", "robust_agg_wire")
+                           + NORM_KERNELS, 0)
+    if aggregator == "cm":
+        counts["robust_agg"] = agg_rounds + 2 * vr
+        counts["robust_agg_wire"] = 2 * vr
+    elif aggregator == "rfa":
+        counts["rfa_iter"] = 8 * agg_rounds + 16 * vr
+        counts["weighted_sum"] = agg_rounds + 2 * vr
+    else:
+        counts["pair_gram"] = counts["weighted_sum"] = agg_rounds + 2 * vr
+    return counts
+
+
+def main_path(dev, aggregator):
+    from repro_torch.api import RunSpec, run
+    spec = {**MAIN_SPEC, "aggregator": aggregator}
+    reset_counts()
     t0 = time.time()
-    res = run(spec, device=dev, log_every=1)
+    res = run(RunSpec(**spec), device=dev, log_every=1)
     wall = time.time() - t0
-    launches = robust_agg.launches
-    wire_launches = robust_agg.wire_launches
+    counts = read_counts()
     hist = res.history
     losses = [h["loss"] for h in hist]
     ck = [int(h["c_k"]) for h in hist]
     full = sum(ck)
     vr = len(ck) - full
     for h in hist[::50] + [hist[-1]]:
-        print(f"[main] step {h['step']:4d} loss {h['loss']:.6f} "
-              f"c_k={int(h['c_k'])}", flush=True)
+        print(f"[main {aggregator}] step {h['step']:4d} loss "
+              f"{h['loss']:.6f} c_k={int(h['c_k'])}", flush=True)
     per_round_ms = res.wall_s / len(hist) * 1e3
-    print(f"[main] {len(hist)} rounds, {full} full (c_k=1), {vr} VR; "
-          f"{per_round_ms:.3f} ms per round (host clock, loop only); "
-          f"run() wall {wall:.2f} s incl. data and init; "
-          f"robust_agg.launches={launches} (wire {wire_launches})",
-          flush=True)
+    print(f"[main {aggregator}] {len(hist)} rounds, {full} full (c_k=1), "
+          f"{vr} VR; {per_round_ms:.3f} ms per round (host clock, loop "
+          f"only); run() wall {wall:.2f} s incl. data and init; launches "
+          f"{counts}", flush=True)
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError("non-finite loss on the main path")
+        raise AssertionError(f"non-finite loss on the {aggregator} path")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"final loss {losses[-1]} not below the first "
-                             f"{losses[0]}")
-    if launches != 1 + full + 2 * vr or wire_launches != 2 * vr:
+        raise AssertionError(f"{aggregator}: final loss {losses[-1]} not "
+                             f"below the first {losses[0]}")
+    want = expected_counts(aggregator, full, vr)
+    if counts != want:
         raise AssertionError(
-            f"robust_agg launched {launches} times ({wire_launches} wire), "
-            f"expected {1 + full + 2 * vr} ({2 * vr} wire): an aggregation "
-            "bypassed the kernel")
-    cpu = run(RunSpec(**{**MAIN_SPEC, "steps": CPU_CHECK_STEPS}),
-              device="cpu", log_every=1)
+            f"{aggregator}: launches {counts}, expected {want}: an "
+            "aggregation bypassed its kernel")
+    cpu = run(RunSpec(**{**spec, "steps": CPU_CHECK_STEPS}), device="cpu",
+              log_every=1)
     cpu_ck = [int(h["c_k"]) for h in cpu.history]
     if cpu_ck != ck[:CPU_CHECK_STEPS]:
-        raise AssertionError(f"c_k differs from the CPU path: {cpu_ck} vs "
-                             f"{ck[:CPU_CHECK_STEPS]}")
+        raise AssertionError(f"{aggregator}: c_k differs from the CPU path: "
+                             f"{cpu_ck} vs {ck[:CPU_CHECK_STEPS]}")
     diff = float(np.max(np.abs(np.array(losses[:CPU_CHECK_STEPS])
                                - [h["loss"] for h in cpu.history])))
-    print(f"[main] first {CPU_CHECK_STEPS} rounds vs the CPU plain path: "
-          f"c_k identical, max |loss diff| {diff:.3e} (limit {TRAJ_TOL})",
-          flush=True)
+    print(f"[main {aggregator}] first {CPU_CHECK_STEPS} rounds vs the CPU "
+          f"plain path: c_k identical, max |loss diff| {diff:.3e} (limit "
+          f"{TRAJ_TOL})", flush=True)
     if not diff <= TRAJ_TOL:
-        raise AssertionError(f"loss differs from the CPU path by {diff}")
-    return {"launches": launches, "wire_launches": wire_launches,
+        raise AssertionError(f"{aggregator}: loss differs from the CPU path "
+                             f"by {diff}")
+    return {"aggregator": aggregator, "launches": counts,
             "rounds": len(hist), "full_rounds": full,
-            "per_round_ms": per_round_ms, "final_loss": losses[-1],
-            "first_loss": losses[0], "cpu_loss_diff": diff}
+            "per_round_ms": per_round_ms, "run_wall_s": wall,
+            "final_loss": losses[-1], "first_loss": losses[0],
+            "cpu_loss_diff": diff}
+
+
+def kernel_entry(name, source, replaces, launches, rows):
+    """One entry of the kernels line, from the main-path cases' rows."""
+    if launches < 1:
+        raise AssertionError(f"{name} never ran on its main path")
+    libs = [r["library_ms"] for r in rows]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": statistics.mean(r["ms"] for r in rows),
+        "plain_ms": statistics.mean(r["plain_ms"] for r in rows),
+        "bound_ms": statistics.mean(r["bound_ms"] for r in rows),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                     else "operations"),
+        "library_ms": None if None in libs else statistics.mean(libs)}
 
 
 def main() -> int:
@@ -238,6 +409,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -252,32 +424,34 @@ def main() -> int:
               flush=True)
     main_rows = [kernel_case(c, dev) for c in MAIN_CASES]
     wide_rows = [kernel_case(c, dev) for c in WIDE_CASES]
-    mp = main_path(dev)
+    norm_main = [r for c in NORM_MAIN_CASES for r in norm_case(c, dev)]
+    norm_wide = [r for c in NORM_WIDE_CASES for r in norm_case(c, dev)]
+    paths = {agg: main_path(dev, agg) for agg in ("cm", "rfa", "krum")}
+    cm = paths["cm"]["launches"]
     kernels = []
     for kind in ("dense", "sparse_wire"):
         rows = [r for r in main_rows if r["kind"] == kind]
-        launches = (mp["wire_launches"] if kind == "sparse_wire"
-                    else mp["launches"] - mp["wire_launches"])
-        if launches < 1:
-            raise AssertionError(f"robust_agg ({kind}) never ran on the "
-                                 "main path")
-        kernels.append({
-            "name": f"robust_agg ({kind} load)", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/robust_agg.cu",
-            "replaces": REPLACES[kind], "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows) / len(rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows) / len(rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows) / len(rows),
-            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
-                                        for r in rows) else "operations"),
-            "library_ms": sum(r["library_ms"] for r in rows) / len(rows)})
+        launches = (cm["robust_agg_wire"] if kind == "sparse_wire"
+                    else cm["robust_agg"] - cm["robust_agg_wire"])
+        kernels.append(kernel_entry(
+            f"robust_agg ({kind} load)",
+            "src/repro_torch/kernels/csrc/robust_agg.cu", REPLACES[kind],
+            launches, rows))
+    for name in NORM_KERNELS:
+        launches = sum(p["launches"][name] for p in paths.values())
+        kernels.append(kernel_entry(
+            name, "src/repro_torch/kernels/csrc/norm_agg.cu",
+            REPLACES[name], launches,
+            [r for r in norm_main if r["kernel"] == name]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "main_cases": main_rows, "wide_cases": wide_rows, "main_path": mp,
-         "kernels": kernels}, indent=1))
+         "main_cases": main_rows, "wide_cases": wide_rows,
+         "norm_main_cases": norm_main, "norm_wide_cases": norm_wide,
+         "main_paths": paths, "no_library": NO_LIBRARY, "kernels": kernels,
+         "wall_s": time.time() - t_start}, indent=1))
+    print(f"[done] {time.time() - t_start:.1f} s in all", flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,17 @@
 """(δ, c)-robust aggregation rules with Alg. 2 bucketing (port of
-``repro/core/aggregators.py``): mean, coordinate-wise median (cm) and
-trimmed mean (tm). These plain versions are the gspmd backend and the
-reference the kernel backend is held to. RFA and Krum are named so specs
-validate, and raise ``NotImplementedError`` when used.
+``repro/core/aggregators.py``): mean, coordinate-wise median (cm),
+trimmed mean (tm), RFA (smoothed Weiszfeld) and Krum. These plain
+versions are the gspmd backend and the reference the kernel backend is
+held to. RFA and Krum take global distances, summed over the leaves of a
+tree. Not ported yet: the masked twins, the telemetry twin and the
+blocked Gram for n > 64 (ROADMAP queue 1, items 3, 7 and 8).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
@@ -23,6 +26,18 @@ def mean0(x, dim: int = 0):
     for r in rows[1:]:
         acc = acc + r
     return acc * (1.0 / len(rows))
+
+
+def weighted_rows(w, x):
+    """Σ_i w_i·x_i over axis 0 as the reference's compiled float32 code
+    takes it (an einsum, or a kernel's row sum): one fused multiply-add per
+    row, in row order. The float32 product is exact in float64, so a
+    float64 add rounded once to float32 gives the fused result (up to a
+    double rounding, as in ``attacks.alie_value``)."""
+    acc = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
+    for i in range(x.shape[0]):
+        acc = (acc.double() + w[i].double() * x[i].double()).float()
+    return acc
 
 
 def coord_median(x):
@@ -65,13 +80,43 @@ MAX_FUSED_WORKERS = 64
 
 RULES = ("mean", "cm", "tm", "rfa", "krum")
 
+
+def _tree_pair_sqdists(xs: dict):
+    """(n, n) global pairwise squared distances from a stacked tree."""
+    leaves = tu.leaves(xs)
+    n = leaves[0].shape[0]
+    if n > MAX_FUSED_WORKERS:
+        raise NotImplementedError(
+            f"Krum over n={n} > {MAX_FUSED_WORKERS} rows (the blocked Gram) "
+            "is not ported yet (ROADMAP queue 1, item 7)")
+    flats = [a.reshape(n, -1).float() for a in leaves]
+    sq = sum(torch.sum(f * f, dim=-1) for f in flats)
+    gram = sum(f @ f.T for f in flats)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * gram
+    return torch.clamp(d2, min=0.0)
+
+
+def _tree_sqdist_to(xs: dict, z: dict):
+    """(n,) global squared distances from each stacked row to tree z."""
+    def leaf(a, b):
+        diff = (a.float() - b.float()[None]).reshape(a.shape[0], -1)
+        return torch.sum(diff * diff, dim=-1)
+
+    return sum(leaf(a, b) for a, b in zip(tu.leaves(xs), tu.leaves(z)))
+
+
+def _tree_weighted_sum(w, xs: dict) -> dict:
+    return tu.tree_map(
+        lambda a: weighted_rows(w.float(), a.float()).to(a.dtype), xs)
+
+
 # registry rule name -> robust_agg kernel rule name
 COORD_KERNEL_RULE = {"mean": "mean", "cm": "median", "tm": "trimmed"}
 
 
 @dataclasses.dataclass(frozen=True)
 class Aggregator:
-    rule: str                    # mean | cm | tm (rfa | krum: not ported)
+    rule: str                    # mean | cm | tm | rfa | krum
     bucket_size: int = 0         # s; 0/1 = no bucketing
     trim: int = 1                # for tm
     n_byz: int = 1               # for krum
@@ -95,6 +140,13 @@ class Aggregator:
     def coordinatewise(self) -> bool:
         return self.rule in ("mean", "cm", "tm")
 
+    @property
+    def norm_based(self) -> bool:
+        """RFA / Krum: rules driven by global inter-worker distances,
+        served by the kernels of ``kernels/norm_agg`` under
+        agg_mode=pallas; this tree path is their parity oracle."""
+        return self.rule in ("rfa", "krum")
+
     def _rule(self, x):
         if self.rule == "mean":
             return mean0(x)
@@ -102,14 +154,14 @@ class Aggregator:
             return coord_median(x)
         if self.rule == "tm":
             return coord_trimmed_mean(x, self.trim)
-        raise NotImplementedError(
-            f"aggregator {self.rule!r} is not ported yet (ROADMAP queue 1, "
-            "item 3; kernels in queue 2)")
+        raise ValueError(self.rule)
 
     def __call__(self, key, x):
         """Flat stacked workers x (n, d) -> (d,)."""
         if self.bucket_size > 1 and self.rule != "mean":
             x = bucketize(key, x, self.bucket_size)
+        if self.norm_based:
+            return self._norm_tree({"x": x})["x"]
         return self._rule(x)
 
     def tree(self, key, xs: dict) -> dict:
@@ -120,14 +172,37 @@ class Aggregator:
             perm = R.permutation(key, n)
             xs = tu.tree_map(
                 lambda a: _bucketize_perm(a, perm, self.bucket_size), xs)
+        if self.norm_based:
+            return self._norm_tree(xs)
         return tu.tree_map(self._rule, xs)
+
+    def _norm_tree(self, xs: dict) -> dict:
+        return self._rfa_tree(xs) if self.rule == "rfa" else self._krum_tree(xs)
+
+    def _rfa_tree(self, xs: dict) -> dict:
+        """Geometric median via smoothed Weiszfeld (Pillutla et al. 2022)."""
+        z = tu.tree_map(mean0, xs)
+        for _ in range(self.iters):
+            sq = _tree_sqdist_to(xs, z)
+            w = 1.0 / torch.sqrt(sq + self.eps)
+            w = w / torch.sum(w)
+            z = _tree_weighted_sum(w, xs)
+        return z
+
+    def _krum_tree(self, xs: dict) -> dict:
+        """Krum (Eq. 15): the row minimizing the sum of squared distances
+        to its n - n_byz - 2 nearest neighbours."""
+        n = tu.leaves(xs)[0].shape[0]
+        d2 = _tree_pair_sqdists(xs)
+        d2 = d2 + torch.diag(torch.full((n,), float("inf"), dtype=d2.dtype,
+                                        device=d2.device))
+        k = max(n - self.n_byz - 2, 1)
+        scores = torch.sum(torch.sort(d2, dim=1).values[:, :k], dim=1)
+        onehot = F.one_hot(torch.argmin(scores), n).float()
+        return _tree_weighted_sum(onehot, xs)
 
 
 def get_aggregator(name: str, *, bucket_size: int = 0, **kw) -> Aggregator:
     if name not in RULES:
         raise ValueError(f"unknown aggregation rule {name!r}; known: {RULES}")
-    if name not in COORD_KERNEL_RULE:
-        raise NotImplementedError(
-            f"aggregator {name!r} is not ported yet (ROADMAP queue 1, item 3;"
-            " kernels in queue 2)")
     return Aggregator(rule=name, bucket_size=bucket_size, **kw)

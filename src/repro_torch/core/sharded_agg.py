@@ -1,13 +1,15 @@
 """The kernel aggregation backend, ``agg_mode="pallas"`` (port of the
-coordinate-rule part of ``repro/core/sharded_agg.py``).
+unguarded, n <= 64 part of ``repro/core/sharded_agg.py``).
 
-Leaves launch the robust-aggregation kernel leaf-wise and share one
-bucketing permutation, carried as the (nb, n) ``bucket_matrix``; leaves
-narrower than ``SMALL_LEAF_D`` pack into one (n, D) segment so they share
-a launch; a kernel-fusable attack rides into the kernel's load so the
-attacked stack is never written to device memory. RFA / Krum, the
-``all_to_all`` backend, staleness weights, the fault guard and n > 64
-workers are not ported yet (ROADMAP queue 1, items 3, 7, 10, 11).
+Every rule runs on the kernels: mean / cm / tm on the robust-aggregation
+kernel, RFA and Krum through the ``norm_agg`` drivers, whose distances
+stay global across leaves. Leaves share one bucketing permutation,
+carried as the (nb, n) ``bucket_matrix``; leaves narrower than
+``SMALL_LEAF_D`` pack into one (n, D) segment so they share a launch; a
+kernel-fusable attack rides into the kernels' load so the attacked stack
+is never written to device memory. The ``all_to_all`` backend, staleness
+weights, the fault guard, telemetry and n > 64 workers are not ported yet
+(ROADMAP queue 1, items 7, 8, 10, 11).
 """
 from __future__ import annotations
 
@@ -36,11 +38,7 @@ class AttackCtx:
     stds: object = None
 
 
-def _check_supported(agg, n):
-    if agg.rule not in COORD_KERNEL_RULE:
-        raise NotImplementedError(
-            f"aggregator {agg.rule!r} on the kernel backend is not ported "
-            "yet (ROADMAP queue 2)")
+def _check_supported(n):
     if n > MAX_FUSED_WORKERS:
         raise NotImplementedError(
             f"n={n} > {MAX_FUSED_WORKERS} workers is not ported yet "
@@ -52,6 +50,23 @@ def _bucket_operator(agg, key, n, device):
         perm = R.permutation(key, n)
         return norm_agg.bucket_matrix(perm, n, agg.bucket_size).to(device)
     return None
+
+
+def _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds):
+    """The rule over kernel inputs ``srcs`` (dense segments or WireSrcs):
+    one (d_j,) aggregate per input."""
+    if agg.rule == "rfa":
+        return norm_agg.rfa_segments(
+            srcs, w_mat=w_mat, mask=mask, means=means, stds=stds,
+            attack=attack_fn, iters=agg.iters, eps=agg.eps)
+    if agg.rule == "krum":
+        return norm_agg.krum_segments(
+            srcs, w_mat=w_mat, mask=mask, means=means, stds=stds,
+            attack=attack_fn, n_byz=agg.n_byz)
+    rule = COORD_KERNEL_RULE[agg.rule]
+    return [robust_agg(src, w_mat, mask, mu, sd, rule=rule, trim=agg.trim,
+                       attack=attack_fn)
+            for src, mu, sd in zip(srcs, means, stds)]
 
 
 def _segments(leaves, attack_ctx):
@@ -92,12 +107,12 @@ def _segments(leaves, attack_ctx):
 
 
 def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None) -> dict:
-    """Aggregate the stacked candidate tree through the kernel, one launch
-    per segment, with one shared bucket operator."""
+    """Aggregate the stacked candidate tree through the kernels, leaf-wise
+    by segment, with one shared bucket operator."""
     agg = cfg.aggregator
     leaves = tu.leaves(sent)
     n = leaves[0].shape[0]
-    _check_supported(agg, n)
+    _check_supported(n)
     w_mat = _bucket_operator(agg, key, n, leaves[0].device)
     attack_fn = mask = None
     ctx = None
@@ -108,10 +123,7 @@ def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None) -> dict:
             None if attack_ctx.means is None else tu.leaves(attack_ctx.means),
             None if attack_ctx.stds is None else tu.leaves(attack_ctx.stds))
     segs, means, stds, splits = _segments(leaves, ctx)
-    rule = COORD_KERNEL_RULE[agg.rule]
-    outs = [robust_agg(xs, w_mat, mask, mu, sd, rule=rule, trim=agg.trim,
-                       attack=attack_fn)
-            for xs, mu, sd in zip(segs, means, stds)]
+    outs = _rule_outs(agg, segs, w_mat, attack_fn, mask, means, stds)
     tree_out = [None] * len(leaves)
     for out, split in zip(outs, splits):
         for i, off, sz in split:
@@ -122,12 +134,12 @@ def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None) -> dict:
 
 def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None) -> dict:
     """Wire twin of ``tree_aggregate_pallas``: each leaf launches the
-    kernel on its ``quantize.WireSrc`` (no packing: payloads do not
+    kernels on its ``quantize.WireSrc`` (no packing: payloads do not
     concatenate); ``attack_ctx`` carries per-leaf flat stat lists."""
     from repro_torch.core import wire as W
     agg = cfg.aggregator
     n = wc.n
-    _check_supported(agg, n)
+    _check_supported(n)
     srcs = W.wire_srcs(wc)
     w_mat = _bucket_operator(agg, key, n, srcs[0].device)
     attack_fn = mask = None
@@ -138,10 +150,7 @@ def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None) -> dict:
             means = list(attack_ctx.means)
         if attack_ctx.stds is not None:
             stds = list(attack_ctx.stds)
-    rule = COORD_KERNEL_RULE[agg.rule]
-    outs = [robust_agg(src, w_mat, mask, mu, sd, rule=rule, trim=agg.trim,
-                       attack=attack_fn)
-            for src, mu, sd in zip(srcs, means, stds)]
+    outs = _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds)
     return {name: out.reshape(sh).to(dt)
             for name, out, sh, dt in zip(wc.names, outs, wc.shapes,
                                          wc.dtypes)}

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``nvcc`` into a shared library under ``build/repro_torch/`` at the
-repository root, named by a hash of its source and flags, so an edited
-source rebuilds and an unchanged one loads at once. ``build()`` starts one
+repository root, named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads at once. ``build()`` starts one
 ``nvcc`` per source, all together, and waits for them; its logs carry
 ``-Xptxas -v`` (registers, shared memory, spills). Nothing here runs at
 import: the CPU tests import every module on a machine without ``nvcc``.
@@ -38,8 +39,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    every shared header (``csrc/*.cuh``, in name order) and the flags, so
+    an edited header rebuilds every library."""
+    digest = hashlib.sha256()
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,108 @@
+"""What every CUDA aggregation launch shares: argument checks, and the
+worker-stack arguments that lead each entry point's C signature
+(``SRC_PARAMS`` in ``csrc/agg_prologue.cuh``), in that order."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.aggregators import MAX_FUSED_WORKERS
+from repro_torch.core.attacks import attack_code
+from repro_torch.kernels import quantize
+
+SRC_ARGTYPES = ([ctypes.c_void_p] * 4
+                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                + [ctypes.c_void_p] * 3
+                + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_longlong])
+
+
+def on_cpu(who: str, device) -> bool:
+    """A CPU tensor takes the plain version, a CUDA one the kernel; any
+    other device raises."""
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {device}")
+    return False
+
+
+def check(who, name, t, device, dtype, shape) -> int:
+    """Data pointer of ``t`` after checking what the kernel takes."""
+    if t.device != device:
+        raise ValueError(f"{who}: {name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{who}: {name} must be contiguous")
+    return t.data_ptr()
+
+
+def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile):
+    """(args, keep): the ``SRC_PARAMS`` of a launch on the dense (n, d)
+    float32 stack or sparse ``quantize.WireSrc`` ``x``, and the tensors
+    made here that must stay alive until the launch is enqueued."""
+    if not 1 <= n <= MAX_FUSED_WORKERS:
+        raise ValueError(f"{who} kernel takes 1..{MAX_FUSED_WORKERS} "
+                         f"workers, got {n}")
+    device = x.device
+    f32 = torch.float32
+    x_ptr = vals = idx = starts = base = None
+    k = base_rows = 0
+    keep = []
+    if isinstance(x, quantize.WireSrc):
+        if x.fmt != "sparse" or x.cand_dtype != f32:
+            raise NotImplementedError(
+                f"{who} kernel: {x.fmt} / {x.cand_dtype} wire loads are not "
+                "ported yet (ROADMAP queue 2)")
+        arr = dict(x.arrays)
+        k = arr["vals"].shape[1]
+        vals = check(who, "vals", arr["vals"], device, f32, (n, k))
+        idx = check(who, "idx", arr["idx"], device, torch.int32, (n, k))
+        st = quantize.wire_starts(arr["idx"], d, tile)
+        keep.append(st)
+        starts = st.data_ptr()
+        if x.base is not None:
+            base_rows = x.base.shape[0]
+            if base_rows not in (1, n):
+                raise ValueError(f"{who}: base has {base_rows} rows")
+            base = check(who, "base", x.base, device, f32, (base_rows, d))
+    else:
+        x_ptr = check(who, "x", x, device, f32, (n, d))
+    code = attack_code(attack)
+    mask_ptr = mean_ptr = std_ptr = None
+    if code:
+        if mask is None:
+            raise ValueError(f"{who}: an attack needs the byzantine mask")
+        if mask.dtype == torch.bool:
+            mask = mask.float()
+            keep.append(mask)
+        mask_ptr = check(who, "mask", mask, device, f32, (n,))
+        if attack.kind in ("ALIE", "IPM"):
+            mean_ptr = check(who, "good_mean", good_mean, device, f32, (d,))
+        if attack.kind == "ALIE":
+            std_ptr = check(who, "good_std", good_std, device, f32, (d,))
+    args = [x_ptr, vals, idx, starts, k, base, base_rows, mask_ptr, mean_ptr,
+            std_ptr, code, float(attack.param) if code else 0.0, n, d]
+    return args, keep
+
+
+def bucket_args(who, w_mat, n, device):
+    """(m, pointer) of the optional (m, n) bucket operator W."""
+    if w_mat is None:
+        return n, None
+    m = w_mat.shape[0]
+    return m, check(who, "w_mat", w_mat, device, torch.float32, (m, n))
+
+
+def stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on(who: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{who} kernel launch failed: CUDA error {err}")

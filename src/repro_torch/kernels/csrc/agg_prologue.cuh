@@ -1,0 +1,192 @@
+// Block load shared by the aggregation kernels for Hopper (robust_agg.cu,
+// norm_agg.cu): the port of repro/kernels/norm_agg.py::_prologue with the
+// sparse branch of repro/kernels/quantize.py::recon_block.
+//
+// A block owns TILE consecutive columns of the (n, d) worker stack, one
+// thread per column (blockDim.x == TILE). The load rebuilds the tile of the
+// n worker rows in shared memory, from the dense float32 stack or from the
+// sparse RandK wire payload plus a base of 0, 1 or n rows; replaces the
+// byzantine rows with the omniscient BF / ALIE / IPM value computed from the
+// good workers' per-coordinate mean / std; and, when a bucket operator is
+// given, forms xb = W x with the (m, n) Alg. 2 operator. Neither the
+// attacked stack nor the bucketed one (nor, on the wire, the dense
+// candidates) is ever written to device memory.
+//
+// Arithmetic follows the reference's compiled float32 code with explicitly
+// rounded intrinsics, so the compiler can neither fuse nor reorder it: the
+// ALIE value mean - z*std is one fused multiply-add, W x one fused
+// multiply-add per term in worker order.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define TILE 128
+
+enum { ATTACK_NONE = 0, ATTACK_BF = 1, ATTACK_ALIE = 2, ATTACK_IPM = 3 };
+
+// The worker stack and the attack inputs of one launch.
+struct Src {
+  const float* x;       // dense (n, d), or null for the sparse wire
+  const float* vals;    // sparse (n, k)
+  const int* idx;       // sparse (n, k), ascending within each row
+  const int* starts;    // sparse (n, n_tiles + 1) row pointers per tile
+  const float* base;    // (base_rows, d) or null
+  const float* mask;    // (n,) byzantine rows > 0, or null
+  const float* mean;    // (d,) or null
+  const float* stdv;    // (d,) or null
+  long long d;
+  int n, k, n_tiles, base_rows, attack;
+  float attack_param;
+};
+
+// The leading parameters of every launch entry point, and make_src(SRC_ARGS)
+// to gather them: the Python wrappers pass them in this order.
+#define SRC_PARAMS                                                          \
+  const float *x, const float *vals, const int *idx, const int *starts,     \
+      int k, const float *base, int base_rows, const float *mask,           \
+      const float *mean, const float *stdv, int attack, float attack_param, \
+      int n, long long d
+#define SRC_ARGS \
+  x, vals, idx, starts, k, base, base_rows, mask, mean, stdv, attack, \
+      attack_param, n, d
+
+inline Src make_src(SRC_PARAMS) {
+  Src a;
+  a.x = x; a.vals = vals; a.idx = idx; a.starts = starts; a.base = base;
+  a.mask = mask; a.mean = mean; a.stdv = stdv;
+  a.d = d; a.n = n; a.k = k; a.n_tiles = (int)((d + TILE - 1) / TILE);
+  a.base_rows = base_rows; a.attack = attack; a.attack_param = attack_param;
+  return a;
+}
+
+// Shared-memory carve of the load: the attacked stack x (n, TILE), the
+// bucketed stack b (m, TILE) and W (m, n) when bucketed, the mask (n,);
+// `rest` is where a kernel's own scratch begins.
+struct Smem {
+  float *x, *b, *w, *mask, *rest;
+};
+
+inline size_t prologue_words(int n, int m, bool bucketed) {
+  return (size_t)n * TILE + n
+      + (bucketed ? (size_t)m * TILE + (size_t)m * n : 0);
+}
+
+__device__ __forceinline__ Smem carve(float* smem, int n, int m,
+                                      bool bucketed) {
+  Smem s;
+  s.x = smem;
+  s.b = s.x + n * TILE;
+  s.w = s.b + (bucketed ? m * TILE : 0);
+  s.mask = s.w + (bucketed ? m * n : 0);
+  s.rest = s.mask + n;
+  return s;
+}
+
+// Copy the byzantine mask and, when given, W into shared memory. Readers
+// wait for the next barrier.
+__device__ __forceinline__ void stage_consts(const Src& a,
+                                             const float* w_mat, int m,
+                                             const Smem& s) {
+  const int tid = threadIdx.x;
+  if (w_mat)
+    for (int q = tid; q < m * a.n; q += TILE) s.w[q] = w_mat[q];
+  for (int q = tid; q < a.n; q += TILE) s.mask[q] = a.mask ? a.mask[q] : 0.f;
+}
+
+// Sparse wire: zero-fill the (n, TILE) tile `tile`, then scatter its
+// payload into it, one warp per worker row (RandK indices of a worker are
+// distinct, so no atomics). Ends without a barrier.
+__device__ __forceinline__ void scatter_tile(const Src& a, int tile,
+                                             float* s_x) {
+  const int tid = threadIdx.x;
+  const long long lo = (long long)tile * TILE;
+  for (int i = 0; i < a.n; ++i) s_x[i * TILE + tid] = 0.f;
+  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int i = warp; i < a.n; i += TILE / 32) {
+    const int* st = a.starts + (long long)i * (a.n_tiles + 1) + tile;
+    const int s = st[0], e = st[1];
+    const float* v = a.vals + (long long)i * a.k;
+    const int* ix = a.idx + (long long)i * a.k;
+    for (int p = s + lane; p < e; p += 32)
+      s_x[i * TILE + (int)(ix[p] - lo)] = v[p];
+  }
+}
+
+// Column c < d of the attacked stack into s_x[:, tid]: the dense rows, or
+// the scattered payload plus the base; byzantine rows take the forged value
+// (BF negates the row's own value).
+template <bool SPARSE>
+__device__ __forceinline__ void load_column(const Src& a, long long c,
+                                            const float* s_mask,
+                                            float* s_x) {
+  const int tid = threadIdx.x;
+  float forged = 0.f;     // the ALIE / IPM value of this column
+  if (a.attack == ATTACK_ALIE)
+    forged = __fmaf_rn(-a.attack_param, a.stdv[c], a.mean[c]);
+  else if (a.attack == ATTACK_IPM)
+    forged = __fmul_rn(-a.attack_param, a.mean[c]);
+  for (int i = 0; i < a.n; ++i) {
+    float v;
+    if (SPARSE) {
+      v = s_x[i * TILE + tid];
+      if (a.base)
+        v = __fadd_rn(v, a.base[(a.base_rows > 1 ? (long long)i * a.d : 0) + c]);
+    } else {
+      v = a.x[(long long)i * a.d + c];
+    }
+    if (a.attack != ATTACK_NONE && s_mask[i] > 0.f)
+      v = a.attack == ATTACK_BF ? -v : forged;
+    s_x[i * TILE + tid] = v;
+  }
+}
+
+// xb[:, tid] = W s_x[:, tid].
+__device__ __forceinline__ void bucket_column(const float* s_w,
+                                              const float* s_x, int n, int m,
+                                              float* s_b) {
+  const int tid = threadIdx.x;
+  for (int b = 0; b < m; ++b) {
+    float acc = 0.f;
+    for (int j = 0; j < n; ++j)
+      acc = __fmaf_rn(s_w[b * n + j], s_x[j * TILE + tid], acc);
+    s_b[b * TILE + tid] = acc;
+  }
+}
+
+// Tile `tile` into shared memory, for a block that loops over tiles:
+// s.x the attacked rows and s.b = W s.x when bucketed; columns past d are
+// zeros, which add nothing to a Gram or a sum of squares. Returns the rows
+// the rule reads. Starts with a barrier (the previous tile's readers are
+// done, the staged constants are visible) and ends without one: a thread
+// may read its own column at once, other columns after a __syncthreads().
+template <bool SPARSE>
+__device__ __forceinline__ const float* load_tile(const Src& a,
+                                                  const Smem& s,
+                                                  bool bucketed, int m,
+                                                  int tile) {
+  const int tid = threadIdx.x;
+  const long long c = (long long)tile * TILE + tid;
+  __syncthreads();
+  if (SPARSE) {
+    scatter_tile(a, tile, s.x);
+    __syncthreads();
+  }
+  if (c < a.d) {
+    load_column<SPARSE>(a, c, s.mask, s.x);
+    if (bucketed) bucket_column(s.w, s.x, a.n, m, s.b);
+  } else {
+    for (int i = 0; i < a.n; ++i) s.x[i * TILE + tid] = 0.f;
+    if (bucketed)
+      for (int b = 0; b < m; ++b) s.b[b * TILE + tid] = 0.f;
+  }
+  return bucketed ? s.b : s.x;
+}
+
+// Host: dynamic shared memory above 48 KB needs the attribute set first.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}

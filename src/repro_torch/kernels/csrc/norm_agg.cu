@@ -1,0 +1,294 @@
+// Norm-based aggregation kernels for Hopper (sm_90a): the passes Krum and
+// RFA (smoothed Weiszfeld) make over the attacked, bucketed worker stack.
+//
+// Replace the TPU kernels of repro/kernels/norm_agg.py:
+//   pair_gram     (m, m) Gram G = xb xb^T            (Krum's distances)
+//   rfa_iter      z = w^T xb and sq_b = |xb_b - z|^2 (one Weiszfeld pass)
+//   weighted_sum  sum_i w_i sent_i, bucketing folded into w
+// Each takes the dense (n, d) float32 stack or the sparse RandK wire, with
+// the fused BF / ALIE / IPM attack, through the block load of
+// agg_prologue.cuh, so neither the attacked nor the bucketed stack is
+// written to device memory.
+//
+// Bound: device-memory bytes. Each pass reads the stack (or the wire
+// payload) and mean / std once; the Gram adds m(m+1) flops per column,
+// from shared memory, which stays below the float32 rate for m <= 64.
+//
+// Design. On the TPU, pair_gram and rfa_iter accumulate over d into a
+// revisited output block along a sequential grid. Blocks on the card run in
+// any order, so a fixed grid of blocks (as many as are resident at once)
+// loops over the 128-column tiles; each block keeps its partial Gram, or
+// its per-row partial sums of squares, on chip, writes them once to a
+// (blocks, ...) workspace, and a second launch sums the partials over the
+// blocks in block order. No floating-point atomics: every sum is taken in
+// a fixed order, so a call repeats bit for bit, and Krum's argmin and RFA's
+// trajectory with it.
+//   pair_gram: the upper triangle of xb xb^T. Each of the m(m+1)/2 pairs is
+//     a dot product over the tile's columns in shared memory, split over
+//     `lanes` threads (1 to 32, as many as 128 threads allow) and reduced
+//     with a warp shuffle; lanes start at rotated columns, so the threads
+//     of a warp hit distinct banks.
+//   rfa_iter: one thread per column computes z_c (one fused multiply-add
+//     per row, in row order, as the reference's compiled code) and writes
+//     it, then adds (xb_bc - z_c)^2 into its own column of an (m, TILE)
+//     accumulator; at the end each row of it is summed by one warp.
+//   weighted_sum: one thread per column, one block per tile; no W and no
+//     reduction across blocks.
+
+#include "agg_prologue.cuh"
+
+enum { KERNEL_GRAM = 0, KERNEL_RFA = 1 };
+
+__device__ __forceinline__ float warp_sum(float v, int width) {
+  for (int off = width >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// (i, j), i <= j, of the q-th entry of the row-major upper triangle.
+__host__ __device__ inline void pair_of(int q, int m, int* i, int* j) {
+  int r = q, a = 0;
+  while (r >= m - a) {
+    r -= m - a;
+    ++a;
+  }
+  *i = a;
+  *j = a + r;
+}
+
+template <bool SPARSE>
+__global__ void __launch_bounds__(TILE) pair_gram_partial(
+    Src a, const float* w_mat, int m, int lanes, float* part) {
+  extern __shared__ float smem[];
+  const bool bucketed = w_mat != nullptr;
+  const Smem s = carve(smem, a.n, m, bucketed);
+  const int pairs = m * (m + 1) / 2;
+  float* s_g = s.rest;                      // (pairs,) this block's Gram
+  int* s_pair = (int*)(s_g + pairs);        // (pairs,) i * 256 + j
+  const int tid = threadIdx.x;
+  stage_consts(a, w_mat, m, s);
+  for (int q = tid; q < pairs; q += TILE) {
+    int i, j;
+    pair_of(q, m, &i, &j);
+    s_pair[q] = i * 256 + j;
+    s_g[q] = 0.f;
+  }
+  const int groups = TILE / lanes, g = tid / lanes, l = tid % lanes;
+  const int steps = TILE / lanes;           // columns per lane
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const float* rows = load_tile<SPARSE>(a, s, bucketed, m, tile);
+    __syncthreads();                        // every column is in place
+    for (int q0 = 0; q0 < pairs; q0 += groups) {   // uniform trip count
+      const int q = q0 + g;
+      float v = 0.f;
+      if (q < pairs) {
+        const float* ri = rows + (s_pair[q] >> 8) * TILE;
+        const float* rj = rows + (s_pair[q] & 255) * TILE;
+        int t = g % steps;
+        for (int u = 0; u < steps; ++u) {
+          const int c = l + lanes * t;
+          v = __fmaf_rn(ri[c], rj[c], v);
+          t = t + 1 == steps ? 0 : t + 1;
+        }
+      }
+      v = warp_sum(v, lanes);
+      if (q < pairs && l == 0) s_g[q] = __fadd_rn(s_g[q], v);
+    }
+  }
+  __syncthreads();
+  for (int q = tid; q < pairs; q += TILE)
+    part[(long long)blockIdx.x * pairs + q] = s_g[q];
+}
+
+// G = sum of the blocks' partials, in block order, mirrored into (m, m).
+__global__ void gram_finish(const float* part, int blocks, int m,
+                            float* out) {
+  const int pairs = m * (m + 1) / 2;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= pairs) return;
+  float acc = 0.f;
+  for (int b = 0; b < blocks; ++b)
+    acc = __fadd_rn(acc, part[(long long)b * pairs + q]);
+  int i, j;
+  pair_of(q, m, &i, &j);
+  out[i * m + j] = acc;
+  out[j * m + i] = acc;
+}
+
+template <bool SPARSE>
+__global__ void __launch_bounds__(TILE) rfa_iter_partial(
+    Src a, const float* w_mat, int m, const float* w, float* z,
+    float* part) {
+  extern __shared__ float smem[];
+  const bool bucketed = w_mat != nullptr;
+  const Smem s = carve(smem, a.n, m, bucketed);
+  float* s_acc = s.rest;                    // (m, TILE) column sums
+  float* s_wr = s_acc + m * TILE;           // (m,) Weiszfeld weights
+  const int tid = threadIdx.x;
+  stage_consts(a, w_mat, m, s);
+  for (int q = tid; q < m; q += TILE) s_wr[q] = w[q];
+  for (int b = 0; b < m; ++b) s_acc[b * TILE + tid] = 0.f;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const float* rows = load_tile<SPARSE>(a, s, bucketed, m, tile);
+    const long long c = (long long)tile * TILE + tid;
+    if (c >= a.d) continue;
+    float zc = 0.f;
+    for (int b = 0; b < m; ++b)
+      zc = __fmaf_rn(rows[b * TILE + tid], s_wr[b], zc);
+    z[c] = zc;
+    for (int b = 0; b < m; ++b) {
+      const float e = __fsub_rn(rows[b * TILE + tid], zc);
+      s_acc[b * TILE + tid] = __fmaf_rn(e, e, s_acc[b * TILE + tid]);
+    }
+  }
+  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int b = warp; b < m; b += TILE / 32) {
+    const float* r = s_acc + b * TILE;
+    float v = __fadd_rn(__fadd_rn(r[lane], r[lane + 32]),
+                        __fadd_rn(r[lane + 64], r[lane + 96]));
+    v = warp_sum(v, 32);
+    if (lane == 0) part[(long long)blockIdx.x * m + b] = v;
+  }
+}
+
+// sq = sum of the blocks' (m,) partials, in block order.
+__global__ void rows_finish(const float* part, int blocks, int m,
+                            float* sq) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= m) return;
+  float acc = 0.f;
+  for (int k = 0; k < blocks; ++k)
+    acc = __fadd_rn(acc, part[(long long)k * m + b]);
+  sq[b] = acc;
+}
+
+template <bool SPARSE>
+__global__ void __launch_bounds__(TILE) weighted_sum_kernel(
+    Src a, const float* w, float* out) {
+  extern __shared__ float smem[];
+  const Smem s = carve(smem, a.n, a.n, false);
+  float* s_wr = s.rest;                     // (n,) row weights
+  const int tid = threadIdx.x;
+  const long long c = (long long)blockIdx.x * TILE + tid;
+  stage_consts(a, nullptr, a.n, s);
+  for (int q = tid; q < a.n; q += TILE) s_wr[q] = w[q];
+  if (SPARSE) scatter_tile(a, blockIdx.x, s.x);
+  __syncthreads();
+  if (c >= a.d) return;
+  load_column<SPARSE>(a, c, s.mask, s.x);
+  float acc = 0.f;
+  for (int i = 0; i < a.n; ++i)
+    acc = __fmaf_rn(s.x[i * TILE + tid], s_wr[i], acc);
+  out[c] = acc;
+}
+
+static size_t gram_smem(int n, int m, bool bucketed) {
+  return (prologue_words(n, m, bucketed) + (size_t)m * (m + 1)) *
+         sizeof(float);
+}
+
+static size_t rfa_smem(int n, int m, bool bucketed) {
+  return (prologue_words(n, m, bucketed) + (size_t)m * TILE + m) *
+         sizeof(float);
+}
+
+template <typename Kernel>
+static int resident_blocks(Kernel kernel, size_t smem) {
+  int dev, sms, per_sm;
+  cudaError_t err;
+  if ((err = allow_smem(kernel, smem))) return -(int)err;
+  if ((err = cudaGetDevice(&dev))) return -(int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)))
+    return -(int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                           TILE, smem)))
+    return -(int)err;
+  return per_sm > 0 ? per_sm * sms : -(int)cudaErrorInvalidConfiguration;
+}
+
+extern "C" int norm_agg_tile() { return TILE; }
+
+// How many blocks of pair_gram (kernel 0) or rfa_iter (kernel 1) are
+// resident on the current device at once; the wrapper launches
+// min(that, tiles) and sizes the workspace for it. Negative: -(CUDA error).
+extern "C" int norm_agg_blocks(int kernel, int sparse, int n, int m,
+                               int bucketed) {
+  if (!bucketed) m = n;
+  if (kernel == KERNEL_GRAM) {
+    const size_t smem = gram_smem(n, m, bucketed);
+    return sparse ? resident_blocks(pair_gram_partial<true>, smem)
+                  : resident_blocks(pair_gram_partial<false>, smem);
+  }
+  const size_t smem = rfa_smem(n, m, bucketed);
+  return sparse ? resident_blocks(rfa_iter_partial<true>, smem)
+                : resident_blocks(rfa_iter_partial<false>, smem);
+}
+
+// The launch entry points enqueue on `stream` and return cudaGetLastError()
+// (0 on success). Dense when `vals` is null; sparse wire otherwise. `m` is
+// W's row count (ignored without W); `part` is a (blocks, ...) workspace.
+
+extern "C" int pair_gram_launch(SRC_PARAMS, const float* w_mat, int m,
+                                int blocks, float* part, float* out,
+                                void* stream) {
+  const Src a = make_src(SRC_ARGS);
+  if (!w_mat) m = n;
+  const int pairs = m * (m + 1) / 2;
+  int lanes = 1;
+  while (lanes < 32 && pairs * lanes * 2 <= TILE) lanes *= 2;
+  const size_t smem = gram_smem(n, m, w_mat != nullptr);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (vals) {
+    if ((err = allow_smem(pair_gram_partial<true>, smem))) return (int)err;
+    pair_gram_partial<true><<<blocks, TILE, smem, st>>>(a, w_mat, m, lanes,
+                                                        part);
+  } else {
+    if ((err = allow_smem(pair_gram_partial<false>, smem))) return (int)err;
+    pair_gram_partial<false><<<blocks, TILE, smem, st>>>(a, w_mat, m, lanes,
+                                                         part);
+  }
+  if ((err = cudaGetLastError())) return (int)err;
+  gram_finish<<<(pairs + 255) / 256, 256, 0, st>>>(part, blocks, m, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rfa_iter_launch(SRC_PARAMS, const float* w_mat, int m,
+                               const float* w, int blocks, float* part,
+                               float* z, float* sq, void* stream) {
+  const Src a = make_src(SRC_ARGS);
+  if (!w_mat) m = n;
+  const size_t smem = rfa_smem(n, m, w_mat != nullptr);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (vals) {
+    if ((err = allow_smem(rfa_iter_partial<true>, smem))) return (int)err;
+    rfa_iter_partial<true><<<blocks, TILE, smem, st>>>(a, w_mat, m, w, z,
+                                                       part);
+  } else {
+    if ((err = allow_smem(rfa_iter_partial<false>, smem))) return (int)err;
+    rfa_iter_partial<false><<<blocks, TILE, smem, st>>>(a, w_mat, m, w, z,
+                                                        part);
+  }
+  if ((err = cudaGetLastError())) return (int)err;
+  rows_finish<<<(m + 63) / 64, 64, 0, st>>>(part, blocks, m, sq);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int weighted_sum_launch(SRC_PARAMS, const float* w, float* out,
+                                   void* stream) {
+  const Src a = make_src(SRC_ARGS);
+  const size_t smem = (prologue_words(n, n, false) + n) * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (vals) {
+    if ((err = allow_smem(weighted_sum_kernel<true>, smem))) return (int)err;
+    weighted_sum_kernel<true><<<a.n_tiles, TILE, smem, st>>>(a, w, out);
+  } else {
+    if ((err = allow_smem(weighted_sum_kernel<false>, smem))) return (int)err;
+    weighted_sum_kernel<false><<<a.n_tiles, TILE, smem, st>>>(a, w, out);
+  }
+  return (int)cudaGetLastError();
+}

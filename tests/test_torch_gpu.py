@@ -1,11 +1,15 @@
-"""The CUDA robust-aggregation kernel against its plain PyTorch version, on
+"""The CUDA aggregation kernels against their plain PyTorch versions, on
 the card. Imports no JAX, so it runs where only PyTorch and the CUDA
 toolkit are installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Without a card every test here skips. Tolerance: 1e-5 × max|input|, the
-reordered float32 sums of W·x over at most 64 workers."""
+Without a card every test here skips. Tolerances: 1e-5 × max|input| for
+the coordinate rules, RFA's z and the weighted sum (reordered float32
+sums of W·x over at most 64 workers); 1e-5 of the largest entry for the
+Gram and the squared distances, sums over d taken in another order. The
+norm kernels must also repeat bit for bit: they take every sum in a
+fixed order."""
 import pytest
 import torch
 
@@ -13,6 +17,9 @@ from repro_torch import random as R
 from repro_torch.core.attacks import CoordAttack
 from repro_torch.kernels import norm_agg, quantize
 from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
+
+NORM = {"pair_gram": norm_agg.pair_gram, "rfa_iter": norm_agg.rfa_iter,
+        "weighted_sum": norm_agg.weighted_sum}
 
 TOL = 1e-5
 ALIE = CoordAttack("ALIE", 1.06)
@@ -91,3 +98,93 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
                    attack=ALIE)
     with pytest.raises(ValueError, match="workers"):
         robust_agg(torch.randn(65, 100, device=dev))
+
+
+def _wire(n, d, dev, base_rows):
+    k = max(int(0.1 * d), 1)
+    keys = R.fold_in(R.PRNGKey(d, device=dev), torch.arange(n, device=dev))
+    idx = torch.sort(R.permutation(keys, d)[:, :k], dim=1).values.int()
+    vals = torch.randn(n, k, device=dev)
+    base = torch.randn(base_rows, d, device=dev) if base_rows else None
+    return quantize.WireSrc(fmt="sparse", n=n, d=d,
+                            arrays=(("vals", vals), ("idx", idx)), base=base)
+
+
+def _near(got, want, scale):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL * max(1.0, scale))
+
+
+def _norm_agree(x, w, mask, mean, std):
+    """Each norm kernel against its plain version, twice, bit for bit."""
+    n = norm_agg.src_dims(x)[0]
+    m = n if w is None else w.shape[0]
+    g = torch.Generator(device=mask.device).manual_seed(m)
+    wr = torch.rand(m, device=mask.device, generator=g) + 0.1
+    wr = wr / wr.sum()
+    wn = torch.rand(n, device=mask.device, generator=g)
+    sent = norm_agg.prologue(norm_agg.stack(x), None, mask, mean, std, ALIE)
+    scale = float(sent.abs().max())
+    before = {k: fn.launches for k, fn in NORM.items()}
+    gram = [norm_agg.pair_gram(x, w, mask, mean, std, attack=ALIE)
+            for _ in range(2)]
+    rfa = [norm_agg.rfa_iter(x, wr, w, mask, mean, std, attack=ALIE)
+           for _ in range(2)]
+    ws = [norm_agg.weighted_sum(x, wn, mask, mean, std, attack=ALIE)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {k: fn.launches - before[k] for k, fn in NORM.items()} == {
+        k: 2 for k in NORM}
+    assert torch.equal(gram[0], gram[1]) and torch.equal(ws[0], ws[1])
+    assert torch.equal(rfa[0][0], rfa[1][0]) and torch.equal(rfa[0][1],
+                                                             rfa[1][1])
+    want = norm_agg.pair_gram_plain(x, w, mask, mean, std, attack=ALIE)
+    _near(gram[0], want, float(want.abs().max()))
+    assert torch.equal(gram[0], gram[0].T)
+    z, sq = norm_agg.rfa_iter_plain(x, wr, w, mask, mean, std, attack=ALIE)
+    _near(rfa[0][0], z, scale)
+    _near(rfa[0][1], sq, float(sq.max()))
+    _near(ws[0], norm_agg.weighted_sum_plain(x, wn, mask, mean, std,
+                                             attack=ALIE), scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [0, 2, 3])
+@pytest.mark.parametrize("n", [1, 5, 64])
+@pytest.mark.parametrize("load", ["dense", "wire"])
+def test_norm_kernels(dev, load, n, s):
+    if s > n:
+        pytest.skip("bucket larger than the worker count")
+    x, w, mask, mean, std = _inputs(n, 5000, dev, s)
+    if load == "wire":
+        x = _wire(n, 5000, dev, 1)
+    _norm_agree(x, w, mask, mean, std)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base_rows", [0, 1, 8])
+@pytest.mark.parametrize("d", [1, 123, 70000])
+def test_norm_kernels_sparse_wire(dev, d, base_rows):
+    _, w, mask, mean, std = _inputs(8, d, dev, 2)
+    _norm_agree(_wire(8, d, dev, base_rows), w, mask, mean, std)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(NORM))
+def test_norm_wrappers_reject_what_the_kernels_do_not_take(dev, name):
+    x, w, mask, mean, std = _inputs(5, 100, dev, 2)
+    wts = torch.full((3 if name == "rfa_iter" else 5,), 0.2, device=dev)
+    fn = NORM[name]
+    call = ((lambda a: fn(a, w, mask, mean, std, attack=ALIE))
+            if name == "pair_gram" else
+            (lambda a: fn(a, wts, w, mask, mean, std, attack=ALIE))
+            if name == "rfa_iter" else
+            (lambda a: fn(a, wts, mask, mean, std, attack=ALIE)))
+    with pytest.raises(TypeError):
+        call(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(torch.randn(100, 5, device=dev).T)
+    with pytest.raises(ValueError, match="workers"):
+        fn(*((torch.randn(65, 100, device=dev),)
+             + (() if name == "pair_gram" else
+                (torch.full((65,), 1 / 65, device=dev),))))

@@ -1,8 +1,8 @@
 """The port's main path against the reference: Byz-VR-MARINA with RandK,
-ALIE and bucketed coordinate-wise median, one engine step at a time and as
-whole runs of one spec. Trajectories agree to 2e-5, the pallas≡gspmd
-tolerance of the reference's own estimator contract; the c_k coins and
-the communication count agree exactly."""
+ALIE and bucketed coordinate-wise median, RFA or Krum, one engine step at
+a time and as whole runs of one spec. Trajectories agree to 2e-5, the
+pallas≡gspmd tolerance of the reference's own estimator contract; the c_k
+coins and the communication count agree exactly."""
 import ast
 import pathlib
 
@@ -17,6 +17,7 @@ from repro.api.runner import build as jax_build
 from repro_torch.api import RunSpec, run
 from repro_torch.api.runner import build
 from repro_torch.convert import key_from_numpy, state_from_numpy, tree_from_numpy
+from repro_torch.kernels import norm_agg
 
 TRAJ_TOL = 2e-5
 SPEC = dict(agg_mode="pallas", compressor="randk",
@@ -72,10 +73,29 @@ def test_engine_init_and_one_step_of_each_branch(agg_mode):
     assert seen == {0, 1}
 
 
+def _norm_calls(ck, aggregator):
+    """Entry-point calls of a norm rule's run on the main-path spec: one
+    init aggregation, F full rounds on one packed segment, V VR rounds on
+    two wire leaves, T = 8 Weiszfeld passes."""
+    full = 1 + sum(ck)
+    vr = len(ck) - sum(ck)
+    if aggregator == "rfa":
+        return {"pair_gram": 0, "rfa_iter": 8 * full + 16 * vr,
+                "weighted_sum": full + 2 * vr}
+    return {"pair_gram": full + 2 * vr, "rfa_iter": 0,
+            "weighted_sum": full + 2 * vr}
+
+
 @pytest.mark.parametrize("agg_mode", ["pallas", "gspmd"])
-def test_run_matches_reference(agg_mode):
-    jspec = JaxRunSpec(**{**SPEC, "agg_mode": agg_mode})
+@pytest.mark.parametrize("aggregator", ["cm", "rfa", "krum"])
+def test_run_matches_reference(aggregator, agg_mode):
+    jspec = JaxRunSpec(**{**SPEC, "agg_mode": agg_mode,
+                          "aggregator": aggregator})
     ref = jax_run(jspec, log_every=1)
+    fns = {"pair_gram": norm_agg.pair_gram, "rfa_iter": norm_agg.rfa_iter,
+           "weighted_sum": norm_agg.weighted_sum}
+    for fn in fns.values():
+        fn.calls = fn.launches = 0
     got = run(RunSpec.from_json(jspec.to_json()), device="cpu", log_every=1)
     ck = [int(h["c_k"]) for h in got.history]
     assert ck == [int(h["c_k"]) for h in ref.history]
@@ -86,6 +106,12 @@ def test_run_matches_reference(agg_mode):
                                [h["loss"] for h in ref.history],
                                rtol=TRAJ_TOL, atol=TRAJ_TOL)
     _close(got.params, ref.params)
+    calls = {k: fn.calls for k, fn in fns.items()}
+    if agg_mode == "pallas" and aggregator != "cm":
+        assert calls == _norm_calls(ck, aggregator)
+    else:
+        assert calls == dict.fromkeys(fns, 0)
+    assert all(fn.launches == 0 for fn in fns.values())    # plain on CPU
 
 
 def test_run_without_device_needs_cuda(monkeypatch):
@@ -102,7 +128,7 @@ def test_spec_json_is_shared():
 
 
 @pytest.mark.parametrize("override", [
-    {"method": "sgd"}, {"aggregator": "krum"}, {"compressor": "topk"},
+    {"method": "sgd"}, {"compressor": "int8"}, {"compressor": "topk"},
     {"attack": "RN"}, {"agg_mode": "all_to_all"}, {"participation": 0.6},
     {"fault_guard": True}, {"trace": True}, {"optimizer": "adam"},
 ])
