@@ -8,15 +8,17 @@ PyTorch version on the card, checks that the norm kernels repeat bit for
 bit, and times kernel, plain version and a library call. Then it drives
 the port's main path — Byz-VR-MARINA with RandK, ALIE and bucketing s = 2
 on a9a-width logistic regression — through ``repro_torch.api.run`` three
-times, with coordinate-wise median, RFA and Krum, and checks that every
-aggregation went through the kernels (launch counts against each rule's
-formula) and that the first rounds agree with the plain CPU path. Any
-failure raises and exits non-zero. The last line is the device JSON; the
-line before it is the per-kernel JSON. Needs one CUDA card; exits
-non-zero without one. Imports nothing of JAX.
+times at 5 workers, with coordinate-wise median, RFA and Krum, and twice
+at 256 workers (the giant-n tier on the blocked kernels), with RFA and
+Krum, and checks that every aggregation went through the kernels (launch
+counts against each rule's formula) and that the first rounds agree with
+the plain CPU path. Any failure raises and exits non-zero. The last line
+is the device JSON; the line before it is the per-kernel JSON. Needs one
+CUDA card; exits non-zero without one. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -35,6 +37,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
 REPS = 21                        # timed runs per measurement (median taken)
 MAIN_STEPS = 300
+GIANT_STEPS = 300                # rounds of each giant-n main path
 CPU_CHECK_STEPS = 30
 TRAJ_TOL = 2e-5
 KERNEL_TOL = 1e-5                # x max|input|: W·x sums in another order
@@ -46,6 +49,9 @@ MAIN_SPEC = dict(
     aggregator="cm", bucket_size=2, agg_mode="pallas", compressor="randk",
     compressor_kwargs={"ratio": 0.1}, p=0.1, lr=0.5, steps=MAIN_STEPS,
     data_kwargs={"n_samples": 32561, "dim": 123, "batch_size": 32})
+# the giant-n tier: 256 workers, 32 byzantine; bucketing leaves m = 128
+# rows, so RFA and Krum run on the blocked kernels
+GIANT_SPEC = dict(n_workers=256, n_byz=32, steps=GIANT_STEPS)
 
 # (label, n, d, k or None for the dense load, base rows, bucket s, rule);
 # every case carries the ALIE attack on max(1, n // 5) byzantine rows
@@ -68,6 +74,9 @@ REPLACES = {
     "pair_gram": "src/repro/kernels/norm_agg.py:220",
     "rfa_iter": "src/repro/kernels/norm_agg.py:262",
     "weighted_sum": "src/repro/kernels/norm_agg.py:297",
+    "pair_gram_blocked": "src/repro/kernels/norm_agg.py:480",
+    "sqdist_to_blocked": "src/repro/kernels/norm_agg.py:515",
+    "weighted_sum_blocked": "src/repro/kernels/norm_agg.py:549",
 }
 
 # the norm kernels' cases: (kind, label, n, d, k or None, base rows, s);
@@ -77,6 +86,18 @@ NORM_WIDE_CASES = [c[:7] for c in WIDE_CASES[:2]] + [
     ("dense", f"MAX_FUSED_WORKERS, s={s}", 64, 1_048_576, None, 0, s)
     for s in (0, 2)]
 NORM_KERNELS = ("pair_gram", "rfa_iter", "weighted_sum")
+BLOCKED_KERNELS = ("pair_gram_blocked", "sqdist_to_blocked",
+                   "weighted_sum_blocked")
+# the blocked kernels' cases: (label, m, d) of a dense (m, d) stack
+BLOCKED_MAIN_CASES = [
+    ("giant-n main path: leaf w", 128, 123),
+    ("giant-n main path: leaf b", 128, 1),
+]
+BLOCKED_WIDE_CASES = [
+    ("n=256 at s=2, one qwen3-1.7b q_proj layer 2048x2048", 128, 1 << 22),
+    ("m=1024, d=2^20", 1024, 1 << 20),
+    ("m=4096 (the reference bench's largest n), d=2^16", 4096, 1 << 16),
+]
 NO_LIBRARY = {"rfa_iter": "no single PyTorch call computes z = wᵀ·xb and "
                           "the distances of the rows to it"}
 
@@ -87,6 +108,13 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+@functools.cache
+def card_name() -> str:
+    """The card's name and power limit, read once, to print beside the
+    numbers measured on it."""
+    return gpu_line()
 
 
 def cuda_ms(fn) -> float:
@@ -297,11 +325,80 @@ def norm_case(case, dev):
     return rows
 
 
+def blocked_case(case, dev):
+    """Each blocked kernel on one dense (m, d) stack: against its plain
+    version, twice for bit-for-bit repeatability (and the Gram for bitwise
+    symmetry), and timed beside its plain version and a library call.
+    Returns one row per kernel."""
+    from repro_torch.kernels import norm_agg as N
+    label, m, d = case
+    g = torch.Generator(device=dev).manual_seed(m * 7919 + d)
+    x = torch.randn(m, d, device=dev, generator=g)
+    z = torch.randn(d, device=dev, generator=g)
+    w = torch.rand(m, device=dev, generator=g)
+    w = w / w.sum()
+    sum_tol = WIDE_SUM_TOL if d > 1_000_000 else SUM_TOL
+    stack_bytes = m * d * 4
+    spec = {   # kernel, plain, library, bytes, operations (Gram: i <= j)
+        "pair_gram_blocked": (
+            lambda: N.pair_gram_blocked(x),
+            lambda: N.pair_gram_blocked_plain(x),
+            lambda: torch.matmul(x, x.T),
+            stack_bytes + m * m * 4, m * (m + 1) * d),
+        "sqdist_to_blocked": (
+            lambda: N.sqdist_to_blocked(x, z),
+            lambda: N.sqdist_to_blocked_plain(x, z),
+            lambda: torch.cdist(x, z[None]).square(),
+            stack_bytes + d * 4 + m * 4, 3 * m * d),
+        "weighted_sum_blocked": (
+            lambda: N.weighted_sum_blocked(x, w),
+            lambda: N.weighted_sum_blocked_plain(x, w),
+            lambda: torch.mv(x.T, w),
+            stack_bytes + m * 4 + d * 4, 2 * m * d),
+    }
+    rows = []
+    for name, (kern, plain, lib, bytes_moved, ops) in spec.items():
+        first, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        repeat = torch.equal(first, again)
+        symmetric = (bool(torch.equal(first, first.T))
+                     if name == "pair_gram_blocked" else None)
+        err = float((first - want).abs().max())
+        limit = (KERNEL_TOL * max(1.0, float(x.abs().max()))
+                 if name == "weighted_sum_blocked"
+                 else sum_tol * max(1.0, float(want.abs().max())))
+        ok = bool(torch.isfinite(first).all())
+        if not (ok and repeat and symmetric is not False and err <= limit):
+            raise AssertionError(
+                f"{name} {label}: error {err} vs limit {limit}, finite {ok},"
+                f" bitwise repeat {repeat}, symmetric {symmetric}")
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain)
+        library_ms = cuda_ms(lib)
+        bound_ms, bound_by = bound_of(bytes_moved, ops)
+        rows.append({
+            "kernel": name, "label": label, "m": m, "d": d,
+            "max_abs_err": err, "err_limit": limit, "bitwise_repeat": repeat,
+            "symmetric": symmetric, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bytes": bytes_moved, "ops": ops})
+        print(f"[kernel] {name:20s} {label}: m={m} d={d} | err {err:.3e} "
+              f"(limit {limit:.3e}) repeat bitwise"
+              f"{', symmetric bitwise' if symmetric else ''} | kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+              f"({bound_by}) library {library_ms:.4f} ms [{card_name()}]",
+              flush=True)
+        del first, again, want
+    del x, z, w, spec
+    torch.cuda.empty_cache()
+    return rows
+
+
 def reset_counts():
     from repro_torch.kernels import norm_agg
     from repro_torch.kernels.robust_agg import robust_agg
     robust_agg.launches = robust_agg.wire_launches = 0
-    for name in NORM_KERNELS:
+    for name in NORM_KERNELS + BLOCKED_KERNELS:
         getattr(norm_agg, name).launches = 0
 
 
@@ -311,18 +408,30 @@ def read_counts() -> dict:
     counts = {"robust_agg": robust_agg.launches,
               "robust_agg_wire": robust_agg.wire_launches}
     counts.update({name: getattr(norm_agg, name).launches
-                   for name in NORM_KERNELS})
+                   for name in NORM_KERNELS + BLOCKED_KERNELS})
     return counts
 
 
-def expected_counts(aggregator, full, vr) -> dict:
+def expected_counts(aggregator, full, vr, giant=False) -> dict:
     """Launches of one run: one init aggregation and F full rounds on the
     packed b+w segment, V VR rounds on two wire leaves; RFA makes T = 8
     Weiszfeld passes and a weighted sum per segment, Krum a Gram and a
-    weighted sum."""
+    weighted sum. At 256 workers every aggregation (dense or wire) takes
+    the giant-n tier on the two leaves b and w, unpacked: RFA 2·(8 + 1)
+    blocked weighted sums and 2·8 blocked distances, Krum 2 blocked Grams
+    and 2 blocked weighted sums, and no fused kernel."""
     agg_rounds = 1 + full
     counts = dict.fromkeys(("robust_agg", "robust_agg_wire")
-                           + NORM_KERNELS, 0)
+                           + NORM_KERNELS + BLOCKED_KERNELS, 0)
+    if giant:
+        aggs = 1 + full + vr
+        if aggregator == "rfa":
+            counts["weighted_sum_blocked"] = 2 * (8 + 1) * aggs
+            counts["sqdist_to_blocked"] = 2 * 8 * aggs
+        else:
+            counts["pair_gram_blocked"] = 2 * aggs
+            counts["weighted_sum_blocked"] = 2 * aggs
+        return counts
     if aggregator == "cm":
         counts["robust_agg"] = agg_rounds + 2 * vr
         counts["robust_agg_wire"] = 2 * vr
@@ -334,9 +443,11 @@ def expected_counts(aggregator, full, vr) -> dict:
     return counts
 
 
-def main_path(dev, aggregator):
+def main_path(dev, aggregator, giant=False):
     from repro_torch.api import RunSpec, run
-    spec = {**MAIN_SPEC, "aggregator": aggregator}
+    spec = {**MAIN_SPEC, "aggregator": aggregator,
+            **(GIANT_SPEC if giant else {})}
+    tag = f"{aggregator}{' n=256' if giant else ''}"
     reset_counts()
     t0 = time.time()
     res = run(RunSpec(**spec), device=dev, log_every=1)
@@ -348,38 +459,39 @@ def main_path(dev, aggregator):
     full = sum(ck)
     vr = len(ck) - full
     for h in hist[::50] + [hist[-1]]:
-        print(f"[main {aggregator}] step {h['step']:4d} loss "
+        print(f"[main {tag}] step {h['step']:4d} loss "
               f"{h['loss']:.6f} c_k={int(h['c_k'])}", flush=True)
     per_round_ms = res.wall_s / len(hist) * 1e3
-    print(f"[main {aggregator}] {len(hist)} rounds, {full} full (c_k=1), "
+    print(f"[main {tag}] {len(hist)} rounds, {full} full (c_k=1), "
           f"{vr} VR; {per_round_ms:.3f} ms per round (host clock, loop "
           f"only); run() wall {wall:.2f} s incl. data and init; launches "
-          f"{counts}", flush=True)
+          f"{counts} [{card_name()}]", flush=True)
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss on the {aggregator} path")
+        raise AssertionError(f"non-finite loss on the {tag} path")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"{aggregator}: final loss {losses[-1]} not "
+        raise AssertionError(f"{tag}: final loss {losses[-1]} not "
                              f"below the first {losses[0]}")
-    want = expected_counts(aggregator, full, vr)
+    want = expected_counts(aggregator, full, vr, giant)
     if counts != want:
         raise AssertionError(
-            f"{aggregator}: launches {counts}, expected {want}: an "
+            f"{tag}: launches {counts}, expected {want}: an "
             "aggregation bypassed its kernel")
     cpu = run(RunSpec(**{**spec, "steps": CPU_CHECK_STEPS}), device="cpu",
               log_every=1)
     cpu_ck = [int(h["c_k"]) for h in cpu.history]
     if cpu_ck != ck[:CPU_CHECK_STEPS]:
-        raise AssertionError(f"{aggregator}: c_k differs from the CPU path: "
+        raise AssertionError(f"{tag}: c_k differs from the CPU path: "
                              f"{cpu_ck} vs {ck[:CPU_CHECK_STEPS]}")
     diff = float(np.max(np.abs(np.array(losses[:CPU_CHECK_STEPS])
                                - [h["loss"] for h in cpu.history])))
-    print(f"[main {aggregator}] first {CPU_CHECK_STEPS} rounds vs the CPU "
+    print(f"[main {tag}] first {CPU_CHECK_STEPS} rounds vs the CPU "
           f"plain path: c_k identical, max |loss diff| {diff:.3e} (limit "
           f"{TRAJ_TOL})", flush=True)
     if not diff <= TRAJ_TOL:
-        raise AssertionError(f"{aggregator}: loss differs from the CPU path "
+        raise AssertionError(f"{tag}: loss differs from the CPU path "
                              f"by {diff}")
-    return {"aggregator": aggregator, "launches": counts,
+    return {"aggregator": aggregator, "n_workers": spec["n_workers"],
+            "launches": counts,
             "rounds": len(hist), "full_rounds": full,
             "per_round_ms": per_round_ms, "run_wall_s": wall,
             "final_loss": losses[-1], "first_loss": losses[0],
@@ -426,7 +538,13 @@ def main() -> int:
     wide_rows = [kernel_case(c, dev) for c in WIDE_CASES]
     norm_main = [r for c in NORM_MAIN_CASES for r in norm_case(c, dev)]
     norm_wide = [r for c in NORM_WIDE_CASES for r in norm_case(c, dev)]
+    blocked_main = [r for c in BLOCKED_MAIN_CASES
+                    for r in blocked_case(c, dev)]
+    blocked_wide = [r for c in BLOCKED_WIDE_CASES
+                    for r in blocked_case(c, dev)]
     paths = {agg: main_path(dev, agg) for agg in ("cm", "rfa", "krum")}
+    paths.update({f"{agg} n=256": main_path(dev, agg, giant=True)
+                  for agg in ("rfa", "krum")})
     cm = paths["cm"]["launches"]
     kernels = []
     for kind in ("dense", "sparse_wire"):
@@ -443,12 +561,20 @@ def main() -> int:
             name, "src/repro_torch/kernels/csrc/norm_agg.cu",
             REPLACES[name], launches,
             [r for r in norm_main if r["kernel"] == name]))
+    for name in BLOCKED_KERNELS:
+        launches = sum(p["launches"][name] for p in paths.values())
+        kernels.append(kernel_entry(
+            name, "src/repro_torch/kernels/csrc/norm_agg_blocked.cu",
+            REPLACES[name], launches,
+            [r for r in blocked_main if r["kernel"] == name]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "main_cases": main_rows, "wide_cases": wide_rows,
          "norm_main_cases": norm_main, "norm_wide_cases": norm_wide,
+         "blocked_main_cases": blocked_main,
+         "blocked_wide_cases": blocked_wide,
          "main_paths": paths, "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))
     print(f"[done] {time.time() - t_start:.1f} s in all", flush=True)

@@ -3,8 +3,9 @@
 trimmed mean (tm), RFA (smoothed Weiszfeld) and Krum. These plain
 versions are the gspmd backend and the reference the kernel backend is
 held to. RFA and Krum take global distances, summed over the leaves of a
-tree. Not ported yet: the masked twins, the telemetry twin and the
-blocked Gram for n > 64 (ROADMAP queue 1, items 3, 7 and 8).
+tree; above ``MAX_FUSED_WORKERS`` rows Krum's Gram is taken in row
+slabs (``_tree_pair_sqdists_blocked``). Not ported yet: the masked twins
+and the telemetry twin (ROADMAP queue 1, items 3, 7 and 8).
 """
 from __future__ import annotations
 
@@ -17,15 +18,35 @@ from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
 
 
+# XLA on the CPU rewrites a reduction over more rows than this into
+# windows of this many rows (its tree-reduction rewrite)
+XLA_REDUCE_WINDOW = 32
+
+
+def xla_sum_rows(rows):
+    """Σ of a list of float32 tensors as the reference's compiled code sums
+    the rows of an array on the CPU: in order up to ``XLA_REDUCE_WINDOW``
+    rows; above, zero-padded on both sides (pad // 2 rows first) to whole
+    windows, each window summed in order, then the window sums the same
+    way. (``Tensor.sum`` associates differently.)"""
+    m = len(rows)
+    if m <= XLA_REDUCE_WINDOW:
+        acc = rows[0]
+        for r in rows[1:]:
+            acc = acc + r
+        return acc
+    k = -(-m // XLA_REDUCE_WINDOW)
+    lo = (k * XLA_REDUCE_WINDOW - m) // 2
+    cuts = ([0] + [XLA_REDUCE_WINDOW * j - lo for j in range(1, k)] + [m])
+    return xla_sum_rows([xla_sum_rows(rows[a:b])
+                         for a, b in zip(cuts, cuts[1:])])
+
+
 def mean0(x, dim: int = 0):
-    """Float32 mean as the reference's compiled code takes it: a sequential
-    sum, times the rounded reciprocal of the count. (``Tensor.sum``
-    associates the tail of a row differently.)"""
+    """Float32 mean as the reference's compiled code takes it: the sum of
+    ``xla_sum_rows``, times the rounded reciprocal of the count."""
     rows = x.unbind(dim)
-    acc = rows[0]
-    for r in rows[1:]:
-        acc = acc + r
-    return acc * (1.0 / len(rows))
+    return xla_sum_rows(rows) * (1.0 / len(rows))
 
 
 def weighted_rows(w, x):
@@ -81,14 +102,26 @@ MAX_FUSED_WORKERS = 64
 RULES = ("mean", "cm", "tm", "rfa", "krum")
 
 
+def _tree_pair_sqdists_blocked(leaves, n: int):
+    """(n, n) global pairwise squared distances for giant n: the Gram is
+    taken one slab of ``MAX_FUSED_WORKERS`` rows at a time against the
+    whole stack, so the largest intermediate is (64, n), never anything of
+    size n²·d."""
+    flats = [a.reshape(n, -1).float() for a in leaves]
+    sq = sum(torch.sum(f * f, dim=-1) for f in flats)
+    tile = MAX_FUSED_WORKERS
+    gram = torch.cat([sum(f[i:i + tile] @ f.T for f in flats)
+                      for i in range(0, n, tile)])
+    d2 = sq[:, None] + sq[None, :] - 2.0 * gram
+    return torch.clamp(d2, min=0.0)
+
+
 def _tree_pair_sqdists(xs: dict):
     """(n, n) global pairwise squared distances from a stacked tree."""
     leaves = tu.leaves(xs)
     n = leaves[0].shape[0]
     if n > MAX_FUSED_WORKERS:
-        raise NotImplementedError(
-            f"Krum over n={n} > {MAX_FUSED_WORKERS} rows (the blocked Gram) "
-            "is not ported yet (ROADMAP queue 1, item 7)")
+        return _tree_pair_sqdists_blocked(leaves, n)
     flats = [a.reshape(n, -1).float() for a in leaves]
     sq = sum(torch.sum(f * f, dim=-1) for f in flats)
     gram = sum(f @ f.T for f in flats)

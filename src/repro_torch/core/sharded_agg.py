@@ -1,5 +1,5 @@
 """The kernel aggregation backend, ``agg_mode="pallas"`` (port of the
-unguarded, n <= 64 part of ``repro/core/sharded_agg.py``).
+unguarded part of ``repro/core/sharded_agg.py``).
 
 Every rule runs on the kernels: mean / cm / tm on the robust-aggregation
 kernel, RFA and Krum through the ``norm_agg`` drivers, whose distances
@@ -7,9 +7,17 @@ stay global across leaves. Leaves share one bucketing permutation,
 carried as the (nb, n) ``bucket_matrix``; leaves narrower than
 ``SMALL_LEAF_D`` pack into one (n, D) segment so they share a launch; a
 kernel-fusable attack rides into the kernels' load so the attacked stack
-is never written to device memory. The ``all_to_all`` backend, staleness
-weights, the fault guard, telemetry and n > 64 workers are not ported yet
-(ROADMAP queue 1, items 7, 8, 10, 11).
+is never written to device memory.
+
+Above ``MAX_FUSED_WORKERS`` workers the fused kernels no longer hold the
+worker axis, and rounds take the giant-n tier (``_tree_aggregate_large_n``):
+attack and Alg. 2 bucketing first, in plain PyTorch, leaf by leaf; then
+the coordinate rules in plain PyTorch, and RFA / Krum on the fused drivers
+when the bucketed rows fit under ``MAX_FUSED_WORKERS``, else on the
+blocked ones. Wire rounds at that size are reconstructed densely first.
+
+The ``all_to_all`` backend, staleness weights, the fault guard and
+telemetry are not ported yet (ROADMAP queue 1, items 7, 8, 10 and 11).
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import dataclasses
 import torch
 
 from repro_torch import random as R
+from repro_torch.core import aggregators as A
 from repro_torch.core import tree_utils as tu
 from repro_torch.core.aggregators import COORD_KERNEL_RULE, MAX_FUSED_WORKERS
 from repro_torch.kernels import norm_agg
@@ -36,13 +45,6 @@ class AttackCtx:
     mask: object
     means: object = None
     stds: object = None
-
-
-def _check_supported(n):
-    if n > MAX_FUSED_WORKERS:
-        raise NotImplementedError(
-            f"n={n} > {MAX_FUSED_WORKERS} workers is not ported yet "
-            "(ROADMAP queue 1, item 7)")
 
 
 def _bucket_operator(agg, key, n, device):
@@ -106,13 +108,70 @@ def _segments(leaves, attack_ctx):
     return segs, means, stds, splits
 
 
-def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None) -> dict:
-    """Aggregate the stacked candidate tree through the kernels, leaf-wise
-    by segment, with one shared bucket operator."""
+def _materialize_attack_flat(flats, dtypes, attack_ctx):
+    """Plain twin of the kernels' prologue for the giant-n tier: the
+    attack, a round trip through each leaf's candidate dtype, the mask
+    select, on flat (n, d_j) float32 views. Coordinate-wise, so the same
+    values the fused kernels would inject."""
+    if attack_ctx is None or attack_ctx.fn is None or attack_ctx.mask is None:
+        return flats
+    n = flats[0].shape[0]
+    m_l = (tu.leaves(attack_ctx.means) if attack_ctx.means is not None
+           else [None] * len(flats))
+    s_l = (tu.leaves(attack_ctx.stds) if attack_ctx.stds is not None
+           else [None] * len(flats))
+    keep = attack_ctx.mask.reshape(n, 1)
+    out = []
+    for xf, mu, sd, dt in zip(flats, m_l, s_l, dtypes):
+        muf = None if mu is None else mu.reshape(1, -1).float()
+        sdf = None if sd is None else sd.reshape(1, -1).float()
+        v = attack_ctx.fn(xf, muf, sdf).to(dt).float()
+        out.append(torch.where(keep, v, xf))
+    return out
+
+
+def _tree_aggregate_large_n(cfg, key, sent: dict, attack_ctx=None) -> dict:
+    """Giant-n tier of ``tree_aggregate_pallas`` (more than
+    ``MAX_FUSED_WORKERS`` workers): bucket first, so that no kernel holds
+    the whole worker axis, then run the rule on the m bucketed rows of
+    each leaf (module docstring). ``Aggregator.tree`` over the attacked
+    candidates is its reference."""
     agg = cfg.aggregator
     leaves = tu.leaves(sent)
     n = leaves[0].shape[0]
-    _check_supported(n)
+    flats = [a.reshape(n, -1).float() for a in leaves]
+    flats = _materialize_attack_flat(flats, [a.dtype for a in leaves],
+                                     attack_ctx)
+    if agg.bucket_size > 1 and agg.rule != "mean":
+        perm = R.permutation(key, n)
+        flats = [A._bucketize_perm(xf, perm, agg.bucket_size) for xf in flats]
+    flats = [xf.contiguous() for xf in flats]
+    m = flats[0].shape[0]
+    if agg.rule in COORD_KERNEL_RULE:
+        outs = [agg._rule(xf) for xf in flats]
+    elif agg.rule == "rfa":
+        if m <= MAX_FUSED_WORKERS:
+            outs = norm_agg.rfa_segments(flats, iters=agg.iters, eps=agg.eps)
+        else:
+            outs = norm_agg.rfa_segments_blocked(flats, iters=agg.iters,
+                                                 eps=agg.eps)
+    elif m <= MAX_FUSED_WORKERS:
+        outs = norm_agg.krum_segments(flats, n_byz=agg.n_byz)
+    else:
+        outs = norm_agg.krum_segments_blocked(flats, n_byz=agg.n_byz)
+    return tu.unflatten(sent, [o.reshape(a.shape[1:]).to(a.dtype)
+                               for o, a in zip(outs, leaves)])
+
+
+def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None) -> dict:
+    """Aggregate the stacked candidate tree through the kernels, leaf-wise
+    by segment, with one shared bucket operator; more than
+    ``MAX_FUSED_WORKERS`` workers take the giant-n tier."""
+    agg = cfg.aggregator
+    leaves = tu.leaves(sent)
+    n = leaves[0].shape[0]
+    if n > MAX_FUSED_WORKERS:
+        return _tree_aggregate_large_n(cfg, key, sent, attack_ctx)
     w_mat = _bucket_operator(agg, key, n, leaves[0].device)
     attack_fn = mask = None
     ctx = None
@@ -135,11 +194,22 @@ def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None) -> dict:
 def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None) -> dict:
     """Wire twin of ``tree_aggregate_pallas``: each leaf launches the
     kernels on its ``quantize.WireSrc`` (no packing: payloads do not
-    concatenate); ``attack_ctx`` carries per-leaf flat stat lists."""
+    concatenate); ``attack_ctx`` carries per-leaf flat stat lists. More
+    than ``MAX_FUSED_WORKERS`` workers reconstruct the dense candidates
+    once and take the giant-n tier, with the stats reshaped into trees."""
     from repro_torch.core import wire as W
     agg = cfg.aggregator
     n = wc.n
-    _check_supported(n)
+    if n > MAX_FUSED_WORKERS:
+        ctx = attack_ctx
+        if ctx is not None:
+            def unflat(stats):
+                return None if stats is None else {
+                    name: st.reshape(sh)
+                    for name, st, sh in zip(wc.names, stats, wc.shapes)}
+            ctx = AttackCtx(ctx.fn, ctx.mask, unflat(ctx.means),
+                            unflat(ctx.stds))
+        return _tree_aggregate_large_n(cfg, key, W.reconstruct(wc), ctx)
     srcs = W.wire_srcs(wc)
     w_mat = _bucket_operator(agg, key, n, srcs[0].device)
     attack_fn = mask = None

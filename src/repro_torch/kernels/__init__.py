@@ -5,11 +5,14 @@
   wire; CUDA C++ in ``csrc/robust_agg.cu``.
 - norm_agg: the Krum / RFA kernels ``pair_gram``, ``rfa_iter`` and
   ``weighted_sum`` on the same loads (``csrc/norm_agg.cu``), their rule
-  drivers, the bucket operator and the plain attack/bucket prologue.
+  drivers, the bucket operator and the plain attack/bucket prologue; and
+  the giant-n tier's blocked kernels ``pair_gram_blocked``,
+  ``sqdist_to_blocked`` and ``weighted_sum_blocked`` on dense stacks of
+  any row count (``csrc/norm_agg_blocked.cu``) with their drivers.
 - quantize: the sparse wire format.
 
-The kernels share one block load, ``csrc/agg_prologue.cuh``, and are
-built at first use by ``_build``; ``_launch`` holds what their wrappers
+The fused kernels share one block load, ``csrc/agg_prologue.cuh``; all
+are built at first use by ``_build``; ``_launch`` holds what their wrappers
 share. Every kernel has a plain PyTorch version beside it, taken for CPU
 tensors only; a CUDA tensor launches the kernel or raises.
 """

@@ -1,6 +1,7 @@
-"""What every CUDA aggregation launch shares: argument checks, and the
-worker-stack arguments that lead each entry point's C signature
-(``SRC_PARAMS`` in ``csrc/agg_prologue.cuh``), in that order."""
+"""What every CUDA aggregation launch shares: argument checks, the
+worker-stack arguments that lead each fused entry point's C signature
+(``SRC_PARAMS`` in ``csrc/agg_prologue.cuh``), in that order, and the
+dense stack of the blocked kernels."""
 from __future__ import annotations
 
 import ctypes
@@ -89,6 +90,15 @@ def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile):
     args = [x_ptr, vals, idx, starts, k, base, base_rows, mask_ptr, mean_ptr,
             std_ptr, code, float(attack.param) if code else 0.0, n, d]
     return args, keep
+
+
+def dense_args(who, x):
+    """(m, d, pointer) of a blocked kernel's dense (m, d) float32 stack."""
+    if x.dim() != 2 or min(x.shape) < 1:
+        raise ValueError(f"{who}: x must be a non-empty (m, d) stack, got "
+                         f"shape {tuple(x.shape)}")
+    m, d = x.shape
+    return m, d, check(who, "x", x, x.device, torch.float32, (m, d))
 
 
 def bucket_args(who, w_mat, n, device):

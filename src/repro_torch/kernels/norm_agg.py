@@ -17,8 +17,18 @@ On a CUDA tensor each launches its hand-written kernel in
 ``csrc/norm_agg.cu`` (or raises); on a CPU tensor it runs its ``*_plain``
 version. ``rfa_segments`` and ``krum_segments`` drive them over a list of
 segments with global distances, staying on the device between launches.
-Not ported yet: the blocked kernels for n > 64 (ROADMAP queue 2), the
-fault-guard masks and the telemetry returns (queue 1, items 7 and 8).
+
+The blocked kernels serve the giant-n tier (more than
+``MAX_FUSED_WORKERS`` bucketed rows), on a dense (m, d) float32 stack
+whose attack and bucketing are already applied:
+
+* ``pair_gram_blocked``    — the (m, m) Gram, m unbounded;
+* ``sqdist_to_blocked``    — (m,) squared distances of the rows to z;
+* ``weighted_sum_blocked`` — Σ_i w_i·x_i.
+
+Their kernels are in ``csrc/norm_agg_blocked.cu``; ``rfa_segments_blocked``
+and ``krum_segments_blocked`` drive them. Not ported yet: the fault-guard
+masks and the telemetry returns (ROADMAP queue 1, items 7 and 8).
 """
 from __future__ import annotations
 
@@ -27,8 +37,22 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregators import weighted_rows
+from repro_torch.core.aggregators import (XLA_REDUCE_WINDOW, weighted_rows,
+                                          xla_sum_rows)
 from repro_torch.kernels import _build, _launch, quantize
+
+DEFAULT_TILE_D = 2048     # the reference's column tile
+DEFAULT_TILE_N = 64       # worker tile of the blocked kernels
+
+
+def _tile_for(d: int) -> int:
+    """The reference's column tile: 128-aligned, shrunk for small d."""
+    return min(DEFAULT_TILE_D, max(128, -(-d // 128) * 128))
+
+
+def _tile_n_for(m: int) -> int:
+    """The reference's worker tile: a multiple of 8, shrunk for small m."""
+    return min(DEFAULT_TILE_N, max(8, -(-m // 8) * 8))
 
 
 def bucket_matrix(perm, n: int, s: int):
@@ -306,3 +330,235 @@ def krum_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
     w_eff = onehot if w_mat is None else onehot @ w_mat
     return [weighted_sum(xs, w_eff, mask, mu, sd, attack=attack)
             for xs, mu, sd in zip(segs, means, stds)]
+
+
+# ---------------------------------------------------------------------------
+# the blocked kernels of the giant-n tier (dense, prologue already applied)
+# ---------------------------------------------------------------------------
+#
+# The plain versions repeat the reference's tiling where it changes the
+# result: the Gram and the distances sum each ``_tile_for(d)`` column tile
+# and add the tiles in order; the weighted sum takes each worker tile of
+# ``_tile_n_for(m)`` rows as the reference's compiled code does and adds
+# the tiles in order. Zero-padded rows and columns add zeros only, so the
+# plain versions leave them out.
+
+def _col_tiles(d: int):
+    tile = _tile_for(d)
+    return [(a, min(a + tile, d)) for a in range(0, d, tile)]
+
+
+def pair_gram_blocked_plain(x):
+    """(m, m) Gram x xᵀ of a dense (m, d) stack, summed column tile by
+    column tile; its upper triangle, mirrored as the kernel mirrors it."""
+    x = x.float()
+    g = None
+    for a, b in _col_tiles(x.shape[1]):
+        xk = x[:, a:b]
+        g = xk @ xk.T if g is None else g + xk @ xk.T
+    return torch.triu(g) + torch.triu(g, 1).T
+
+
+def sqdist_to_blocked_plain(x, z):
+    """(m,) squared distances ‖x_i − z‖², summed column tile by column
+    tile."""
+    x, z = x.float(), z.float()
+    sq = None
+    for a, b in _col_tiles(x.shape[1]):
+        diff = x[:, a:b] - z[a:b]
+        part = (diff * diff).sum(1)
+        sq = part if sq is None else sq + part
+    return sq
+
+
+def _worker_tile_sum(x, w, tn: int):
+    """Σ_i w_i·x_i over one worker tile of ``tn`` rows (its first
+    ``len(x)`` real, the rest zero) as the reference's compiled code takes
+    it: one fused multiply-add per row for ``tn`` <= 32, else the rounded
+    products summed by ``xla_sum_rows``."""
+    if tn <= XLA_REDUCE_WINDOW:
+        return weighted_rows(w, x)
+    prods = list((x * w[:, None]).unbind(0))
+    return xla_sum_rows(prods + [torch.zeros_like(prods[0])]
+                        * (tn - len(prods)))
+
+
+def weighted_sum_blocked_plain(x, w):
+    """(d,) z = Σ_i w_i·x_i over a dense (m, d) stack, worker tile by
+    worker tile, the tiles added in order."""
+    x, w = x.float(), w.float()
+    m = x.shape[0]
+    tn = _tile_n_for(m)
+    out = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+    for a in range(0, m, tn):
+        out = out + _worker_tile_sum(x[a:a + tn], w[a:a + tn], tn)
+    return out
+
+
+def pair_gram_blocked(x):
+    """Dense (m, d) float32 stack -> (m, m) float32 Gram, m unbounded. CPU
+    tensors take the plain version; CUDA tensors the kernel."""
+    pair_gram_blocked.calls += 1
+    if _launch.on_cpu("pair_gram_blocked", x.device):
+        return pair_gram_blocked_plain(x)
+    return _launch_pair_gram_blocked(x)
+
+
+def sqdist_to_blocked(x, z):
+    """Dense (m, d) float32 stack, z (d,) -> (m,) float32 ‖x_i − z‖². CPU
+    tensors take the plain version; CUDA tensors the kernel."""
+    sqdist_to_blocked.calls += 1
+    if _launch.on_cpu("sqdist_to_blocked", x.device):
+        return sqdist_to_blocked_plain(x, z)
+    return _launch_sqdist_to_blocked(x, z)
+
+
+def weighted_sum_blocked(x, w):
+    """Dense (m, d) float32 stack, w (m,) -> (d,) float32 Σ_i w_i·x_i. CPU
+    tensors take the plain version; CUDA tensors the kernel."""
+    weighted_sum_blocked.calls += 1
+    if _launch.on_cpu("weighted_sum_blocked", x.device):
+        return weighted_sum_blocked_plain(x, w)
+    return _launch_weighted_sum_blocked(x, w)
+
+
+for _fn in (pair_gram_blocked, sqdist_to_blocked, weighted_sum_blocked):
+    _fn.calls = _fn.launches = 0
+
+# blocks the split kernels aim for: a few waves on the card's 132 SMs
+_GRAM_BLOCKS = 4 * 8 * 132    # 64 threads each
+_SQDIST_BLOCKS = 16 * 132     # 256 threads each
+_GRAM_WORKSPACE_BYTES = 256 << 20
+_GRAM_TILE = 64               # the kernel's output tile
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gram_plan(m: int, d: int):
+    """(chunks, columns per chunk, column tile) of ``pair_gram_blocked``'s
+    kernel. Its running sums restart every ``_tile_for(d)`` columns, the
+    reference's column tile; d is split into chunks of whole column tiles
+    when the (i <= j) 64-row tile pairs alone are too few for a few waves
+    on the card, and the (chunks, pairs, 64, 64) workspace stays under
+    256 MB."""
+    nt = _cdiv(m, _GRAM_TILE)
+    pairs = nt * (nt + 1) // 2
+    tile = _tile_for(d)
+    n_tiles = _cdiv(d, tile)
+    chunks = max(1, min(_cdiv(_GRAM_BLOCKS, pairs),
+                        _GRAM_WORKSPACE_BYTES // (pairs * _GRAM_TILE ** 2 * 4),
+                        n_tiles))
+    cols = _cdiv(n_tiles, chunks) * tile
+    return _cdiv(d, cols), cols, tile
+
+
+def sqdist_plan(m: int, d: int):
+    """(chunks, columns per chunk) of ``sqdist_to_blocked``'s kernel: one
+    warp per row and chunk, chunks of whole 128-column steps."""
+    chunks = max(1, min(_cdiv(_SQDIST_BLOCKS, _cdiv(m, 8)), _cdiv(d, 1024)))
+    cols = _cdiv(_cdiv(d, chunks), 128) * 128
+    return _cdiv(d, cols), cols
+
+
+def _lib_blocked():
+    lib = _build.load("norm_agg_blocked")
+    if lib.pair_gram_blocked_launch.argtypes is None:
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.pair_gram_blocked_launch.argtypes = [p, q, q, i, q, q, p, p, p]
+        lib.sqdist_to_blocked_launch.argtypes = [p, p, q, q, i, q, p, p, p]
+        lib.weighted_sum_blocked_launch.argtypes = [p, p, q, q, i, p, p, p]
+        for fn in (lib.pair_gram_blocked_launch,
+                   lib.sqdist_to_blocked_launch,
+                   lib.weighted_sum_blocked_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_pair_gram_blocked(x):
+    m, d, xp = _launch.dense_args("pair_gram_blocked", x)
+    lib = _lib_blocked()
+    chunks, cols, tile = gram_plan(m, d)
+    nt = _cdiv(m, _GRAM_TILE)
+    part = torch.empty(chunks, nt * (nt + 1) // 2, _GRAM_TILE, _GRAM_TILE,
+                       dtype=torch.float32, device=x.device)
+    out = torch.empty(m, m, dtype=torch.float32, device=x.device)
+    err = lib.pair_gram_blocked_launch(xp, m, d, chunks, cols, tile,
+                                       part.data_ptr(), out.data_ptr(),
+                                       _launch.stream(x.device))
+    _launch.raise_on("pair_gram_blocked", err)
+    pair_gram_blocked.launches += 1
+    return out
+
+
+def _launch_sqdist_to_blocked(x, z):
+    m, d, xp = _launch.dense_args("sqdist_to_blocked", x)
+    zp = _launch.check("sqdist_to_blocked", "z", z, x.device, torch.float32,
+                       (d,))
+    lib = _lib_blocked()
+    chunks, cols = sqdist_plan(m, d)
+    part = torch.empty(chunks, m, dtype=torch.float32, device=x.device)
+    out = torch.empty(m, dtype=torch.float32, device=x.device)
+    err = lib.sqdist_to_blocked_launch(xp, zp, m, d, chunks, cols,
+                                       part.data_ptr(), out.data_ptr(),
+                                       _launch.stream(x.device))
+    _launch.raise_on("sqdist_to_blocked", err)
+    sqdist_to_blocked.launches += 1
+    return out
+
+
+def _launch_weighted_sum_blocked(x, w):
+    m, d, xp = _launch.dense_args("weighted_sum_blocked", x)
+    wp = _launch.check("weighted_sum_blocked", "w", w, x.device,
+                       torch.float32, (m,))
+    lib = _lib_blocked()
+    tn = _tile_n_for(m)
+    part = torch.empty(_cdiv(m, tn), d, dtype=torch.float32, device=x.device)
+    out = torch.empty(d, dtype=torch.float32, device=x.device)
+    err = lib.weighted_sum_blocked_launch(xp, wp, m, d, tn, part.data_ptr(),
+                                          out.data_ptr(),
+                                          _launch.stream(x.device))
+    _launch.raise_on("weighted_sum_blocked", err)
+    weighted_sum_blocked.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# blocked rule drivers (giant n; dense segments, prologue already applied)
+# ---------------------------------------------------------------------------
+
+def _no_bvalid(who, bvalid):
+    if bvalid is not None:
+        raise NotImplementedError(
+            f"{who} with a validity mask (the fault guard's masked twin) is "
+            "not ported yet (ROADMAP queue 1, item 7)")
+
+
+def rfa_segments_blocked(segs, *, iters: int = 8, eps: float = 1e-8,
+                         bvalid=None):
+    """Giant-n smoothed Weiszfeld over dense (m, d_j) segments with global
+    distances, ``Aggregator._rfa_tree``'s semantics: per pass one
+    ``weighted_sum_blocked`` (z_t) and one ``sqdist_to_blocked`` per
+    segment, then a final weighted sum. Returns the per-segment (d_j,)
+    aggregates; nothing is read on the host between launches."""
+    _no_bvalid("rfa_segments_blocked", bvalid)
+    m = segs[0].shape[0]
+    w = torch.full((m,), 1.0 / m, dtype=torch.float32, device=segs[0].device)
+    for _ in range(iters):
+        zs = [weighted_sum_blocked(xs, w) for xs in segs]
+        sq = sum(sqdist_to_blocked(xs, z) for xs, z in zip(segs, zs))
+        w = 1.0 / torch.sqrt(sq + eps)
+        w = w / torch.clamp(torch.sum(w), min=1e-30)
+    return [weighted_sum_blocked(xs, w) for xs in segs]
+
+
+def krum_segments_blocked(segs, *, n_byz: int = 1, bvalid=None):
+    """Giant-n Krum over dense (m, d_j) segments, ``Aggregator._krum_tree``'s
+    semantics: one ``pair_gram_blocked`` per segment (global distances),
+    the scoring (``krum_select``), one ``weighted_sum_blocked`` per segment
+    extracting the winner through its one-hot."""
+    _no_bvalid("krum_segments_blocked", bvalid)
+    g = sum(pair_gram_blocked(xs) for xs in segs)
+    onehot, _, _ = krum_select(g, n_byz)
+    return [weighted_sum_blocked(xs, onehot) for xs in segs]

@@ -7,9 +7,10 @@ toolkit are installed:
 Without a card every test here skips. Tolerances: 1e-5 × max|input| for
 the coordinate rules, RFA's z and the weighted sum (reordered float32
 sums of W·x over at most 64 workers); 1e-5 of the largest entry for the
-Gram and the squared distances, sums over d taken in another order. The
-norm kernels must also repeat bit for bit: they take every sum in a
-fixed order."""
+Gram and the squared distances, sums over d taken in another order; bit
+for bit for the blocked weighted sum, whose kernel takes the plain
+version's order. The norm kernels must also repeat bit for bit: they take
+every sum in a fixed order."""
 import pytest
 import torch
 
@@ -20,6 +21,8 @@ from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
 
 NORM = {"pair_gram": norm_agg.pair_gram, "rfa_iter": norm_agg.rfa_iter,
         "weighted_sum": norm_agg.weighted_sum}
+BLOCKED = {name: getattr(norm_agg, name) for name in (
+    "pair_gram_blocked", "sqdist_to_blocked", "weighted_sum_blocked")}
 
 TOL = 1e-5
 ALIE = CoordAttack("ALIE", 1.06)
@@ -188,3 +191,57 @@ def test_norm_wrappers_reject_what_the_kernels_do_not_take(dev, name):
         fn(*((torch.randn(65, 100, device=dev),)
              + (() if name == "pair_gram" else
                 (torch.full((65,), 1 / 65, device=dev),))))
+
+
+def _blocked_inputs(m, d, dev):
+    g = torch.Generator(device=dev).manual_seed(m * 7919 + d)
+    return (torch.randn(m, d, device=dev, generator=g),
+            torch.randn(d, device=dev, generator=g),
+            torch.rand(m, device=dev, generator=g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, d", [(m, d) for m in (65, 75, 130, 150)
+                                  for d in (1, 123, 2100)]
+                         + [(4096, 256), (20, 300), (40, 300)])
+def test_blocked_kernels(dev, m, d):
+    """Each blocked kernel against its plain version, twice, bit for bit;
+    the Gram symmetric bit for bit."""
+    x, z, w = _blocked_inputs(m, d, dev)
+    before = {k: fn.launches for k, fn in BLOCKED.items()}
+    gram = [norm_agg.pair_gram_blocked(x) for _ in range(2)]
+    sq = [norm_agg.sqdist_to_blocked(x, z) for _ in range(2)]
+    ws = [norm_agg.weighted_sum_blocked(x, w) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {k: fn.launches - before[k] for k, fn in BLOCKED.items()} == {
+        k: 2 for k in BLOCKED}
+    for pair in (gram, sq, ws):
+        assert torch.equal(pair[0], pair[1])
+    assert torch.equal(gram[0], gram[0].T)
+    want = norm_agg.pair_gram_blocked_plain(x)
+    _near(gram[0], want, float(want.abs().max()))
+    want = norm_agg.sqdist_to_blocked_plain(x, z)
+    _near(sq[0], want, float(want.max()))
+    want = norm_agg.weighted_sum_blocked_plain(x, w)
+    if m > 32:       # products rounded, then added: the same operations
+        assert torch.equal(ws[0], want)
+    else:            # a fused multiply-add chain, emulated in float64
+        _near(ws[0], want, float(x.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(BLOCKED))
+def test_blocked_wrappers_reject_what_the_kernels_do_not_take(dev, name):
+    x, z, w = _blocked_inputs(70, 100, dev)
+    fn = BLOCKED[name]
+    extra = {"pair_gram_blocked": (), "sqdist_to_blocked": (z,),
+             "weighted_sum_blocked": (w,)}[name]
+    with pytest.raises(TypeError):
+        fn(x.double(), *extra)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(torch.randn(100, 70, device=dev).T, *extra)
+    with pytest.raises(ValueError, match="stack"):
+        fn(x[0], *extra)
+    if extra:
+        with pytest.raises(ValueError, match="shape"):
+            fn(x, extra[0][:-1])

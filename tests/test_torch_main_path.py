@@ -1,6 +1,7 @@
 """The port's main path against the reference: Byz-VR-MARINA with RandK,
 ALIE and bucketed coordinate-wise median, RFA or Krum, one engine step at
-a time and as whole runs of one spec. Trajectories agree to 2e-5, the
+a time and as whole runs of one spec, at 5 workers and, through the
+giant-n tier, at 130. Trajectories agree to 2e-5, the
 pallas≡gspmd tolerance of the reference's own estimator contract; the c_k
 coins and the communication count agree exactly."""
 import ast
@@ -17,6 +18,7 @@ from repro.api.runner import build as jax_build
 from repro_torch.api import RunSpec, run
 from repro_torch.api.runner import build
 from repro_torch.convert import key_from_numpy, state_from_numpy, tree_from_numpy
+from repro_torch.core.theory import delta_over_active_set
 from repro_torch.kernels import norm_agg
 
 TRAJ_TOL = 2e-5
@@ -114,6 +116,66 @@ def test_run_matches_reference(aggregator, agg_mode):
     assert all(fn.launches == 0 for fn in fns.values())    # plain on CPU
 
 
+GIANT = dict(n_workers=130, n_byz=13,
+             data_kwargs={"dim": 40, "n_samples": 1300, "batch_size": 8})
+
+
+def _blocked_calls(ck, aggregator, agg_mode):
+    """Blocked entry-point calls of a run at n = 130 (m = 65 buckets): one
+    init aggregation and one per round, each over the two leaves b and w
+    (the tier does not pack them); RFA makes T = 8 Weiszfeld passes."""
+    aggs = 1 + len(ck)
+    if agg_mode == "gspmd" or aggregator == "cm":
+        return {"pair_gram_blocked": 0, "sqdist_to_blocked": 0,
+                "weighted_sum_blocked": 0}
+    if aggregator == "rfa":
+        return {"pair_gram_blocked": 0, "sqdist_to_blocked": 2 * 8 * aggs,
+                "weighted_sum_blocked": 2 * 9 * aggs}
+    return {"pair_gram_blocked": 2 * aggs, "sqdist_to_blocked": 0,
+            "weighted_sum_blocked": 2 * aggs}
+
+
+@pytest.mark.parametrize("aggregator, agg_mode", [
+    ("cm", "pallas"), ("rfa", "pallas"), ("krum", "pallas"),
+    ("krum", "gspmd")])
+def test_giant_n_run_matches_reference(aggregator, agg_mode):
+    """More than 64 workers: the giant-n tier under pallas (the blocked
+    drivers, as s = 2 leaves m = 65 rows), the slab Gram under gspmd."""
+    jspec = JaxRunSpec(**{**SPEC, **GIANT, "agg_mode": agg_mode,
+                          "aggregator": aggregator})
+    ref = jax_run(jspec, log_every=1)
+    names = ("pair_gram_blocked", "sqdist_to_blocked",
+             "weighted_sum_blocked")
+    fns = {k: getattr(norm_agg, k) for k in names}
+    for fn in fns.values():
+        fn.calls = fn.launches = 0
+    got = run(RunSpec.from_json(jspec.to_json()), device="cpu", log_every=1)
+    ck = [int(h["c_k"]) for h in got.history]
+    assert ck == [int(h["c_k"]) for h in ref.history]
+    assert set(ck) == {0, 1}
+    assert got.comm_bits == ref.comm_bits
+    np.testing.assert_allclose([h["loss"] for h in got.history],
+                               [h["loss"] for h in ref.history],
+                               rtol=TRAJ_TOL, atol=TRAJ_TOL)
+    _close(got.params, ref.params)
+    assert {k: fn.calls for k, fn in fns.items()} == _blocked_calls(
+        ck, aggregator, agg_mode)
+    assert all(fn.launches == 0 for fn in fns.values())    # plain on CPU
+
+
+def test_giant_n_spec_validates():
+    """256 workers with 32 byzantine: δ = 0.125, and 0.25 over the s = 2
+    buckets, below 1/2, so the spec builds without a warning."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        spec = RunSpec(**{**SPEC, "n_workers": 256, "n_byz": 32,
+                          "aggregator": "rfa"})
+        exp = build(spec, device="cpu")
+    assert delta_over_active_set(256, 32, bucket_size=2) == 0.25
+    assert exp.cfg.n_workers == 256 and exp.data.n_workers == 256
+
+
 def test_run_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -131,6 +193,7 @@ def test_spec_json_is_shared():
     {"method": "sgd"}, {"compressor": "int8"}, {"compressor": "topk"},
     {"attack": "RN"}, {"agg_mode": "all_to_all"}, {"participation": 0.6},
     {"fault_guard": True}, {"trace": True}, {"optimizer": "adam"},
+    {**GIANT, "participation": 0.5},
 ])
 def test_unported_components_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

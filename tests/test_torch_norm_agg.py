@@ -267,9 +267,14 @@ def test_aggregator_flat_call(rule):
 
 
 def test_krum_over_64_rows_names_its_roadmap_item():
-    xs = {"w": torch.zeros(65, 3)}
+    """Krum over more than 64 rows runs, on the slab Gram; its masked twin
+    (the fault guard's) is what is left to port, and says so."""
+    xs = {"w": torch.randn(65, 3, generator=torch.Generator().manual_seed(0))}
+    out = tagg.get_aggregator("krum").tree(R.PRNGKey(0), xs)
+    assert out["w"].shape == (3,) and torch.isfinite(out["w"]).all()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        tagg.get_aggregator("krum").tree(R.PRNGKey(0), xs)
+        norm_agg.krum_segments_blocked(
+            [xs["w"]], bvalid=torch.ones(65, dtype=torch.bool))
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -296,7 +301,7 @@ def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {name: _build.library_path(name) for name in _build.sources()}
-    assert set(before) == {"norm_agg", "robust_agg"}
+    assert set(before) == {"norm_agg", "norm_agg_blocked", "robust_agg"}
     header = csrc / "agg_prologue.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.sources()}
