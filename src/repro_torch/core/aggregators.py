@@ -3,9 +3,8 @@
 trimmed mean (tm), RFA (smoothed Weiszfeld) and Krum. These plain
 versions are the gspmd backend and the reference the kernel backend is
 held to. RFA and Krum take global distances, summed over the leaves of a
-tree; above ``MAX_FUSED_WORKERS`` rows Krum's Gram is taken in row
-slabs (``_tree_pair_sqdists_blocked``). Not ported yet: the masked twins
-and the telemetry twin (ROADMAP queue 1, items 3, 7 and 8).
+tree. Not ported yet: the masked twins and the telemetry twin (ROADMAP
+queue 1, items 3, 7 and 8).
 """
 from __future__ import annotations
 
@@ -102,26 +101,13 @@ MAX_FUSED_WORKERS = 64
 RULES = ("mean", "cm", "tm", "rfa", "krum")
 
 
-def _tree_pair_sqdists_blocked(leaves, n: int):
-    """(n, n) global pairwise squared distances for giant n: the Gram is
-    taken one slab of ``MAX_FUSED_WORKERS`` rows at a time against the
-    whole stack, so the largest intermediate is (64, n), never anything of
-    size n²·d."""
-    flats = [a.reshape(n, -1).float() for a in leaves]
-    sq = sum(torch.sum(f * f, dim=-1) for f in flats)
-    tile = MAX_FUSED_WORKERS
-    gram = torch.cat([sum(f[i:i + tile] @ f.T for f in flats)
-                      for i in range(0, n, tile)])
-    d2 = sq[:, None] + sq[None, :] - 2.0 * gram
-    return torch.clamp(d2, min=0.0)
-
-
 def _tree_pair_sqdists(xs: dict):
-    """(n, n) global pairwise squared distances from a stacked tree."""
+    """(n, n) global pairwise squared distances from a stacked tree, any
+    n: the largest intermediate is the (n, n) Gram, never anything of size
+    n²·d, so the reference's 64-row slabs above ``MAX_FUSED_WORKERS``
+    (bounding XLA's working set) are not needed here."""
     leaves = tu.leaves(xs)
     n = leaves[0].shape[0]
-    if n > MAX_FUSED_WORKERS:
-        return _tree_pair_sqdists_blocked(leaves, n)
     flats = [a.reshape(n, -1).float() for a in leaves]
     sq = sum(torch.sum(f * f, dim=-1) for f in flats)
     gram = sum(f @ f.T for f in flats)

@@ -35,12 +35,11 @@
 //   and chunk of columns, float4 loads where d allows, a fixed lane order
 //   and a fixed shuffle tree; (chunks, m) partials, summed in chunk order.
 // weighted_sum_blocked. Bound: bytes. One thread per column and worker
-//   tile of tn rows (the reference's 64), rows in order, coalesced across
-//   the threads; (tiles, d) partials summed in tile order. Each tile's sum
-//   is taken as the reference's compiled float32 code takes it on the CPU:
-//   a tile of more than 32 rows is two windows split at 32 - (64 - tn) / 2,
-//   each a sequential sum of rounded products, then the two windows added;
-//   a tile of 32 rows or fewer is one fused multiply-add per row.
+//   tile of 64 rows (the reference's; the last tile short), rows in order,
+//   coalesced across the threads; (tiles, d) partials summed in tile order.
+//   Each tile's sum is taken as the reference's compiled float32 code takes
+//   it on the CPU: two windows of 32 rows, each a sequential sum of rounded
+//   products, then the two windows added.
 
 #include <cuda_runtime.h>
 
@@ -54,6 +53,8 @@ constexpr int GLD = GK + 4;   // staged row stride: 16-byte rows, no conflicts
 constexpr int GTHREADS = 64;  // 8 x 8 threads, 8 x 8 outputs each
 constexpr int SQ_WARPS = 8;   // rows per sqdist block, one warp each
 constexpr int WS_THREADS = 256;
+constexpr int WS_TILE = 64;   // worker tile of the weighted sum
+constexpr int WS_WINDOW = 32; // rows summed in order within a tile
 constexpr int FINISH_THREADS = 256;
 
 typedef float Slab[GT][GLD];  // (64 rows, 32 columns) of one row tile
@@ -269,30 +270,21 @@ __global__ void sum_partials(const float* __restrict__ part, int p,
 
 __global__ void __launch_bounds__(WS_THREADS) wsum_blocked_tiles(
     const float* __restrict__ x, const float* __restrict__ w, long long m,
-    long long d, int tn, float* __restrict__ part) {
+    long long d, float* __restrict__ part) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= d) return;
-  const long long r0 = (long long)blockIdx.y * tn;
-  const long long r1 = r0 + tn < m ? r0 + tn : m;
+  const long long r0 = (long long)blockIdx.y * WS_TILE;
+  const long long r1 = r0 + WS_TILE < m ? r0 + WS_TILE : m;
+  const long long cut = r0 + WS_WINDOW < r1 ? r0 + WS_WINDOW : r1;
   const float* xc = x + c;
-  float s;
-  if (tn <= 32) {  // one fused multiply-add per row, in row order
-    s = 0.f;
+  float lo = 0.f, hi = 0.f;
 #pragma unroll 8
-    for (long long r = r0; r < r1; ++r) s = __fmaf_rn(xc[r * d], w[r], s);
-  } else {  // two windows of rounded products, then their sum
-    const long long cut0 = r0 + 32 - (64 - tn) / 2;
-    const long long cut = cut0 < r1 ? cut0 : r1;
-    float lo = 0.f, hi = 0.f;
+  for (long long r = r0; r < cut; ++r)
+    lo = __fadd_rn(lo, __fmul_rn(xc[r * d], w[r]));
 #pragma unroll 8
-    for (long long r = r0; r < cut; ++r)
-      lo = __fadd_rn(lo, __fmul_rn(xc[r * d], w[r]));
-#pragma unroll 8
-    for (long long r = cut; r < r1; ++r)
-      hi = __fadd_rn(hi, __fmul_rn(xc[r * d], w[r]));
-    s = __fadd_rn(lo, hi);
-  }
-  part[(long long)blockIdx.y * d + c] = s;
+  for (long long r = cut; r < r1; ++r)
+    hi = __fadd_rn(hi, __fmul_rn(xc[r * d], w[r]));
+  part[(long long)blockIdx.y * d + c] = __fadd_rn(lo, hi);
 }
 
 unsigned grid_for(long long items, int threads) {
@@ -304,7 +296,7 @@ unsigned grid_for(long long items, int threads) {
 // The launch entry points enqueue on `stream` and return cudaGetLastError()
 // (0 on success). The wrappers size the workspaces `part`: (chunks, pairs,
 // 64, 64) for the Gram with pairs = nt (nt + 1) / 2, nt = ceil(m / 64);
-// (chunks, m) for the distances; (ceil(m / tn), d) for the weighted sum.
+// (chunks, m) for the distances; (ceil(m / 64), d) for the weighted sum.
 
 extern "C" int pair_gram_blocked_launch(const float* x, long long m,
                                         long long d, int chunks,
@@ -348,13 +340,13 @@ extern "C" int sqdist_to_blocked_launch(const float* x, const float* z,
 }
 
 extern "C" int weighted_sum_blocked_launch(const float* x, const float* w,
-                                           long long m, long long d, int tn,
+                                           long long m, long long d,
                                            float* part, float* out,
                                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (int)((m + tn - 1) / tn);
+  const int tiles = (int)((m + WS_TILE - 1) / WS_TILE);
   wsum_blocked_tiles<<<dim3(grid_for(d, WS_THREADS), tiles), WS_THREADS, 0,
-                       st>>>(x, w, m, d, tn, part);
+                       st>>>(x, w, m, d, part);
   cudaError_t err;
   if ((err = cudaGetLastError())) return (int)err;
   sum_partials<<<grid_for(d, FINISH_THREADS), FINISH_THREADS, 0, st>>>(

@@ -30,12 +30,29 @@
 // block load of agg_prologue.cuh. Arithmetic follows the reference's
 // compiled float32 code with explicitly rounded intrinsics, so the compiler
 // can neither fuse nor reorder it: the ALIE value mean - z*std is one fused
-// multiply-add, a mean is a sequential sum times the rounded reciprocal of
-// the count.
+// multiply-add, a mean is a sum in XLA's order (row_sum) times the rounded
+// reciprocal of the count.
 
 #include "agg_prologue.cuh"
 
 enum { RULE_MEAN = 0, RULE_MEDIAN = 1, RULE_TRIMMED = 2 };
+
+constexpr int XLA_WINDOW = 32;
+
+// Sum of the `cnt` rows v[0], v[TILE], ... of one column (cnt <= 64) in the
+// order the reference's compiled float32 code sums rows on the CPU
+// (aggregators.xla_sum_rows): in order up to 32 rows; above, two windows
+// cut at 32 - (64 - cnt) / 2 (the zero rows XLA pads with on both sides
+// add nothing), each summed in order, then the two window sums added.
+__device__ __forceinline__ float row_sum(const float* v, int cnt) {
+  const int cut = cnt <= XLA_WINDOW ? cnt
+                                    : XLA_WINDOW - (2 * XLA_WINDOW - cnt) / 2;
+  float lo = 0.f, hi = 0.f;
+  for (int i = 0; i < cut; ++i) lo = __fadd_rn(lo, v[i * TILE]);
+  if (cut == cnt) return lo;
+  for (int i = cut; i < cnt; ++i) hi = __fadd_rn(hi, v[i * TILE]);
+  return __fadd_rn(lo, hi);
+}
 
 template <bool SPARSE>
 __global__ void __launch_bounds__(TILE) robust_agg_kernel(
@@ -60,9 +77,7 @@ __global__ void __launch_bounds__(TILE) robust_agg_kernel(
 
   float r;
   if (rule == RULE_MEAN) {
-    float acc = 0.f;
-    for (int i = 0; i < m; ++i) acc = __fadd_rn(acc, rows[i * TILE + tid]);
-    r = __fmul_rn(acc, __frcp_rn((float)m));
+    r = __fmul_rn(row_sum(rows + tid, m), __frcp_rn((float)m));
   } else {
     for (int i = 1; i < m; ++i) {        // insertion sort of the column
       const float v = rows[i * TILE + tid];
@@ -80,9 +95,8 @@ __global__ void __launch_bounds__(TILE) robust_agg_kernel(
                                               rows[h * TILE + tid]));
     } else {
       const int t = min(trim, (m - 1) / 2);
-      float acc = 0.f;
-      for (int i = t; i < m - t; ++i) acc = __fadd_rn(acc, rows[i * TILE + tid]);
-      r = __fmul_rn(acc, __frcp_rn((float)(m - 2 * t)));
+      r = __fmul_rn(row_sum(rows + t * TILE + tid, m - 2 * t),
+                    __frcp_rn((float)(m - 2 * t)));
     }
   }
   out[c] = r;

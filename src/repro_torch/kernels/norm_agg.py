@@ -37,22 +37,17 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregators import (XLA_REDUCE_WINDOW, weighted_rows,
+from repro_torch.core.aggregators import (MAX_FUSED_WORKERS, weighted_rows,
                                           xla_sum_rows)
 from repro_torch.kernels import _build, _launch, quantize
 
 DEFAULT_TILE_D = 2048     # the reference's column tile
-DEFAULT_TILE_N = 64       # worker tile of the blocked kernels
+DEFAULT_TILE_N = 64       # worker tile of the blocked weighted sum
 
 
 def _tile_for(d: int) -> int:
     """The reference's column tile: 128-aligned, shrunk for small d."""
     return min(DEFAULT_TILE_D, max(128, -(-d // 128) * 128))
-
-
-def _tile_n_for(m: int) -> int:
-    """The reference's worker tile: a multiple of 8, shrunk for small m."""
-    return min(DEFAULT_TILE_N, max(8, -(-m // 8) * 8))
 
 
 def bucket_matrix(perm, n: int, s: int):
@@ -339,9 +334,12 @@ def krum_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
 # The plain versions repeat the reference's tiling where it changes the
 # result: the Gram and the distances sum each ``_tile_for(d)`` column tile
 # and add the tiles in order; the weighted sum takes each worker tile of
-# ``_tile_n_for(m)`` rows as the reference's compiled code does and adds
+# ``DEFAULT_TILE_N`` rows as the reference's compiled code does and adds
 # the tiles in order. Zero-padded rows and columns add zeros only, so the
-# plain versions leave them out.
+# plain versions leave them out. The tier calls them on more than
+# ``MAX_FUSED_WORKERS`` rows only, where the reference's worker tile is
+# always ``DEFAULT_TILE_N``; the weighted sum, whose order depends on that
+# tile, refuses fewer rows.
 
 def _col_tiles(d: int):
     tile = _tile_for(d)
@@ -371,27 +369,27 @@ def sqdist_to_blocked_plain(x, z):
     return sq
 
 
-def _worker_tile_sum(x, w, tn: int):
-    """Σ_i w_i·x_i over one worker tile of ``tn`` rows (its first
-    ``len(x)`` real, the rest zero) as the reference's compiled code takes
-    it: one fused multiply-add per row for ``tn`` <= 32, else the rounded
-    products summed by ``xla_sum_rows``."""
-    if tn <= XLA_REDUCE_WINDOW:
-        return weighted_rows(w, x)
-    prods = list((x * w[:, None]).unbind(0))
-    return xla_sum_rows(prods + [torch.zeros_like(prods[0])]
-                        * (tn - len(prods)))
+def _giant_rows(who, m: int):
+    if m <= MAX_FUSED_WORKERS:
+        raise ValueError(
+            f"{who} serves the giant-n tier, more than {MAX_FUSED_WORKERS} "
+            f"rows; got {m} (fewer rows take the fused kernels)")
 
 
 def weighted_sum_blocked_plain(x, w):
-    """(d,) z = Σ_i w_i·x_i over a dense (m, d) stack, worker tile by
-    worker tile, the tiles added in order."""
+    """(d,) z = Σ_i w_i·x_i over a dense (m, d) stack, m > 64, worker tile
+    by worker tile, the tiles added in order. Each tile's sum is taken as
+    the reference's compiled code takes it: the rounded products of its
+    ``DEFAULT_TILE_N`` rows (the last tile zero-padded) summed by
+    ``xla_sum_rows``."""
     x, w = x.float(), w.float()
-    m = x.shape[0]
-    tn = _tile_n_for(m)
+    m, tn = x.shape[0], DEFAULT_TILE_N
+    _giant_rows("weighted_sum_blocked", m)
     out = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
     for a in range(0, m, tn):
-        out = out + _worker_tile_sum(x[a:a + tn], w[a:a + tn], tn)
+        prods = list((x[a:a + tn] * w[a:a + tn, None]).unbind(0))
+        pad = [torch.zeros_like(prods[0])] * (tn - len(prods))
+        out = out + xla_sum_rows(prods + pad)
     return out
 
 
@@ -414,8 +412,9 @@ def sqdist_to_blocked(x, z):
 
 
 def weighted_sum_blocked(x, w):
-    """Dense (m, d) float32 stack, w (m,) -> (d,) float32 Σ_i w_i·x_i. CPU
-    tensors take the plain version; CUDA tensors the kernel."""
+    """Dense (m, d) float32 stack, m > 64, w (m,) -> (d,) float32
+    Σ_i w_i·x_i. CPU tensors take the plain version; CUDA tensors the
+    kernel."""
     weighted_sum_blocked.calls += 1
     if _launch.on_cpu("weighted_sum_blocked", x.device):
         return weighted_sum_blocked_plain(x, w)
@@ -468,7 +467,7 @@ def _lib_blocked():
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.pair_gram_blocked_launch.argtypes = [p, q, q, i, q, q, p, p, p]
         lib.sqdist_to_blocked_launch.argtypes = [p, p, q, q, i, q, p, p, p]
-        lib.weighted_sum_blocked_launch.argtypes = [p, p, q, q, i, p, p, p]
+        lib.weighted_sum_blocked_launch.argtypes = [p, p, q, q, p, p, p]
         for fn in (lib.pair_gram_blocked_launch,
                    lib.sqdist_to_blocked_launch,
                    lib.weighted_sum_blocked_launch):
@@ -510,13 +509,14 @@ def _launch_sqdist_to_blocked(x, z):
 
 def _launch_weighted_sum_blocked(x, w):
     m, d, xp = _launch.dense_args("weighted_sum_blocked", x)
+    _giant_rows("weighted_sum_blocked", m)
     wp = _launch.check("weighted_sum_blocked", "w", w, x.device,
                        torch.float32, (m,))
     lib = _lib_blocked()
-    tn = _tile_n_for(m)
-    part = torch.empty(_cdiv(m, tn), d, dtype=torch.float32, device=x.device)
+    part = torch.empty(_cdiv(m, DEFAULT_TILE_N), d, dtype=torch.float32,
+                       device=x.device)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
-    err = lib.weighted_sum_blocked_launch(xp, wp, m, d, tn, part.data_ptr(),
+    err = lib.weighted_sum_blocked_launch(xp, wp, m, d, part.data_ptr(),
                                           out.data_ptr(),
                                           _launch.stream(x.device))
     _launch.raise_on("weighted_sum_blocked", err)

@@ -4,7 +4,8 @@ The plain blocked kernels ``pair_gram_blocked_plain``,
 ``sqdist_to_blocked_plain`` and ``weighted_sum_blocked_plain`` (what the
 CPU path takes) are held to ``repro.kernels.norm_agg``'s blocked kernels
 run in interpret mode on the same numpy inputs; the blocked drivers to
-the reference's; the slab Gram to the reference's jnp oracle; and
+the reference's; the gspmd Gram at n > 64 to the reference's jnp slab
+oracle; and
 ``sharded_agg.tree_aggregate_pallas`` / ``tree_aggregate_pallas_wire`` to
 the reference's at n = 100 (m = 50 bucketed rows: the fused drivers) and
 n = 130 (m = 65: the blocked ones), for all five rules.
@@ -84,10 +85,8 @@ def test_sqdist_to_blocked(m, d):
                                    interpret=True), SUM_REL)
 
 
-# m = 20 and 40 give worker tiles of 24 and 40 rows: the fused
-# multiply-add chain and an unevenly split pair of windows
 @pytest.mark.parametrize("d", [1, 123, 2100])
-@pytest.mark.parametrize("m", [20, 40, 65, 75, 130, 150])
+@pytest.mark.parametrize("m", [65, 75, 130, 150])
 def test_weighted_sum_blocked(m, d):
     x = _stack(m, d, m + d)
     w = np.random.default_rng(m).random(m).astype(np.float32)
@@ -95,6 +94,18 @@ def test_weighted_sum_blocked(m, d):
                                                torch.as_tensor(w)),
            jnorm.weighted_sum_blocked(jnp.asarray(x), jnp.asarray(w),
                                       interpret=True), 0)
+
+
+@pytest.mark.parametrize("m", [20, 40, 64])
+def test_weighted_sum_blocked_refuses_the_fused_tier(m):
+    """Its order is the reference's for 64-row worker tiles, which the
+    reference takes only above 64 rows."""
+    x = torch.as_tensor(_stack(m, 30, m))
+    w = torch.full((m,), 1 / m)
+    for fn in (norm_agg.weighted_sum_blocked,
+               norm_agg.weighted_sum_blocked_plain):
+        with pytest.raises(ValueError, match="more than 64 rows"):
+            fn(x, w)
 
 
 def _segments(m, seed):
@@ -150,11 +161,7 @@ def test_tree_pair_sqdists_blocked(n):
     xs = {"b": rng.standard_normal((n,)).astype(np.float32),
           "w": rng.standard_normal((n, 7, 3)).astype(np.float32)}
     ref = jagg._tree_pair_sqdists({k: jnp.asarray(v) for k, v in xs.items()})
-    got = tagg._tree_pair_sqdists(tree_from_numpy(xs))
-    _close(got, ref, SUM_REL)
-    _close(tagg._tree_pair_sqdists_blocked(
-        [torch.as_tensor(xs["b"]), torch.as_tensor(xs["w"])], n),
-        ref, SUM_REL)
+    _close(tagg._tree_pair_sqdists(tree_from_numpy(xs)), ref, SUM_REL)
 
 
 def _cfgs(rule, n):

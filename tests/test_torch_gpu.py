@@ -203,7 +203,7 @@ def _blocked_inputs(m, d, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m, d", [(m, d) for m in (65, 75, 130, 150)
                                   for d in (1, 123, 2100)]
-                         + [(4096, 256), (20, 300), (40, 300)])
+                         + [(4096, 256)])
 def test_blocked_kernels(dev, m, d):
     """Each blocked kernel against its plain version, twice, bit for bit;
     the Gram symmetric bit for bit."""
@@ -222,11 +222,7 @@ def test_blocked_kernels(dev, m, d):
     _near(gram[0], want, float(want.abs().max()))
     want = norm_agg.sqdist_to_blocked_plain(x, z)
     _near(sq[0], want, float(want.max()))
-    want = norm_agg.weighted_sum_blocked_plain(x, w)
-    if m > 32:       # products rounded, then added: the same operations
-        assert torch.equal(ws[0], want)
-    else:            # a fused multiply-add chain, emulated in float64
-        _near(ws[0], want, float(x.abs().max()))
+    assert torch.equal(ws[0], norm_agg.weighted_sum_blocked_plain(x, w))
 
 
 @pytest.mark.gpu
@@ -245,3 +241,6 @@ def test_blocked_wrappers_reject_what_the_kernels_do_not_take(dev, name):
     if extra:
         with pytest.raises(ValueError, match="shape"):
             fn(x, extra[0][:-1])
+    if name == "weighted_sum_blocked":
+        with pytest.raises(ValueError, match="more than 64 rows"):
+            fn(x[:64], w[:64])

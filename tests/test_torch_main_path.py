@@ -140,7 +140,7 @@ def _blocked_calls(ck, aggregator, agg_mode):
     ("krum", "gspmd")])
 def test_giant_n_run_matches_reference(aggregator, agg_mode):
     """More than 64 workers: the giant-n tier under pallas (the blocked
-    drivers, as s = 2 leaves m = 65 rows), the slab Gram under gspmd."""
+    drivers, as s = 2 leaves m = 65 rows), the plain Gram under gspmd."""
     jspec = JaxRunSpec(**{**SPEC, **GIANT, "agg_mode": agg_mode,
                           "aggregator": aggregator})
     ref = jax_run(jspec, log_every=1)

@@ -267,7 +267,7 @@ def test_aggregator_flat_call(rule):
 
 
 def test_krum_over_64_rows_names_its_roadmap_item():
-    """Krum over more than 64 rows runs, on the slab Gram; its masked twin
+    """Krum over more than 64 rows runs, on the plain Gram; its masked twin
     (the fault guard's) is what is left to port, and says so."""
     xs = {"w": torch.randn(65, 3, generator=torch.Generator().manual_seed(0))}
     out = tagg.get_aggregator("krum").tree(R.PRNGKey(0), xs)
