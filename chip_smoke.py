@@ -4,17 +4,21 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all at once), holds each against its plain
-PyTorch version on the card, checks that the norm kernels repeat bit for
-bit, and times kernel, plain version and a library call. Then it drives
-the port's main path — Byz-VR-MARINA with RandK, ALIE and bucketing s = 2
-on a9a-width logistic regression — through ``repro_torch.api.run`` three
-times at 5 workers, with coordinate-wise median, RFA and Krum, and twice
-at 256 workers (the giant-n tier on the blocked kernels), with RFA and
-Krum, and checks that every aggregation went through the kernels (launch
-counts against each rule's formula) and that the first rounds agree with
-the plain CPU path. Any failure raises and exits non-zero. The last line
-is the device JSON; the line before it is the per-kernel JSON. Needs one
-CUDA card; exits non-zero without one. Imports nothing of JAX.
+PyTorch version on the card, checks that the norm, TopK and quantizer
+kernels repeat bit for bit, and times kernel, plain version and a library
+call. Then it drives the port's main path — Byz-VR-MARINA with RandK,
+ALIE and bucketing s = 2 on a9a-width logistic regression — through
+``repro_torch.api.run`` three times at 5 workers, with coordinate-wise
+median, RFA and Krum, and twice at 256 workers (the giant-n tier on the
+blocked kernels), with RFA and Krum; Byz-EF21 with TopK on the sparse
+wire at gisette width (5000 features, where TopK's pool kernel runs);
+and the block quantizer through the ``repro_torch.kernels.ops`` entry
+point. It checks that every aggregation and selection went through the
+kernels (launch counts against each path's formula) and that the first
+rounds agree with the plain CPU path. Any failure raises and exits
+non-zero. The last line is the device JSON; the line before it is the
+per-kernel JSON. Needs one CUDA card; exits non-zero without one.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -51,6 +55,15 @@ MAIN_SPEC = dict(
 # the giant-n tier: 256 workers, 32 byzantine; bucketing leaves m = 128
 # rows, so RFA and Krum run on the blocked kernels
 GIANT_SPEC = dict(n_workers=256, n_byz=32)
+# Byz-EF21 with TopK on the sparse wire at the width of LIBSVM's
+# gisette_scale (6000 samples x 5000 features, NIPS 2003 feature
+# selection): leaf w is wider than two 2048-column tiles, so every round
+# launches TopK's pool kernel; the reference's loss falls at lr 0.5
+EF21_SPEC = dict(
+    task="logreg", method="byz_ef21", n_workers=5, n_byz=1, attack="ALIE",
+    aggregator="cm", bucket_size=2, agg_mode="pallas", compressor="topk",
+    compressor_kwargs={"ratio": 0.1}, lr=0.5, steps=MAIN_STEPS,
+    data_kwargs={"n_samples": 6000, "dim": 5000, "batch_size": 32})
 
 # (label, n, d, k or None for the dense load, base rows, bucket s, rule);
 # every case carries the ALIE attack on max(1, n // 5) byzantine rows
@@ -58,6 +71,12 @@ MAIN_CASES = [
     ("dense", "main path: packed b+w segment", 5, 124, None, 0, 2, "median"),
     ("sparse_wire", "main path: wire, leaf w", 5, 123, 12, 1, 2, "median"),
     ("sparse_wire", "main path: wire, leaf b", 5, 1, 1, 1, 2, "median"),
+    ("dense", "Byz-EF21 init: leaf w", 5, 5000, None, 0, 2, "median"),
+    ("dense", "Byz-EF21 init: leaf b", 5, 1, None, 0, 2, "median"),
+    ("sparse_wire", "Byz-EF21 wire, leaf w, per-worker base", 5, 5000, 500,
+     5, 2, "median"),
+    ("sparse_wire", "Byz-EF21 wire, leaf b, per-worker base", 5, 1, 1, 5, 2,
+     "median"),
 ]
 WIDE_CASES = [
     ("dense", "qwen3-1.7b stacked q_proj 28x2048x2048", 8, 117_440_512,
@@ -76,11 +95,13 @@ REPLACES = {
     "pair_gram_blocked": "src/repro/kernels/norm_agg.py:480",
     "sqdist_to_blocked": "src/repro/kernels/norm_agg.py:515",
     "weighted_sum_blocked": "src/repro/kernels/norm_agg.py:549",
+    "topk_select": "src/repro/kernels/quantize.py:195",
+    "block_quantize": "src/repro/kernels/quantize.py:88",
 }
 
 # the norm kernels' cases: (kind, label, n, d, k or None, base rows, s);
 # ALIE on max(1, n // 5) rows as above
-NORM_MAIN_CASES = [c[:7] for c in MAIN_CASES]
+NORM_MAIN_CASES = [c[:7] for c in MAIN_CASES[:3]]
 NORM_WIDE_CASES = [c[:7] for c in WIDE_CASES[:2]] + [
     ("dense", f"MAX_FUSED_WORKERS, s={s}", 64, 1_048_576, None, 0, s)
     for s in (0, 2)]
@@ -97,8 +118,22 @@ BLOCKED_WIDE_CASES = [
     ("m=1024, d=2^20", 1024, 1 << 20),
     ("m=4096 (the reference bench's largest n), d=2^16", 4096, 1 << 16),
 ]
+# TopK's cases: (label, rows, d, k); k = max(int(0.1 d), 1)
+TOPK_MAIN_CASES = [("Byz-EF21 main path: leaf w (gisette width)", 5, 5000,
+                    500)]
+TOPK_WIDE_CASES = [
+    ("qwen3-1.7b q_proj layer 2048x2048, TopK 0.1", 8, 1 << 22, 419_430),
+    ("qwen3-1.7b stacked q_proj 28x2048x2048, TopK 0.1", 1, 117_440_512,
+     11_744_051),
+]
+# the block quantizer's cases, through ops.block_quantize: (label, d)
+QUANT_LEVELS = 4
+QUANT_CASES = [("qwen3-1.7b q_proj layer 2048x2048", 1 << 22),
+               ("qwen3-1.7b stacked q_proj 28x2048x2048", 117_440_512)]
 NO_LIBRARY = {"rfa_iter": "no single PyTorch call computes z = wᵀ·xb and "
-                          "the distances of the rows to it"}
+                          "the distances of the rows to it",
+              "block_quantize": "no single PyTorch call computes the "
+                                "block norms and the dithered levels"}
 
 
 def gpu_line() -> str:
@@ -385,21 +420,147 @@ def blocked_case(case, dev, card):
     return rows
 
 
+def topk_case(case, dev, card):
+    """TopK's pool kernel on one (rows, d) stack: against its plain version
+    exactly (the same values and indices), twice for bit-for-bit
+    repeatability, and ``topk_select`` against ``topk_select_plain``;
+    timed: the kernel alone, the whole selection, the plain pool version,
+    the plain selection and ``torch.topk(x.abs(), k)``."""
+    from repro_torch.kernels import quantize as Q
+    label, rows, d, k = case
+    g = torch.Generator(device=dev).manual_seed(rows * 7919 + d)
+    x = torch.randn(rows, d, device=dev, generator=g)
+    cp = Q.topk_pool_width(k)
+    tiles = -(-d // Q.TOPK_TILE)
+    first, again = Q.topk_pool(x, cp), Q.topk_pool(x, cp)
+    want = Q.topk_pool_plain(x, cp)
+    sel = Q.topk_select(x, k)
+    sel_plain = Q.topk_select_plain(x, k)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(first, want))
+    repeat = all(torch.equal(a, b) for a, b in zip(first, again))
+    same_sel = torch.equal(sel, sel_plain)
+    mismatched = int(sum(int((a != b).sum()) for a, b in zip(first, want)))
+    if not (exact and repeat and same_sel and sel.shape == (rows, k)):
+        raise AssertionError(
+            f"topk_select {label}: pools equal {exact} ({mismatched} "
+            f"entries differ), bitwise repeat {repeat}, selection equal "
+            f"{same_sel}")
+    del first, again, want, sel, sel_plain
+    ms = cuda_ms(lambda: Q.topk_pool(x, cp))
+    whole_ms = cuda_ms(lambda: Q.topk_select(x, k))
+    plain_ms = cuda_ms(lambda: Q.topk_pool_plain(x, cp))
+    plain_select_ms = cuda_ms(lambda: Q.topk_select_plain(x, k))
+    library_ms = cuda_ms(lambda: torch.topk(x.abs(), k, dim=-1))
+    bytes_moved = 4 * rows * d + 8 * rows * tiles * cp
+    bound_ms, bound_by = bound_of(bytes_moved, 0)
+    row = {"kernel": "topk_select", "label": label, "rows": rows, "d": d,
+           "k": k, "cp": cp, "tiles": tiles, "max_abs_err": 0.0,
+           "mismatched": mismatched, "bitwise_repeat": repeat, "ms": ms,
+           "whole_ms": whole_ms, "plain_ms": plain_ms,
+           "plain_select_ms": plain_select_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "bytes": bytes_moved}
+    print(f"[kernel] topk_select {label}: rows={rows} d={d} k={k} cp={cp} "
+          f"tiles={tiles} | pools and selection exact, repeat bitwise | "
+          f"kernel {ms:.4f} ms, whole topk_select {whole_ms:.4f} ms, plain "
+          f"pools {plain_ms:.4f} ms, plain select {plain_select_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), torch.topk "
+          f"{library_ms:.4f} ms [{card}]", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return row
+
+
+def ops_path(dev, card):
+    """The block quantizer's main path, the ``ops.block_quantize`` entry
+    point, once per shape with the counts set to 0 just before; then each
+    result against the plain version on the dither the entry point drew
+    (exact, or the levels that differ are counted and fail the check),
+    a bitwise repeat, and the times of kernel, plain version and bound (12
+    bytes a coordinate: x and u read, out written)."""
+    from repro_torch import random as R
+    from repro_torch.kernels import ops, quantize as Q
+    inputs = []
+    for label, d in QUANT_CASES:
+        g = torch.Generator(device=dev).manual_seed(d)
+        x = torch.randn(d, device=dev, generator=g) * torch.rand(
+            d, device=dev, generator=g)
+        inputs.append((label, d, x, R.PRNGKey(d, device=dev)))
+    reset_counts()
+    outs = [ops.block_quantize(x, key, levels=QUANT_LEVELS)
+            for _, _, x, key in inputs]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want_counts = {**dict.fromkeys(COUNTED, 0),
+                   "block_quantize": len(QUANT_CASES)}
+    if counts != want_counts:
+        raise AssertionError(f"ops path: launches {counts}, expected "
+                             f"{want_counts}")
+    rows = []
+    for (label, d, x, key), got in zip(inputs, outs):
+        u = R.uniform(key, x.shape)
+        want = Q.block_quantize_plain(x, u, levels=QUANT_LEVELS)
+        again = Q.block_quantize(x, u, levels=QUANT_LEVELS)
+        torch.cuda.synchronize()
+        flips = int((got != want).sum())
+        err = float((got - want).abs().max())
+        repeat = torch.equal(got, again)
+        if not (flips == 0 and repeat and got.shape == (d,)
+                and torch.isfinite(got).all()):
+            raise AssertionError(
+                f"block_quantize {label}: {flips} coordinates differ from "
+                f"the plain version (max abs err {err}), bitwise repeat "
+                f"{repeat}")
+        del want, again
+        ms = cuda_ms(lambda: Q.block_quantize(x, u, levels=QUANT_LEVELS))
+        entry_ms = cuda_ms(lambda: ops.block_quantize(x, key,
+                                                      levels=QUANT_LEVELS))
+        plain_ms = cuda_ms(lambda: Q.block_quantize_plain(
+            x, u, levels=QUANT_LEVELS))
+        bound_ms, bound_by = bound_of(12 * d, 0)
+        rows.append({"kernel": "block_quantize", "label": label, "d": d,
+                     "levels": QUANT_LEVELS, "max_abs_err": err,
+                     "flips": flips, "bitwise_repeat": repeat, "ms": ms,
+                     "entry_ms": entry_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None, "bytes": 12 * d})
+        print(f"[kernel] block_quantize {label}: d={d} levels={QUANT_LEVELS}"
+              f" | through ops.block_quantize, {flips} levels differ from "
+              f"the plain version, repeat bitwise | kernel {ms:.4f} ms, "
+              f"ops entry (dither draw + kernel) {entry_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"library n/a [{card}]", flush=True)
+        del u
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return {"launches": counts, "cases": rows}
+
+
+QUANT_KERNELS = ("topk_select", "block_quantize")
+COUNTED = (("robust_agg", "robust_agg_wire") + NORM_KERNELS
+           + BLOCKED_KERNELS + QUANT_KERNELS)
+
+
 def reset_counts():
-    from repro_torch.kernels import norm_agg
+    from repro_torch.kernels import norm_agg, quantize
     from repro_torch.kernels.robust_agg import robust_agg
     robust_agg.launches = robust_agg.wire_launches = 0
     for name in NORM_KERNELS + BLOCKED_KERNELS:
         getattr(norm_agg, name).launches = 0
+    for name in QUANT_KERNELS:
+        getattr(quantize, name).launches = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels import norm_agg
+    from repro_torch.kernels import norm_agg, quantize
     from repro_torch.kernels.robust_agg import robust_agg
     counts = {"robust_agg": robust_agg.launches,
               "robust_agg_wire": robust_agg.wire_launches}
     counts.update({name: getattr(norm_agg, name).launches
                    for name in NORM_KERNELS + BLOCKED_KERNELS})
+    counts.update({name: getattr(quantize, name).launches
+                   for name in QUANT_KERNELS})
     return counts
 
 
@@ -412,8 +573,7 @@ def expected_counts(aggregator, full, vr, giant=False) -> dict:
     blocked weighted sums and 2·8 blocked distances, Krum 2 blocked Grams
     and 2 blocked weighted sums, and no fused kernel."""
     agg_rounds = 1 + full
-    counts = dict.fromkeys(("robust_agg", "robust_agg_wire")
-                           + NORM_KERNELS + BLOCKED_KERNELS, 0)
+    counts = dict.fromkeys(COUNTED, 0)
     if giant:
         aggs = 1 + full + vr
         if aggregator == "rfa":
@@ -434,11 +594,26 @@ def expected_counts(aggregator, full, vr, giant=False) -> dict:
     return counts
 
 
-def main_path(dev, card, aggregator, giant=False):
+def ef21_counts(rounds) -> dict:
+    """Launches of a Byz-EF21 run: the dense init and every round on the
+    wire each aggregate the leaves b and w apart (w, 5000 wide, is not
+    packed with b: only leaves under 1024 share a launch), and every round
+    selects TopK on w (b, one wide, takes the plain sort)."""
+    counts = dict.fromkeys(COUNTED, 0)
+    counts["robust_agg"] = 2 * (1 + rounds)
+    counts["robust_agg_wire"] = 2 * rounds
+    counts["topk_select"] = rounds
+    return counts
+
+
+def main_path(dev, card, aggregator, giant=False, ef21=False):
     from repro_torch.api import RunSpec, run
-    spec = {**MAIN_SPEC, "aggregator": aggregator,
-            **(GIANT_SPEC if giant else {})}
-    tag = f"{aggregator}{' n=256' if giant else ''}"
+    if ef21:
+        spec, tag = dict(EF21_SPEC), "byz_ef21 topk"
+    else:
+        spec = {**MAIN_SPEC, "aggregator": aggregator,
+                **(GIANT_SPEC if giant else {})}
+        tag = f"{aggregator}{' n=256' if giant else ''}"
     reset_counts()
     t0 = time.time()
     res = run(RunSpec(**spec), device=dev, log_every=1)
@@ -446,15 +621,17 @@ def main_path(dev, card, aggregator, giant=False):
     counts = read_counts()
     hist = res.history
     losses = [h["loss"] for h in hist]
-    ck = [int(h["c_k"]) for h in hist]
+    ck = [int(h.get("c_k", 1)) for h in hist]
     full = sum(ck)
     vr = len(ck) - full
     for h in hist[::50] + [hist[-1]]:
-        print(f"[main {tag}] step {h['step']:4d} loss "
-              f"{h['loss']:.6f} c_k={int(h['c_k'])}", flush=True)
+        print(f"[main {tag}] step {h['step']:4d} loss {h['loss']:.6f}"
+              + ("" if ef21 else f" c_k={int(h['c_k'])}"), flush=True)
     per_round_ms = res.wall_s / len(hist) * 1e3
-    print(f"[main {tag}] {len(hist)} rounds, {full} full (c_k=1), "
-          f"{vr} VR; {per_round_ms:.3f} ms per round (host clock, loop "
+    rounds = ("every round uploads" if ef21
+              else f"{full} full (c_k=1), {vr} VR")
+    print(f"[main {tag}] {len(hist)} rounds, {rounds}; "
+          f"{per_round_ms:.3f} ms per round (host clock, loop "
           f"only); run() wall {wall:.2f} s incl. data and init; launches "
           f"{counts} [{card}]", flush=True)
     if not all(math.isfinite(v) for v in losses):
@@ -462,14 +639,15 @@ def main_path(dev, card, aggregator, giant=False):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: final loss {losses[-1]} not "
                              f"below the first {losses[0]}")
-    want = expected_counts(aggregator, full, vr, giant)
+    want = (ef21_counts(len(hist)) if ef21
+            else expected_counts(aggregator, full, vr, giant))
     if counts != want:
         raise AssertionError(
             f"{tag}: launches {counts}, expected {want}: an "
             "aggregation bypassed its kernel")
     cpu = run(RunSpec(**{**spec, "steps": CPU_CHECK_STEPS}), device="cpu",
               log_every=1)
-    cpu_ck = [int(h["c_k"]) for h in cpu.history]
+    cpu_ck = [int(h.get("c_k", 1)) for h in cpu.history]
     if cpu_ck != ck[:CPU_CHECK_STEPS]:
         raise AssertionError(f"{tag}: c_k differs from the CPU path: "
                              f"{cpu_ck} vs {ck[:CPU_CHECK_STEPS]}")
@@ -481,7 +659,8 @@ def main_path(dev, card, aggregator, giant=False):
     if not diff <= TRAJ_TOL:
         raise AssertionError(f"{tag}: loss differs from the CPU path "
                              f"by {diff}")
-    return {"aggregator": aggregator, "n_workers": spec["n_workers"],
+    return {"method": spec["method"], "aggregator": spec["aggregator"],
+            "n_workers": spec["n_workers"], "dim": spec["data_kwargs"]["dim"],
             "launches": counts,
             "rounds": len(hist), "full_rounds": full,
             "per_round_ms": per_round_ms, "run_wall_s": wall,
@@ -533,31 +712,44 @@ def main() -> int:
                     for r in blocked_case(c, dev, card)]
     blocked_wide = [r for c in BLOCKED_WIDE_CASES
                     for r in blocked_case(c, dev, card)]
+    topk_main = [topk_case(c, dev, card) for c in TOPK_MAIN_CASES]
+    topk_wide = [topk_case(c, dev, card) for c in TOPK_WIDE_CASES]
     paths = {agg: main_path(dev, card, agg) for agg in ("cm", "rfa", "krum")}
     paths.update({f"{agg} n=256": main_path(dev, card, agg, giant=True)
                   for agg in ("rfa", "krum")})
-    cm = paths["cm"]["launches"]
+    paths["byz_ef21 topk"] = main_path(dev, card, "cm", ef21=True)
+    quant = ops_path(dev, card)
+    paths["ops.block_quantize"] = {"launches": quant["launches"]}
+
+    def launches(name):
+        return sum(p["launches"][name] for p in paths.values())
+
     kernels = []
     for kind in ("dense", "sparse_wire"):
         rows = [r for r in main_rows if r["kind"] == kind]
-        launches = (cm["robust_agg_wire"] if kind == "sparse_wire"
-                    else cm["robust_agg"] - cm["robust_agg_wire"])
+        n = (launches("robust_agg_wire") if kind == "sparse_wire"
+             else launches("robust_agg") - launches("robust_agg_wire"))
         kernels.append(kernel_entry(
             f"robust_agg ({kind} load)",
             "src/repro_torch/kernels/csrc/robust_agg.cu", REPLACES[kind],
-            launches, rows))
+            n, rows))
     for name in NORM_KERNELS:
-        launches = sum(p["launches"][name] for p in paths.values())
         kernels.append(kernel_entry(
             name, "src/repro_torch/kernels/csrc/norm_agg.cu",
-            REPLACES[name], launches,
+            REPLACES[name], launches(name),
             [r for r in norm_main if r["kernel"] == name]))
     for name in BLOCKED_KERNELS:
-        launches = sum(p["launches"][name] for p in paths.values())
         kernels.append(kernel_entry(
             name, "src/repro_torch/kernels/csrc/norm_agg_blocked.cu",
-            REPLACES[name], launches,
+            REPLACES[name], launches(name),
             [r for r in blocked_main if r["kernel"] == name]))
+    kernels.append(kernel_entry(
+        "topk_select", "src/repro_torch/kernels/csrc/topk_select.cu",
+        REPLACES["topk_select"], launches("topk_select"), topk_main))
+    kernels.append(kernel_entry(
+        "block_quantize", "src/repro_torch/kernels/csrc/block_quantize.cu",
+        REPLACES["block_quantize"], launches("block_quantize"),
+        quant["cases"]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -566,6 +758,8 @@ def main() -> int:
          "norm_main_cases": norm_main, "norm_wide_cases": norm_wide,
          "blocked_main_cases": blocked_main,
          "blocked_wide_cases": blocked_wide,
+         "topk_main_cases": topk_main, "topk_wide_cases": topk_wide,
+         "block_quantize_cases": quant["cases"],
          "main_paths": paths, "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))
     print(f"[done] {time.time() - t_start:.1f} s in all", flush=True)

@@ -111,6 +111,15 @@ class RunSpec:
             raise ValueError(f"steps={self.steps} must be >= 0")
         if self.task == "lm" and self.arch is None:
             raise ValueError("task='lm' needs arch=<name>")
+        if (self.method == "byz_ef21"
+                and self.compressor not in compressors.CONTRACTIVE):
+            raise ValueError(
+                "method='byz_ef21' needs a contractive compressor "
+                "(topk / sign / identity): EF21's error-feedback "
+                "recursion contracts only under "
+                "E||C(x)-x||^2 <= delta_C ||x||^2, and unbiasedness "
+                "scaling (randk's d/K) breaks it; got "
+                f"compressor={self.compressor!r}")
         for fname in _KWARGS_FIELDS:
             val = getattr(self, fname)
             if not isinstance(val, dict):

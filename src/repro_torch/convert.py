@@ -19,16 +19,20 @@ def tree_from_numpy(tree: dict, device="cpu") -> dict:
 
 
 def state_from_numpy(state: dict, device="cpu") -> dict:
-    """An engine state {"params", "g", "step", ...} -> the port's state.
-    Optimizer state is not ported, so it must be None."""
+    """An engine state {"params", "g", "step", ...} -> the port's state,
+    with per-worker estimator trees (``worker_*``, e.g. Byz-EF21's
+    ``worker_g``). Optimizer state is not ported, so it must be None."""
     if state.get("opt_state") is not None:
         raise NotImplementedError(
             "optimizer state is not ported yet (ROADMAP queue 1, item 12)")
-    extra = sorted(set(state) - {"params", "g", "step", "opt_state"})
+    workers = sorted(k for k in state if k.startswith("worker_"))
+    extra = sorted(set(state) - {"params", "g", "step", "opt_state",
+                                 *workers})
     if extra:
         raise NotImplementedError(f"estimator state {extra} is not ported")
     return {"params": tree_from_numpy(state["params"], device),
             "g": tree_from_numpy(state["g"], device),
+            **{k: tree_from_numpy(state[k], device) for k in workers},
             "opt_state": None, "step": int(state["step"])}
 
 

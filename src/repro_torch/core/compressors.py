@@ -1,9 +1,10 @@
 """Compression operators (port of ``repro/core/compressors.py``).
 
-This slice ports ``identity`` and ``rand_k`` (per-coordinate selection and
-the contiguous-block selection above ``_MAX_UNITS`` units). The other
-registry entries are named so specs validate, and raise
-``NotImplementedError`` when built.
+Ported: ``identity``, ``rand_k`` (per-coordinate selection and the
+contiguous-block selection above ``_MAX_UNITS`` units) and ``top_k``. The
+other registry entries are named so specs validate, and raise
+``NotImplementedError`` when built; ``CONTRACTIVE`` names the entries with
+a contraction bound, ported or not, for ``byz_ef21``'s guard.
 """
 from __future__ import annotations
 
@@ -105,6 +106,34 @@ def rand_k(ratio: float = 0.1, *, common_randomness: bool = False) -> Compressor
         ratio=ratio, wire_format="sparse")
 
 
+def top_k(ratio: float = 0.1) -> Compressor:
+    """TopK: keep the k = max(int(ratio·d), 1) largest |x_i| of each leaf,
+    unscaled — biased and contractive, ‖C(x) − x‖² ≤ (1 − k/d)‖x‖². The
+    selection is ``lax.top_k``'s: descending |x|, ties to the lower index
+    (a stable descending sort; ``torch.topk`` leaves tie order open)."""
+    if not (0 < ratio <= 1):
+        raise ValueError(ratio)
+
+    def _k(d):
+        return max(int(ratio * d), 1)
+
+    def compress(key, x):
+        d = x.numel()
+        xf = x.reshape(-1).float()
+        idx = torch.sort(xf.abs(), descending=True, stable=True).indices
+        mask = torch.zeros(d, dtype=torch.bool, device=x.device)
+        mask[idx[:_k(d)]] = True
+        out = torch.where(mask, xf, torch.zeros((), device=x.device))
+        return out.reshape(x.shape).to(x.dtype)
+
+    return Compressor(
+        name=f"topk_{ratio}", compress=compress,
+        omega_fn=lambda d: float("nan"),         # biased; no omega
+        bits_fn=lambda d: _k(d) * (32 + 32),     # k values + k indices
+        density_fn=_k, ratio=ratio,
+        contractive_fn=lambda d: 1.0 - _k(d) / d, wire_format="sparse")
+
+
 def _not_ported(name):
     def factory(**kw):
         raise NotImplementedError(
@@ -116,9 +145,13 @@ def _not_ported(name):
 REGISTRY = {
     "identity": identity,
     "randk": rand_k,
+    "topk": top_k,
     **{nm: _not_ported(nm)
-       for nm in ("topk", "dither", "natural", "sign", "int8", "bf16")},
+       for nm in ("dither", "natural", "sign", "int8", "bf16")},
 }
+
+# the entries whose compressor has a ``contractive_fn``, as in the reference
+CONTRACTIVE = ("bf16", "identity", "sign", "topk")
 
 
 def get_compressor(name: str, **kw) -> Compressor:

@@ -1,24 +1,31 @@
 """Gradient estimators pluggable into the round engine (port of
 ``repro/core/estimators.py``).
 
-This slice ports ``marina``, Byz-VR-MARINA (Alg. 1): a Bernoulli(p) coin
-c_k picks anchor full gradients or the compressed variance-reduced
-difference g^k + Q(∇f_i(x^{k+1}) - ∇f_i(x^k)). The reference branches
-with ``lax.cond``; here the coin is read on the host and a Python ``if``
-takes one branch. The other registry entries are named so specs
-validate, and raise ``NotImplementedError`` when built.
+Ported: ``marina``, Byz-VR-MARINA (Alg. 1): a Bernoulli(p) coin c_k
+picks anchor full gradients or the compressed variance-reduced difference
+g^k + Q(∇f_i(x^{k+1}) - ∇f_i(x^k)) (the reference branches with
+``lax.cond``; here the coin is read on the host and a Python ``if`` takes
+one branch); and ``byz_ef21``, Byz-EF21 with per-worker error feedback
+under a contractive compressor. The other registry entries are named so
+specs validate, and raise ``NotImplementedError`` when built.
 """
 from __future__ import annotations
 
 import dataclasses
 
-import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
 from repro_torch.core.engine import (GradientEstimator, RoundOutput,
                                      message_phase, stacked_grads)
+
+
+class CompressedUploadBits:
+    """Comm accounting for estimators whose every upload is Q(·)."""
+
+    def round_bits(self, cfg, d, full_round=True):
+        return int(cfg.compressor.bits_per_vector(d))
 
 
 @dataclasses.dataclass
@@ -62,12 +69,8 @@ class MarinaEstimator(GradientEstimator):
                 cand = wire.pack_candidates(cfg.compressor, qkeys, deltas,
                                             base=state["g"], base_shared=True)
             else:
-                qs = [tu.compress_tree(cfg.compressor, qkeys[i],
-                                       {k: v[i] for k, v in deltas.items()})
-                      for i in range(n)]
-                cand = {k: state["g"][k][None]
-                        + torch.stack([q[k] for q in qs])
-                        for k in sorted(deltas)}
+                qs = tu.compress_stacked(cfg.compressor, qkeys, deltas)
+                cand = {k: state["g"][k][None] + qs[k] for k in sorted(qs)}
             g = message_phase(cfg, keys["attack"], keys["agg"], cand)
         dims = [p.numel() for p in tu.leaves(params)]
         wire_bits = (32.0 * sum(dims) if c_k else wire.tree_wire_bits(
@@ -81,8 +84,64 @@ class MarinaEstimator(GradientEstimator):
         return int(cfg.compressor.bits_per_vector(d))
 
 
+@dataclasses.dataclass
+class ByzEF21Estimator(CompressedUploadBits, GradientEstimator):
+    """Byz-EF21 (Rammal et al. 2023): worker i keeps an estimate g_i of its
+    local gradient, uploads c_i = C(∇f_i(x^{k+1}) - g_i) every round, and
+    both sides update g_i <- g_i + c_i; the server robust-aggregates the
+    reconstructed g_i. Gradients are taken on the anchor set. On the wire
+    the payload carries C(·) with g_i as its per-worker (n-row) base."""
+    name = "byz_ef21"
+    rng = ("grad", "q", "attack", "agg")
+    update_params_first = True
+
+    def init_extras(self, cfg, loss_fn, params, anchor, key):
+        # g_i^0 = ∇f_i(x^0) uncompressed, g^0 = ARAgg(g_1^0, ..., g_n^0)
+        k_grad, k_attack, k_agg = R.split(key, 3)
+        wkeys = tu.per_worker_keys(k_grad, cfg.n_workers)
+        _, grads = stacked_grads(loss_fn, params, anchor, wkeys)
+        g_i = tu.tree_map(lambda g: g.float(), grads)
+        return message_phase(cfg, k_attack, k_agg, g_i), {"worker_g": g_i}
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys):
+        from repro_torch.core import wire
+
+        n = cfg.n_workers
+        wkeys = tu.per_worker_keys(keys["grad"], n)
+        qkeys = tu.per_worker_keys(keys["q"], n,
+                                   common=cfg.compressor.common_randomness)
+
+        def one(b, kg, g_i):
+            g, ln = grad_and_value(loss_fn)(params, b, kg)
+            return ln, tu.tree_map(lambda a, gi: a.float() - gi, g, g_i)
+
+        losses, diffs = vmap(one)(anchor, wkeys, state["worker_g"])
+        metrics = {"wire_bits": wire.tree_wire_bits(cfg.compressor, diffs)}
+        if wire.wire_supported(cfg, diffs):
+            cand = wire.pack_candidates(cfg.compressor, qkeys, diffs,
+                                        base=state["worker_g"])
+            g_new = tu.tree_add(state["worker_g"],
+                                wire.decoded_payload(cand))
+        else:
+            c = tu.compress_stacked(cfg.compressor, qkeys, diffs)
+            cand = g_new = tu.tree_add(state["worker_g"], c)
+        return RoundOutput(loss=losses.mean(), cand=cand,
+                           updates={"worker_g": g_new}, metrics=metrics)
+
+
 def _marina_factory(cfg, **kw):
     return MarinaEstimator(**kw)
+
+
+def _ef21_factory(cfg, **kw):
+    if cfg.compressor.contractive_fn is None:
+        raise ValueError(
+            "byz_ef21 needs a contractive compressor (topk / sign / "
+            "identity — Compressor.contractive_delta must be defined): the "
+            "EF21 recursion contracts the error-feedback state, and "
+            f"unbiasedness scaling breaks it; got {cfg.compressor.name!r}")
+    return ByzEF21Estimator(**kw)
 
 
 def _not_ported(name):
@@ -94,9 +153,9 @@ def _not_ported(name):
 
 ESTIMATORS = {
     "marina": _marina_factory,
+    "byz_ef21": _ef21_factory,
     **{nm: _not_ported(nm) for nm in ("sgd", "sgdm", "csgd", "diana", "mvr",
-                                      "svrg", "byz_ef21", "cmfilter",
-                                      "saga")},
+                                      "svrg", "cmfilter", "saga")},
 }
 
 

@@ -75,3 +75,12 @@ def compress_tree(compressor, key, tree: dict) -> dict:
     """Leaf i (sorted order) compresses under fold_in(key, i)."""
     return unflatten(tree, [compressor.compress(R.fold_in(key, i), leaf)
                             for i, leaf in enumerate(leaves(tree))])
+
+
+def compress_stacked(compressor, qkeys, stacked: dict) -> dict:
+    """``compress_tree`` of every worker's row of a stacked tree under its
+    own key (the reference's ``vmap(compress_tree)``)."""
+    qs = [compress_tree(compressor, qkeys[i],
+                        {k: v[i] for k, v in stacked.items()})
+          for i in range(qkeys.shape[0])]
+    return {k: torch.stack([q[k] for q in qs]) for k in sorted(stacked)}

@@ -1,14 +1,17 @@
 """The wire protocol layer: compressed payloads from worker to kernel
-(port of ``repro/core/wire.py``, sparse RandK wire, unguarded).
+(port of ``repro/core/wire.py``, sparse RandK and TopK wire, unguarded).
 
-Under ``agg_mode="pallas"`` MARINA's VR round hands the engine a
-``WireCandidates`` payload instead of the dense candidate tree; the
-robust-aggregation kernel rebuilds ``cand = base + decode(payload)`` per
-tile, so the dense (n, d) candidates never exist in device memory.
+Under ``agg_mode="pallas"`` MARINA's VR round and every Byz-EF21 round
+hand the engine a ``WireCandidates`` payload instead of the dense
+candidate tree; the robust-aggregation kernel rebuilds
+``cand = base + decode(payload)`` per tile, so the dense (n, d)
+candidates never exist in device memory. The base is MARINA's shared g^k
+(one row) or Byz-EF21's per-worker g_i (n rows).
 
 * ``pack_candidates``  — per (worker, leaf) packing on compress_tree's key
                          schedule (fold_in(worker_key, leaf_index)), so the
-                         RandK supports equal the dense compressor's.
+                         RandK and TopK supports equal the dense
+                         compressor's.
 * ``decoded_payload``  — dense tree equal to compress_tree per worker.
 * ``reconstruct``      — the dense candidate tree (base + decoded).
 * ``wire_stats``       — good-worker mean/std read from the wire with flat

@@ -9,7 +9,12 @@
   the giant-n tier's blocked kernels ``pair_gram_blocked``,
   ``sqdist_to_blocked`` and ``weighted_sum_blocked`` on dense stacks of
   any row count (``csrc/norm_agg_blocked.cu``) with their drivers.
-- quantize: the sparse wire format.
+- quantize: the sparse wire format; TopK's selection ``topk_select``
+  (per-tile candidate pools, ``csrc/topk_select.cu``) and the block-ℓ2
+  quantizer ``block_quantize`` (``csrc/block_quantize.cu``).
+- ops: the public entry points over stacked workers (``robust_agg``,
+  ``rfa_agg``, ``krum_agg``, ``wire_agg``, ``block_quantize``) and the
+  oracles of ``ref``, the plain reference versions.
 
 The fused kernels share one block load, ``csrc/agg_prologue.cuh``; all
 are built at first use by ``_build``; ``_launch`` holds what their wrappers

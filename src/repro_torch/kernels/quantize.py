@@ -1,26 +1,41 @@
-"""Wire formats for the one-sweep compressed pipeline (port of the sparse
-parts of ``repro/kernels/quantize.py``).
+"""Wire formats for the one-sweep compressed pipeline and the block
+quantizer (port of ``repro/kernels/quantize.py``, sparse format).
 
 Sparse payload of one leaf: vals (n, k) float32 and idx (n, k) int32,
-ascending per worker row (RandK keeps the d/k scaling in vals). The CUDA
-robust-aggregation kernel rebuilds each tile of the candidates from it,
-bounded by CSR row pointers (``wire_starts``), so the dense (n, d)
-candidate matrix never exists in device memory. ``decode`` is the plain
-reconstruction the CPU path and the tests use.
+ascending per worker row (RandK keeps the d/k scaling in vals, TopK sends
+them raw). The CUDA robust-aggregation kernel rebuilds each tile of the
+candidates from it, bounded by CSR row pointers (``wire_starts``), so the
+dense (n, d) candidate matrix never exists in device memory. ``decode`` is
+the plain reconstruction the CPU path and the tests use.
 
-Not ported yet (ROADMAP queue 2): the int8 / sign / bf16 wire loads,
-``topk_select`` and ``block_quantize``.
+Two kernels live here, each with its plain PyTorch version beside it
+(taken for CPU tensors only; a CUDA tensor launches the kernel or raises):
+
+* ``topk_select``    — TopK's selection, batched over workers: per 2048-
+                       column tile the top cp of |x| with their global
+                       indices (``csrc/topk_select.cu``), then an exact
+                       stable select over the (T, cp) pool;
+* ``block_quantize`` — block-ℓ2 stochastic rounding with the dither
+                       supplied (``csrc/block_quantize.cu``).
+
+Not ported yet (ROADMAP queue 2): the int8 / sign / bf16 wire loads.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import random as R
+from repro_torch.core.aggregators import xla_sum_rows
+from repro_torch.kernels import _build, _launch
 
 WIRE_FORMATS = ("sparse", "int8", "sign", "bf16", "dense32")
+TOPK_TILE = 2048         # the reference's column tile (DEFAULT_TILE_D)
+QUANT_BLOCK = 256        # coordinates sharing one ℓ2 norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,20 +58,196 @@ class WireSrc:
 
 
 def pack_sparse(key, x, ratio: float, *, topk: bool):
-    """RandK payload of a leaf: {"vals": (..., k), "idx": (..., k) int32
+    """Sparse payload of a leaf: {"vals": (..., k), "idx": (..., k) int32
     ascending}. ``key`` (..., 2) and ``x`` (..., d) share leading axes, so
-    one call packs every worker; the selection is the permutation
-    ``rand_k`` draws, so supports equal the dense compressor's."""
-    if topk:
-        raise NotImplementedError(
-            "TopK wire is not ported yet (ROADMAP queue 1, item 6; "
-            "topk_select in queue 2)")
+    one call packs every worker. RandK selects the permutation ``rand_k``
+    draws and scales by d/k; TopK selects ``topk_select``'s indices (the
+    dense compressor's) and sends the values raw."""
     d = x.shape[-1]
     k = max(int(ratio * d), 1)
+    if topk:
+        idx = torch.sort(topk_select(x, k), dim=-1).values.long()
+        vals = torch.gather(x.float(), -1, idx).to(x.dtype)
+        return {"vals": vals, "idx": idx.to(torch.int32)}
     sel = R.permutation(key, d)[..., :k]
     idx = torch.sort(sel, dim=-1).values
     vals = (torch.gather(x, -1, idx) * (d / k)).to(x.dtype)
     return {"vals": vals, "idx": idx.to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# TopK selection
+# ---------------------------------------------------------------------------
+
+def topk_pool_width(k: int) -> int:
+    """cp, the candidates each tile keeps: min(k, tile) rounded up to 128
+    lanes, at least 128, at most the tile."""
+    return min(TOPK_TILE, max(128, -(-min(k, TOPK_TILE) // 128) * 128))
+
+
+def _stable_top(a, k: int):
+    """Positions of the k largest entries along the last axis, largest
+    first, equal entries in position order (``lax.top_k``'s order)."""
+    return torch.sort(a, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def topk_pool_plain(x, cp: int):
+    """Plain version of the pool kernel: (rows, d) -> per tile of
+    ``TOPK_TILE`` columns the cp largest |x| (pad columns read −1.0) and
+    their global column indices, (rows, T, cp) float32 and int32."""
+    rows, d = x.shape
+    tiles = -(-d // TOPK_TILE)
+    a = F.pad(x.float().abs(), (0, tiles * TOPK_TILE - d), value=-1.0)
+    v, i = torch.sort(a.reshape(rows, tiles, TOPK_TILE), dim=-1,
+                      descending=True, stable=True)
+    first = torch.arange(tiles, device=x.device)[:, None] * TOPK_TILE
+    return v[..., :cp].contiguous(), (i[..., :cp] + first).int()
+
+
+def topk_pool(x, cp: int):
+    """(rows, d) float32 -> the per-tile pools of ``topk_pool_plain``. CPU
+    tensors take the plain version; CUDA tensors the kernel."""
+    if _launch.on_cpu("topk_select", x.device):
+        return topk_pool_plain(x, cp)
+    return _launch_topk_pool(x, cp)
+
+
+def _select(x, k: int, pool_fn):
+    """Indices (..., k) int32 of the k largest |x| along the last axis,
+    largest first, ties to the lower index (``lax.top_k(|x|, k)[1]``).
+    Up to two tiles wide the plain sort runs alone, as in the reference;
+    wider, ``pool_fn`` keeps each tile's top cp ≥ min(k, tile), so the
+    pool holds the answer, and a stable sort of the (T·cp) pool selects
+    it: equal values sit in pool order, which is global index order."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    if d <= 2 * TOPK_TILE:
+        return _stable_top(x.float().abs(), k).int()
+    rows = x.reshape(-1, d).float().contiguous()
+    pv, pi = pool_fn(rows, topk_pool_width(k))
+    sel = _stable_top(pv.flatten(1), k)
+    return torch.gather(pi.flatten(1), 1, sel).reshape(lead + (k,))
+
+
+def topk_select(x, k: int):
+    """TopK's indices: (..., d) -> (..., k) int32 (``_select``). On CUDA
+    tensors wider than two tiles the pools come from the kernel, one
+    launch for all rows; CPU tensors take the plain version."""
+    topk_select.calls += 1
+    return _select(x, k, topk_pool)
+
+
+def topk_select_plain(x, k: int):
+    """``topk_select`` on the plain pool version, on any device."""
+    return _select(x, k, topk_pool_plain)
+
+
+# calls: every call, plain or kernel; launches: pool kernel launches alone
+topk_select.calls = topk_select.launches = 0
+
+
+def _lib_topk():
+    lib = _build.load("topk_select")
+    if lib.topk_pool_launch.argtypes is None:
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.topk_pool_launch.argtypes = [p, q, q, i, i, p, p, p]
+        lib.topk_pool_launch.restype = ctypes.c_int
+    return lib
+
+
+def _launch_topk_pool(x, cp: int):
+    if x.dim() != 2 or x.shape[1] <= 2 * TOPK_TILE:
+        raise ValueError("topk_select kernel: x must be (rows, d) with d > "
+                         f"{2 * TOPK_TILE}, got shape {tuple(x.shape)}")
+    if not 128 <= cp <= TOPK_TILE or cp % 128:
+        raise ValueError(f"topk_select kernel: pool width {cp}")
+    rows, d = x.shape
+    xp = _launch.check("topk_select", "x", x, x.device, torch.float32,
+                       (rows, d))
+    tiles = -(-d // TOPK_TILE)
+    pv = torch.empty(rows, tiles, cp, dtype=torch.float32, device=x.device)
+    pi = torch.empty(rows, tiles, cp, dtype=torch.int32, device=x.device)
+    err = _lib_topk().topk_pool_launch(xp, rows, d, tiles, cp, pv.data_ptr(),
+                                       pi.data_ptr(),
+                                       _launch.stream(x.device))
+    _launch.raise_on("topk_select", err)
+    topk_select.launches += 1
+    return pv, pi
+
+
+# ---------------------------------------------------------------------------
+# block quantizer
+# ---------------------------------------------------------------------------
+
+def block_norms(xb):
+    """(blocks, 256) float32 -> (blocks, 1) ℓ2 norms, as the reference's
+    compiled code takes them: the rounded squares summed over the lanes in
+    ``xla_sum_rows``'s order (eight windows of 32, each in order, then the
+    windows), then a correctly rounded square root (``torch.sqrt`` on the
+    CPU is not: the square root is taken in float64 and rounded once)."""
+    total = xla_sum_rows(list((xb * xb).unbind(1)))
+    return torch.sqrt(total.double()).float()[:, None]
+
+
+def block_quantize_plain(x, u, *, levels: int = 4):
+    """Plain version of the block quantizer: x, u (d,) -> (d,) float32.
+    Per block of ``QUANT_BLOCK`` coordinates (the tail zero-padded):
+    norm = sqrt(Σ x²) (``block_norms``);
+    level = floor(|x|/max(norm, 1e-30)·s + u)
+    (0 where norm = 0); out = norm·sign(x)·level times the rounded 1/s
+    (XLA turns the division by the constant s into that product)."""
+    d = x.shape[0]
+    pad = (-d) % QUANT_BLOCK
+    xb = F.pad(x.float(), (0, pad)).reshape(-1, QUANT_BLOCK)
+    ub = F.pad(u.float(), (0, pad)).reshape(-1, QUANT_BLOCK)
+    norm = block_norms(xb)
+    scaled = torch.where(norm > 0, xb.abs() / torch.clamp(norm, min=1e-30),
+                         torch.zeros((), device=x.device))
+    level = torch.floor(scaled * levels + ub)
+    inv = torch.ones((), device=x.device) / levels
+    return (norm * torch.sign(xb) * level * inv).reshape(-1)[:d]
+
+
+def block_quantize(x, u, *, levels: int = 4):
+    """Block-ℓ2 stochastic rounding of x (d,) with the dither u (d,), both
+    read as float32 -> (d,) float32 (``block_quantize_plain``). CPU
+    tensors take the plain version; CUDA tensors the kernel."""
+    if _launch.on_cpu("block_quantize", x.device):
+        return block_quantize_plain(x, u, levels=levels)
+    return _launch_block_quantize(x.float().contiguous(),
+                                  u.float().contiguous(), levels)
+
+
+block_quantize.launches = 0
+
+
+def _lib_quant():
+    lib = _build.load("block_quantize")
+    if lib.block_quantize_launch.argtypes is None:
+        p = ctypes.c_void_p
+        lib.block_quantize_launch.argtypes = [p, p, ctypes.c_longlong,
+                                              ctypes.c_int, p, p]
+        lib.block_quantize_launch.restype = ctypes.c_int
+    return lib
+
+
+def _launch_block_quantize(x, u, levels: int):
+    if x.dim() != 1 or x.shape[0] < 1:
+        raise ValueError("block_quantize kernel: x must be a non-empty (d,) "
+                         f"vector, got shape {tuple(x.shape)}")
+    if levels < 1:
+        raise ValueError(f"block_quantize kernel: levels={levels}")
+    d = x.shape[0]
+    xp = _launch.check("block_quantize", "x", x, x.device, torch.float32,
+                       (d,))
+    up = _launch.check("block_quantize", "u", u, x.device, torch.float32,
+                       (d,))
+    out = torch.empty(d, dtype=torch.float32, device=x.device)
+    err = _lib_quant().block_quantize_launch(xp, up, d, int(levels),
+                                             out.data_ptr(),
+                                             _launch.stream(x.device))
+    _launch.raise_on("block_quantize", err)
+    block_quantize.launches += 1
+    return out
 
 
 def decode(fmt: str, payload: dict, d: int):

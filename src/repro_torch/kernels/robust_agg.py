@@ -49,6 +49,7 @@ def robust_agg(x, w_mat=None, mask=None, good_mean=None, good_std=None, *,
                rule: str = "median", trim: int = 1, attack=None):
     """(n, d) stack or WireSrc -> (d,) float32 aggregate. CPU tensors take
     the plain version; CUDA tensors the kernel."""
+    robust_agg.calls += 1
     if _launch.on_cpu("robust_agg", x.device):
         return robust_agg_plain(x, w_mat, mask, good_mean, good_std,
                                 rule=rule, trim=trim, attack=attack)
@@ -56,6 +57,7 @@ def robust_agg(x, w_mat=None, mask=None, good_mean=None, good_std=None, *,
                           attack)
 
 
+robust_agg.calls = 0            # every call, plain or kernel
 robust_agg.launches = 0         # kernel launches since the last reset
 robust_agg.wire_launches = 0    # of which on a sparse wire payload
 

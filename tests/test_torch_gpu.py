@@ -10,7 +10,9 @@ sums of W·x over at most 64 workers); 1e-5 of the largest entry for the
 Gram and the squared distances, sums over d taken in another order; bit
 for bit for the blocked weighted sum, whose kernel takes the plain
 version's order. The norm kernels must also repeat bit for bit: they take
-every sum in a fixed order."""
+every sum in a fixed order. TopK's pool kernel and the block quantizer
+agree with their plain versions exactly: selection only compares, and
+the quantizer takes every rounding of the plain version."""
 import pytest
 import torch
 
@@ -18,6 +20,10 @@ from repro_torch import random as R
 from repro_torch.core.attacks import CoordAttack
 from repro_torch.kernels import norm_agg, quantize
 from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
+from repro_torch.kernels.quantize import (block_quantize,
+                                          block_quantize_plain, topk_pool,
+                                          topk_pool_plain, topk_pool_width,
+                                          topk_select, topk_select_plain)
 
 NORM = {"pair_gram": norm_agg.pair_gram, "rfa_iter": norm_agg.rfa_iter,
         "weighted_sum": norm_agg.weighted_sum}
@@ -244,3 +250,88 @@ def test_blocked_wrappers_reject_what_the_kernels_do_not_take(dev, name):
     if name == "weighted_sum_blocked":
         with pytest.raises(ValueError, match="more than 64 rows"):
             fn(x[:64], w[:64])
+
+
+def _topk_input(rows, d, dev, ties):
+    g = torch.Generator(device=dev).manual_seed(rows * 7919 + d)
+    if ties:
+        return torch.randint(-3, 4, (rows, d), device=dev,
+                             generator=g).float()
+    return torch.randn(rows, d, device=dev, generator=g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("rows, d, k", [(5, 5000, 500), (5, 4097, 1),
+                                        (3, 70000, 7000),
+                                        (2, (1 << 16) + 3, 3000),
+                                        (1, 1 << 20, 104857)])
+def test_topk_select(dev, rows, d, k, ties):
+    """The pool kernel equals the plain pools exactly, repeats bit for bit,
+    and ``topk_select`` selects the plain version's indices in order."""
+    x = _topk_input(rows, d, dev, ties)
+    cp = topk_pool_width(k)
+    before = topk_select.launches
+    pools = [topk_pool(x, cp) for _ in range(2)]
+    got = topk_select(x, k)
+    torch.cuda.synchronize()
+    assert topk_select.launches == before + 3
+    want = topk_pool_plain(x, cp)
+    for a, b in zip(pools[0], want):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(pools[0], pools[1]))
+    assert torch.equal(got, topk_select_plain(x, k))
+
+
+@pytest.mark.gpu
+def test_topk_select_takes_no_kernel_up_to_two_tiles(dev):
+    x = _topk_input(4, 4096, dev, True)
+    before = topk_select.launches
+    got = topk_select(x, 409)
+    assert topk_select.launches == before
+    assert torch.equal(got.cpu(), topk_select_plain(x.cpu(), 409))
+
+
+@pytest.mark.gpu
+def test_topk_pool_rejects_what_the_kernel_does_not_take(dev):
+    x = _topk_input(2, 5000, dev, False)
+    with pytest.raises(TypeError):
+        topk_pool(x.double(), 512)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk_pool(_topk_input(5000, 2, dev, False).T, 512)
+    with pytest.raises(ValueError, match="d >"):
+        topk_pool(x[:, :4096].contiguous(), 512)
+    with pytest.raises(ValueError, match="pool width"):
+        topk_pool(x, 100)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [1, 3, 4, 16])
+@pytest.mark.parametrize("d", [1, 255, 1000, 2048, 5000, 70000])
+def test_block_quantize(dev, d, levels):
+    """Kernel against plain version, bit for bit, and twice."""
+    g = torch.Generator(device=dev).manual_seed(d + levels)
+    x = torch.randn(d, device=dev, generator=g) * torch.rand(
+        d, device=dev, generator=g) * 10
+    x[torch.rand(d, device=dev, generator=g) < 0.05] = 0.0
+    u = torch.rand(d, device=dev, generator=g)
+    before = block_quantize.launches
+    got = [block_quantize(x, u, levels=levels) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert block_quantize.launches == before + 2
+    want = block_quantize_plain(x, u, levels=levels)
+    assert torch.equal(got[0], got[1])
+    assert int((got[0] != want).sum()) == 0
+    assert torch.equal(got[0].cpu(),
+                       block_quantize_plain(x.cpu(), u.cpu(), levels=levels))
+
+
+@pytest.mark.gpu
+def test_block_quantize_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.randn(300, device=dev)
+    with pytest.raises(ValueError, match="vector"):
+        block_quantize(x.reshape(3, 100), x.reshape(3, 100))
+    with pytest.raises(ValueError, match="shape"):
+        block_quantize(x, x[:-1])
+    with pytest.raises(ValueError, match="levels"):
+        block_quantize(x, x, levels=0)

@@ -190,7 +190,7 @@ def test_spec_json_is_shared():
 
 
 @pytest.mark.parametrize("override", [
-    {"method": "sgd"}, {"compressor": "int8"}, {"compressor": "topk"},
+    {"method": "sgd"}, {"compressor": "int8"}, {"compressor": "sign"},
     {"attack": "RN"}, {"agg_mode": "all_to_all"}, {"participation": 0.6},
     {"fault_guard": True}, {"trace": True}, {"optimizer": "adam"},
     {**GIANT, "participation": 0.5},

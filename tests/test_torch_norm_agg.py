@@ -301,7 +301,8 @@ def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {name: _build.library_path(name) for name in _build.sources()}
-    assert set(before) == {"norm_agg", "norm_agg_blocked", "robust_agg"}
+    assert set(before) == {"block_quantize", "norm_agg", "norm_agg_blocked",
+                           "robust_agg", "topk_select"}
     header = csrc / "agg_prologue.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.sources()}
