@@ -12,10 +12,16 @@ ALIE and bucketing s = 2 on a9a-width logistic regression — through
 median, RFA and Krum, and twice at 256 workers (the giant-n tier on the
 blocked kernels), with RFA and Krum; Byz-EF21 with TopK on the sparse
 wire at gisette width (5000 features, where TopK's pool kernel runs);
-and the block quantizer through the ``repro_torch.kernels.ops`` entry
-point. It checks that every aggregation and selection went through the
-kernels (launch counts against each path's formula) and that the first
-rounds agree with the plain CPU path. Any failure raises and exits
+the block quantizer through the ``repro_torch.kernels.ops`` entry point;
+the chaos paths (the fault guard on, NaN gradients and corrupted wire
+payloads on worker 4) with cm, RFA and Krum, which run the masked
+kernels on dense and wire rounds; and partial participation, at 5
+workers with cm (80% sampled) and at 256 with RFA and Krum (75%). The
+masked kernels (``valid`` in the load, the masked coordinate rule) are
+held to their plain versions beside the unmasked ones. It checks that
+every aggregation and selection went through the kernels (launch counts
+against each path's formula) and that the first rounds agree with the
+plain CPU path. Any failure raises and exits
 non-zero. The last line is the device JSON; the line before it is the
 per-kernel JSON. Needs one CUDA card; exits non-zero without one.
 Imports nothing of JAX.
@@ -55,6 +61,13 @@ MAIN_SPEC = dict(
 # the giant-n tier: 256 workers, 32 byzantine; bucketing leaves m = 128
 # rows, so RFA and Krum run on the blocked kernels
 GIANT_SPEC = dict(n_workers=256, n_byz=32)
+# the chaos paths: the fault guard on, and worker 4's gradients NaN and its
+# wire payload bit-flipped, each in 20% of the rounds
+CHAOS_SPEC = dict(fault_guard=True, faults={"seed": 0, "faults": [
+    {"kind": "nan_grad", "prob": 0.2, "workers": [4]},
+    {"kind": "corrupt_wire", "prob": 0.2, "workers": [4]}]})
+PART_SPEC = dict(participation=0.8)           # 4 of 5 workers a round
+GIANT_PART_SPEC = dict(GIANT_SPEC, participation=0.75)  # 192 of 256
 # Byz-EF21 with TopK on the sparse wire at the width of LIBSVM's
 # gisette_scale (6000 samples x 5000 features, NIPS 2003 feature
 # selection): leaf w is wider than two 2048-column tiles, so every round
@@ -86,9 +99,30 @@ WIDE_CASES = [
 ] + [("dense", f"MAX_FUSED_WORKERS, {rule}, s={s}", 64, 1_048_576, None, 0,
       s, rule) for rule in ("mean", "median", "trimmed") for s in (0, 2)]
 
+# the masked kernels' cases (the fault guard's and participation's load and
+# rule): (kind, label, n, d, k, base rows, s, rule, invalid workers). The
+# bucket operator is the masked one over the identity permutation, so the
+# last workers share the last buckets: n = 8 with 6 and 7 invalid drops a
+# whole bucket; invalid rows hold NaN, which the load must keep out.
+MASKED_MAIN_CASES = [
+    ("dense", "chaos path: packed b+w segment, worker 4 invalid", 5, 124,
+     None, 0, 2, "median", (4,)),
+    ("sparse_wire", "chaos path: wire, leaf w, worker 4 invalid", 5, 123, 12,
+     1, 2, "median", (4,)),
+    ("sparse_wire", "chaos path: wire, leaf b, worker 4 invalid", 5, 1, 1, 1,
+     2, "median", (4,)),
+]
+MASKED_WIDE_CASES = [
+    ("dense", "qwen3-1.7b stacked q_proj, workers 6 and 7 invalid (a bucket"
+     " dropped)", 8, 117_440_512, None, 0, 2, "median", (6, 7)),
+    ("sparse_wire", "qwen3-1.7b q_proj layer, RandK 0.1, worker 7 invalid",
+     8, 4_194_304, 419_430, 1, 2, "median", (7,)),
+]
+
 REPLACES = {
     "dense": "src/repro/kernels/robust_agg.py:142",
     "sparse_wire": "src/repro/kernels/quantize.py:383",
+    "masked": "src/repro/kernels/robust_agg.py:69",
     "pair_gram": "src/repro/kernels/norm_agg.py:220",
     "rfa_iter": "src/repro/kernels/norm_agg.py:262",
     "weighted_sum": "src/repro/kernels/norm_agg.py:297",
@@ -132,6 +166,10 @@ QUANT_CASES = [("qwen3-1.7b q_proj layer 2048x2048", 1 << 22),
                ("qwen3-1.7b stacked q_proj 28x2048x2048", 117_440_512)]
 NO_LIBRARY = {"rfa_iter": "no single PyTorch call computes z = wᵀ·xb and "
                           "the distances of the rows to it",
+              "robust_agg (masked)": "no single PyTorch call computes the "
+                                     "masked median over W·x; "
+                                     "torch.nanmedian returns the lower "
+                                     "median and has no fill rank",
               "block_quantize": "no single PyTorch call computes the "
                                 "block norms and the dithered levels"}
 
@@ -219,36 +257,72 @@ def library_call(args, kw):
     return None
 
 
+def mask_inputs(args, n, s, invalid):
+    """The masked twin of a case's (x, W, mask, mean, std): the invalid
+    workers' rows (the dense stack, or the wire's values) set to NaN in
+    place, the masked bucket operator over the identity permutation and
+    the validity masks -> (x, W, mask, mean, std, valid, bvalid)."""
+    from repro_torch.faults.guard import masked_bucket_matrix
+    from repro_torch.kernels import quantize
+    x, _, mask, mean, std = args
+    valid = torch.ones(n, dtype=torch.bool, device=mask.device)
+    valid[list(invalid)] = False
+    rows = dict(x.arrays)["vals"] if isinstance(x, quantize.WireSrc) else x
+    rows[~valid] = float("nan")
+    if s <= 1:
+        return x, None, mask, mean, std, valid, valid
+    w, bvalid = masked_bucket_matrix(torch.arange(n, device=mask.device), n,
+                                     s, valid)
+    return x, w, mask, mean, std, valid, bvalid
+
+
 def kernel_case(case, dev):
+    """``robust_agg`` on one case against its plain version, timed beside
+    it and a library call. A masked case (a last element naming invalid
+    workers) must equal its plain version (``torch.equal``: both read a
+    rank as 0 + v); an unmasked one agree to KERNEL_TOL, since its W·x
+    sums in another order."""
     from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
-    kind, label, n, d, k, base_rows, s, rule = case
+    kind, label, n, d, k, base_rows, s, rule, *rest = case
+    invalid = rest[0] if rest else ()
     args, kw, bytes_moved, ops = make_case(n, d, k, base_rows, s, rule, dev)
+    if invalid:
+        args = mask_inputs(args, n, s, invalid)
+        bytes_moved += 4 * (n + (n if args[1] is None else args[1].shape[0]))
     got = robust_agg(*args, **kw)
     want = robust_agg_plain(*args, **kw)
     torch.cuda.synchronize()
     x = args[0]
-    scale = max(1.0, float((x.arrays[0][1] if k else x).abs().max()),
-                float(args[3].abs().max()) + 1.06 * float(args[4].max()))
-    if k:
-        scale += float(x.base.abs().max())
-    err = float((got - want).abs().max())
-    limit = KERNEL_TOL * scale
-    if not (got.shape == (d,) and torch.isfinite(got).all()
-            and err <= limit):
+    if invalid:
+        err = float((got - want).abs().max())
+        limit = 0.0
+        ok = torch.equal(got, want)
+    else:
+        scale = max(1.0, float((x.arrays[0][1] if k else x).abs().max()),
+                    float(args[3].abs().max()) + 1.06 * float(args[4].max()))
+        if k:
+            scale += float(x.base.abs().max())
+        err = float((got - want).abs().max())
+        limit = KERNEL_TOL * scale
+        ok = err <= limit
+    if not (got.shape == (d,) and torch.isfinite(got).all() and ok):
         raise AssertionError(f"robust_agg {label}: max abs err {err:.3e} > "
                              f"limit {limit:.3e} (or non-finite output)")
     ms = cuda_ms(lambda: robust_agg(*args, **kw))
     plain_ms = cuda_ms(lambda: robust_agg_plain(*args, **kw))
-    lib = library_call(args, kw)
+    lib = None if invalid else library_call(args, kw)
     library_ms = None if lib is None else cuda_ms(lib)
     bound_ms, bound_by = bound_of(bytes_moved, ops)
     row = {"kind": kind, "label": label, "n": n, "d": d, "k": k,
            "base_rows": base_rows, "s": s, "rule": rule,
-           "max_abs_err": err, "err_limit": limit, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms, "bytes": bytes_moved, "ops": ops}
-    print(f"[kernel] {kind:11s} {label}: n={n} d={d} k={k} s={s} {rule} | "
-          f"max abs err {err:.3e} (limit {limit:.3e}) | kernel {ms:.4f} ms"
+           "invalid": list(invalid), "max_abs_err": err, "err_limit": limit,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "bytes": bytes_moved, "ops": ops}
+    check = ("equal to the plain version" if invalid else
+             f"max abs err {err:.3e} (limit {limit:.3e})")
+    print(f"[kernel] {kind:11s} {label}: n={n} d={d} k={k} s={s} {rule}"
+          f"{' masked' if invalid else ''} | {check} | kernel {ms:.4f} ms"
           f" plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
           f"({row['bound_by']}) library(rule step alone) "
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}",
@@ -273,16 +347,22 @@ def norm_case(case, dev):
     library call. Returns one row per kernel."""
     from repro_torch.core.attacks import CoordAttack
     from repro_torch.kernels import norm_agg as N
-    kind, label, n, d, k, base_rows, s = case
-    (x, w, mask, mean, std), in_bytes = make_inputs(n, d, k, base_rows, s,
-                                                    dev)
+    kind, label, n, d, k, base_rows, s, *rest = case
+    invalid = rest[0] if rest else ()
+    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev)
+    valid = None
+    if invalid:
+        x, w, mask, mean, std, valid, _ = mask_inputs(args, n, s, invalid)
+        in_bytes += 4 * n
+    else:
+        x, w, mask, mean, std = args
     alie = CoordAttack("ALIE", 1.06)
     m = n if w is None else w.shape[0]
     g = torch.Generator(device=dev).manual_seed(m)
     wr = torch.rand(m, device=dev, generator=g) + 0.1
     wr = wr / wr.sum()
     wn = wr if w is None else wr @ w                   # w_eff, as the drivers
-    sent = N.prologue(N.stack(x), None, mask, mean, std, alie)
+    sent = N.prologue(N.stack(x), None, mask, mean, std, alie, valid)
     xb = sent if w is None else w @ sent
     scale = max(1.0, float(sent.abs().max()))
     sum_tol = WIDE_SUM_TOL if d > 1_000_000 else SUM_TOL
@@ -290,18 +370,21 @@ def norm_case(case, dev):
     w_ops = 2 + (2 * m * n if w is not None else 0)     # forge, W·x
     spec = {
         "pair_gram": (
-            lambda: N.pair_gram(x, w, mask, mean, std, attack=alie),
-            lambda: N.pair_gram_plain(x, w, mask, mean, std, attack=alie),
+            lambda: N.pair_gram(x, w, mask, mean, std, valid, attack=alie),
+            lambda: N.pair_gram_plain(x, w, mask, mean, std, valid,
+                                      attack=alie),
             lambda: torch.matmul(xb, xb.T),
             base_bytes + m * m * 4, d * (w_ops + m * (m + 1))),
         "rfa_iter": (
-            lambda: N.rfa_iter(x, wr, w, mask, mean, std, attack=alie),
-            lambda: N.rfa_iter_plain(x, wr, w, mask, mean, std,
+            lambda: N.rfa_iter(x, wr, w, mask, mean, std, valid,
+                               attack=alie),
+            lambda: N.rfa_iter_plain(x, wr, w, mask, mean, std, valid,
                                      attack=alie),
             None, base_bytes + 2 * m * 4 + d * 4, d * (w_ops + 5 * m)),
         "weighted_sum": (
-            lambda: N.weighted_sum(x, wn, mask, mean, std, attack=alie),
-            lambda: N.weighted_sum_plain(x, wn, mask, mean, std,
+            lambda: N.weighted_sum(x, wn, mask, mean, std, valid,
+                                   attack=alie),
+            lambda: N.weighted_sum_plain(x, wn, mask, mean, std, valid,
                                          attack=alie),
             lambda: torch.mv(sent.T, wn),
             base_bytes + n * 4 + d * 4, d * (2 + 2 * n)),
@@ -334,6 +417,7 @@ def norm_case(case, dev):
         bound_ms, bound_by = bound_of(bytes_moved, ops)
         row = {"kernel": name, "kind": kind, "label": label, "n": n, "d": d,
                "k": k, "base_rows": base_rows, "s": s,
+               "invalid": list(invalid),
                "max_abs_err": max(errs), "errs": errs, "err_limits": limits,
                "bitwise_repeat": repeat, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -341,7 +425,7 @@ def norm_case(case, dev):
         rows.append(row)
         lib_txt = ("n/a" if library_ms is None else f"{library_ms:.4f} ms")
         print(f"[kernel] {name:12s} {kind:11s} {label}: n={n} d={d} k={k} "
-              f"s={s} | errs {', '.join(f'{e:.3e}' for e in errs)} (limits "
+              f"s={s}{' masked' if invalid else ''} | errs {', '.join(f'{e:.3e}' for e in errs)} (limits "
               f"{', '.join(f'{v:.3e}' for v in limits)}) repeat bitwise | "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
               f"{bound_ms:.4f} ms ({bound_by}) library {lib_txt}",
@@ -538,14 +622,21 @@ def ops_path(dev, card):
 
 
 QUANT_KERNELS = ("topk_select", "block_quantize")
-COUNTED = (("robust_agg", "robust_agg_wire") + NORM_KERNELS
+ROBUST_COUNTS = {"robust_agg": "launches", "robust_agg_wire": "wire_launches",
+                 "robust_agg_masked": "masked_launches",
+                 "robust_agg_masked_wire": "masked_wire_launches"}
+NORM_MASKED = tuple(f"{name}_masked" for name in NORM_KERNELS)
+COUNTED = (tuple(ROBUST_COUNTS) + NORM_KERNELS + NORM_MASKED
            + BLOCKED_KERNELS + QUANT_KERNELS)
 
 
 def reset_counts():
     from repro_torch.kernels import norm_agg, quantize
     from repro_torch.kernels.robust_agg import robust_agg
-    robust_agg.launches = robust_agg.wire_launches = 0
+    for attr in ROBUST_COUNTS.values():
+        setattr(robust_agg, attr, 0)
+    for name in NORM_KERNELS:
+        getattr(norm_agg, name).masked_launches = 0
     for name in NORM_KERNELS + BLOCKED_KERNELS:
         getattr(norm_agg, name).launches = 0
     for name in QUANT_KERNELS:
@@ -555,25 +646,37 @@ def reset_counts():
 def read_counts() -> dict:
     from repro_torch.kernels import norm_agg, quantize
     from repro_torch.kernels.robust_agg import robust_agg
-    counts = {"robust_agg": robust_agg.launches,
-              "robust_agg_wire": robust_agg.wire_launches}
+    counts = {key: getattr(robust_agg, attr)
+              for key, attr in ROBUST_COUNTS.items()}
     counts.update({name: getattr(norm_agg, name).launches
                    for name in NORM_KERNELS + BLOCKED_KERNELS})
+    counts.update({f"{name}_masked": getattr(norm_agg, name).masked_launches
+                   for name in NORM_KERNELS})
     counts.update({name: getattr(quantize, name).launches
                    for name in QUANT_KERNELS})
     return counts
 
 
-def expected_counts(aggregator, full, vr, giant=False) -> dict:
+def expected_counts(aggregator, full, vr, giant=False, guard=False,
+                    cohort=False) -> dict:
     """Launches of one run: one init aggregation and F full rounds on the
     packed b+w segment, V VR rounds on two wire leaves; RFA makes T = 8
     Weiszfeld passes and a weighted sum per segment, Krum a Gram and a
     weighted sum. At 256 workers every aggregation (dense or wire) takes
     the giant-n tier on the two leaves b and w, unpacked: RFA 2·(8 + 1)
     blocked weighted sums and 2·8 blocked distances, Krum 2 blocked Grams
-    and 2 blocked weighted sums, and no fused kernel."""
+    and 2 blocked weighted sums, and no fused kernel (with or without a
+    sampled cohort: the masked bucket operator keeps m = 128 rows). The
+    fault guard adds no launch and masks every one (the init's too).
+    Under a sampled cohort (``cohort``, cm at 5 workers) the init is
+    unmasked, and every round, VR rounds reconstructed densely, is one
+    masked launch on the packed segment."""
     agg_rounds = 1 + full
     counts = dict.fromkeys(COUNTED, 0)
+    if cohort:
+        counts["robust_agg"] = 1 + full + vr
+        counts["robust_agg_masked"] = full + vr
+        return counts
     if giant:
         aggs = 1 + full + vr
         if aggregator == "rfa":
@@ -591,6 +694,11 @@ def expected_counts(aggregator, full, vr, giant=False) -> dict:
         counts["weighted_sum"] = agg_rounds + 2 * vr
     else:
         counts["pair_gram"] = counts["weighted_sum"] = agg_rounds + 2 * vr
+    if guard:
+        counts["robust_agg_masked"] = counts["robust_agg"]
+        counts["robust_agg_masked_wire"] = counts["robust_agg_wire"]
+        for name in NORM_KERNELS:
+            counts[f"{name}_masked"] = counts[name]
     return counts
 
 
@@ -606,14 +714,13 @@ def ef21_counts(rounds) -> dict:
     return counts
 
 
-def main_path(dev, card, aggregator, giant=False, ef21=False):
+def main_path(dev, card, tag, spec, want_counts):
+    """One path through ``api.run`` on the card, the counts set to 0 just
+    before; its launches against ``want_counts(full, vr, rounds)``, its
+    losses finite and falling, and its first rounds against the CPU
+    path."""
     from repro_torch.api import RunSpec, run
-    if ef21:
-        spec, tag = dict(EF21_SPEC), "byz_ef21 topk"
-    else:
-        spec = {**MAIN_SPEC, "aggregator": aggregator,
-                **(GIANT_SPEC if giant else {})}
-        tag = f"{aggregator}{' n=256' if giant else ''}"
+    ef21 = spec["method"] == "byz_ef21"
     reset_counts()
     t0 = time.time()
     res = run(RunSpec(**spec), device=dev, log_every=1)
@@ -639,8 +746,7 @@ def main_path(dev, card, aggregator, giant=False, ef21=False):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: final loss {losses[-1]} not "
                              f"below the first {losses[0]}")
-    want = (ef21_counts(len(hist)) if ef21
-            else expected_counts(aggregator, full, vr, giant))
+    want = want_counts(full, vr, len(hist))
     if counts != want:
         raise AssertionError(
             f"{tag}: launches {counts}, expected {want}: an "
@@ -714,30 +820,73 @@ def main() -> int:
                     for r in blocked_case(c, dev, card)]
     topk_main = [topk_case(c, dev, card) for c in TOPK_MAIN_CASES]
     topk_wide = [topk_case(c, dev, card) for c in TOPK_WIDE_CASES]
-    paths = {agg: main_path(dev, card, agg) for agg in ("cm", "rfa", "krum")}
-    paths.update({f"{agg} n=256": main_path(dev, card, agg, giant=True)
-                  for agg in ("rfa", "krum")})
-    paths["byz_ef21 topk"] = main_path(dev, card, "cm", ef21=True)
+    masked_main = [kernel_case(c, dev) for c in MASKED_MAIN_CASES]
+    masked_wide = [kernel_case(c, dev) for c in MASKED_WIDE_CASES]
+    norm_masked_main = [r for c in MASKED_MAIN_CASES
+                        for r in norm_case(c[:7] + c[8:], dev)]
+    norm_masked_wide = [r for c in MASKED_WIDE_CASES
+                        for r in norm_case(c[:7] + c[8:], dev)]
+    paths = {}
+    for agg in ("cm", "rfa", "krum"):
+        paths[agg] = main_path(
+            dev, card, agg, {**MAIN_SPEC, "aggregator": agg},
+            lambda f, v, r, a=agg: expected_counts(a, f, v))
+    for agg in ("rfa", "krum"):
+        paths[f"{agg} n=256"] = main_path(
+            dev, card, f"{agg} n=256",
+            {**MAIN_SPEC, **GIANT_SPEC, "aggregator": agg},
+            lambda f, v, r, a=agg: expected_counts(a, f, v, giant=True))
+    paths["byz_ef21 topk"] = main_path(dev, card, "byz_ef21 topk",
+                                       dict(EF21_SPEC),
+                                       lambda f, v, r: ef21_counts(r))
     quant = ops_path(dev, card)
     paths["ops.block_quantize"] = {"launches": quant["launches"]}
+    for agg in ("cm", "rfa", "krum"):
+        paths[f"{agg} chaos"] = main_path(
+            dev, card, f"{agg} chaos",
+            {**MAIN_SPEC, **CHAOS_SPEC, "aggregator": agg},
+            lambda f, v, r, a=agg: expected_counts(a, f, v, guard=True))
+    paths["cm participation 0.8"] = main_path(
+        dev, card, "cm participation 0.8", {**MAIN_SPEC, **PART_SPEC},
+        lambda f, v, r: expected_counts("cm", f, v, cohort=True))
+    for agg in ("rfa", "krum"):
+        paths[f"{agg} n=256 participation 0.75"] = main_path(
+            dev, card, f"{agg} n=256 participation 0.75",
+            {**MAIN_SPEC, **GIANT_PART_SPEC, "aggregator": agg},
+            lambda f, v, r, a=agg: expected_counts(a, f, v, giant=True))
 
     def launches(name):
         return sum(p["launches"][name] for p in paths.values())
 
+    wire_masked = launches("robust_agg_masked_wire")
+    dense_masked = launches("robust_agg_masked") - wire_masked
+    robust_launches = {
+        "dense": launches("robust_agg") - launches("robust_agg_wire")
+        - dense_masked,
+        "sparse_wire": launches("robust_agg_wire") - wire_masked}
     kernels = []
     for kind in ("dense", "sparse_wire"):
-        rows = [r for r in main_rows if r["kind"] == kind]
-        n = (launches("robust_agg_wire") if kind == "sparse_wire"
-             else launches("robust_agg") - launches("robust_agg_wire"))
         kernels.append(kernel_entry(
             f"robust_agg ({kind} load)",
             "src/repro_torch/kernels/csrc/robust_agg.cu", REPLACES[kind],
-            n, rows))
+            robust_launches[kind],
+            [r for r in main_rows if r["kind"] == kind]))
+    for kind, n in (("dense", dense_masked), ("sparse_wire", wire_masked)):
+        kernels.append(kernel_entry(
+            f"robust_agg ({kind} load, masked)",
+            "src/repro_torch/kernels/csrc/robust_agg.cu",
+            REPLACES["masked" if kind == "dense" else kind], n,
+            [r for r in masked_main if r["kind"] == kind]))
     for name in NORM_KERNELS:
         kernels.append(kernel_entry(
             name, "src/repro_torch/kernels/csrc/norm_agg.cu",
-            REPLACES[name], launches(name),
+            REPLACES[name], launches(name) - launches(f"{name}_masked"),
             [r for r in norm_main if r["kernel"] == name]))
+        kernels.append(kernel_entry(
+            f"{name} (masked load)",
+            "src/repro_torch/kernels/csrc/norm_agg.cu", REPLACES[name],
+            launches(f"{name}_masked"),
+            [r for r in norm_masked_main if r["kernel"] == name]))
     for name in BLOCKED_KERNELS:
         kernels.append(kernel_entry(
             name, "src/repro_torch/kernels/csrc/norm_agg_blocked.cu",
@@ -759,6 +908,9 @@ def main() -> int:
          "blocked_main_cases": blocked_main,
          "blocked_wide_cases": blocked_wide,
          "topk_main_cases": topk_main, "topk_wide_cases": topk_wide,
+         "masked_main_cases": masked_main, "masked_wide_cases": masked_wide,
+         "norm_masked_main_cases": norm_masked_main,
+         "norm_masked_wide_cases": norm_masked_wide,
          "block_quantize_cases": quant["cases"],
          "main_paths": paths, "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))

@@ -20,6 +20,7 @@ from repro_torch.core import aggregators, attacks, compressors
 from repro_torch.core.engine import AGG_BACKENDS
 from repro_torch.core.estimators import ESTIMATORS
 from repro_torch.core.theory import delta_over_active_set
+from repro_torch.faults.plan import as_plan
 
 SCHEMA_VERSION = 1
 
@@ -98,6 +99,23 @@ class RunSpec:
                 "(delta,c)-robust aggregator exists; reduce n_byz or add "
                 "workers")
         n_active = self.resolved_participation()
+        if n_active < self.n_workers:
+            if self.agg_mode not in ("gspmd", "pallas"):
+                raise ValueError(
+                    f"participation={self.participation} is not supported "
+                    f"under agg_mode={self.agg_mode!r}: per-round client "
+                    "sampling needs the masked aggregation prologue, which "
+                    "lives in the gspmd and pallas backends")
+            # worst case over the sampled cohort: every byzantine may land
+            # in one round's sample
+            worst = delta_over_active_set(n_active, self.n_byz)
+            if self.aggregator != "mean" and worst >= 0.5:
+                warnings.warn(
+                    f"worst-case sampled byzantine fraction is "
+                    f"{worst:.2f} >= 1/2 (n_byz={self.n_byz} vs n_active="
+                    f"{n_active}): a round whose sample is majority-"
+                    "byzantine has no (delta,c) guarantee; raise "
+                    "participation or reduce n_byz", stacklevel=2)
         s = max(self.bucket_size, 1)
         delta = delta_over_active_set(n_active, self.n_byz, bucket_size=s)
         if self.aggregator != "mean" and s > 1 and delta >= 0.5:
@@ -120,6 +138,25 @@ class RunSpec:
                 "E||C(x)-x||^2 <= delta_C ||x||^2, and unbiasedness "
                 "scaling (randk's d/K) breaks it; got "
                 f"compressor={self.compressor!r}")
+        if self.faults or self.fault_guard:
+            plan = as_plan(self.faults)    # raises on unknown kinds/keys
+            if self.fault_guard and self.agg_mode not in ("gspmd", "pallas"):
+                raise ValueError(
+                    f"fault_guard=True is not supported under agg_mode="
+                    f"{self.agg_mode!r}: the fail-closed masking lives in "
+                    "the aggregation prologue of the gspmd and pallas "
+                    "backends")
+            if plan is not None:
+                f = plan.worst_case_faulty(self.n_workers)
+                if f and delta_over_active_set(
+                        n_active, self.n_byz + f) >= 0.5:
+                    warnings.warn(
+                        f"fault plan can hit {f} worker(s) on top of "
+                        f"n_byz={self.n_byz}: worst-case byz+faulty "
+                        f"fraction over the active set (n_active="
+                        f"{n_active}) is >= 1/2, outside the guard's delta "
+                        "budget — the drop-faulty-workers equivalence is "
+                        "not guaranteed this round", stacklevel=2)
         for fname in _KWARGS_FIELDS:
             val = getattr(self, fname)
             if not isinstance(val, dict):
@@ -190,10 +227,6 @@ class RunSpec:
         unported = [
             (self.task != "logreg", "task='lm' (ROADMAP queue 1, item 12)"),
             (self.trace, "trace=True (ROADMAP queue 1, item 8)"),
-            (bool(self.faults) or self.fault_guard,
-             "the fault layer (ROADMAP queue 1, item 7)"),
-            (self.resolved_participation() < self.n_workers,
-             "participation < 1 (ROADMAP queue 1, item 7)"),
             (self.optimizer != "none",
              "optimizers (ROADMAP queue 1, item 12)"),
         ]
@@ -203,8 +236,12 @@ class RunSpec:
         agg_kw = {"n_byz": self.n_byz, **self.aggregator_kwargs}
         if self.aggregator == "mean":
             agg_kw.pop("n_byz")
+        n_active = self.resolved_participation()
         return ByzVRMarinaConfig(
-            n_workers=self.n_workers, n_byz=self.n_byz, p=self.p, lr=self.lr,
+            n_workers=self.n_workers, n_byz=self.n_byz,
+            n_active=None if n_active == self.n_workers else n_active,
+            fault_plan=as_plan(self.faults), fault_guard=self.fault_guard,
+            p=self.p, lr=self.lr,
             aggregator=aggregators.get_aggregator(
                 self.aggregator, bucket_size=self.bucket_size, **agg_kw),
             compressor=compressors.get_compressor(self.compressor,

@@ -3,8 +3,9 @@
 trimmed mean (tm), RFA (smoothed Weiszfeld) and Krum. These plain
 versions are the gspmd backend and the reference the kernel backend is
 held to. RFA and Krum take global distances, summed over the leaves of a
-tree. Not ported yet: the masked twins and the telemetry twin (ROADMAP
-queue 1, items 3, 7 and 8).
+tree. ``Aggregator.tree_masked`` is the masked twin the fault guard and
+partial participation use. Not ported yet: the telemetry twin (ROADMAP
+queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
+from repro_torch.core.attacks import fma_f32
 
 
 # XLA on the CPU rewrites a reduction over more rows than this into
@@ -51,12 +53,10 @@ def mean0(x, dim: int = 0):
 def weighted_rows(w, x):
     """Σ_i w_i·x_i over axis 0 as the reference's compiled float32 code
     takes it (an einsum, or a kernel's row sum): one fused multiply-add per
-    row, in row order. The float32 product is exact in float64, so a
-    float64 add rounded once to float32 gives the fused result (up to a
-    double rounding, as in ``attacks.alie_value``)."""
+    row, in row order (``attacks.fma_f32``)."""
     acc = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
     for i in range(x.shape[0]):
-        acc = (acc.double() + w[i].double() * x[i].double()).float()
+        acc = fma_f32(w[i], x[i], acc)
     return acc
 
 
@@ -74,6 +74,85 @@ def coord_trimmed_mean(x, trim: int):
     t = min(trim, (n - 1) // 2)
     xs = torch.sort(x, dim=0).values
     return mean0(xs[t:n - t])
+
+
+# ---------------------------------------------------------------------------
+# masked primitives (the fault guard's and partial participation's oracle;
+# faults.guard supplies the validity masks and the renormalized bucket
+# operator)
+# ---------------------------------------------------------------------------
+
+def _row_mask(valid, a):
+    return valid.reshape((-1,) + (1,) * (a.dim() - 1))
+
+
+def _zero(a):
+    return torch.zeros((), dtype=a.dtype, device=a.device)
+
+
+def _sanitize_rows(xs: dict, valid) -> dict:
+    """Zero the invalid rows with a select, never a multiply (0·NaN =
+    NaN)."""
+    return tu.tree_map(lambda a: torch.where(_row_mask(valid, a), a, _zero(a)),
+                       xs)
+
+
+def valid_count(valid):
+    """c, the number of valid rows, as an int64 device tensor."""
+    return valid.to(torch.int64).sum()
+
+
+def masked_mean(x, valid):
+    """Mean over the valid rows: their sum in XLA's row order divided (a
+    true division, by a count known only at run time) by max(c, 1)."""
+    cnt = torch.clamp(valid.float().sum(), min=1.0)
+    xc = torch.where(_row_mask(valid, x), x, _zero(x))
+    return xla_sum_rows(list(xc.unbind(0))) / cnt.to(x.dtype)
+
+
+def _sorted_with_inf_fill(x, valid):
+    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    return torch.sort(torch.where(_row_mask(valid, x), x, inf), dim=0).values
+
+
+def masked_coord_median(x, valid):
+    """Coordinate-wise median over the valid rows: invalid rows fill with
+    +inf so the sort pushes them past every real entry, then the ranks
+    (c-1)//2 and c//2 of the valid count c are gathered on the device.
+    For odd c the two coincide and 0.5·(v + v) == v bitwise."""
+    c = valid_count(valid)
+    xs = _sorted_with_inf_fill(x, valid)
+    lo = xs.index_select(0, torch.clamp(torch.div(c - 1, 2,
+                                                  rounding_mode="floor"),
+                                        min=0).reshape(1))[0]
+    hi = xs.index_select(0, torch.div(c, 2, rounding_mode="floor")
+                         .clamp(max=x.shape[0] - 1).reshape(1))[0]
+    return 0.5 * (lo + hi)
+
+
+def masked_coord_trimmed_mean(x, valid, trim: int):
+    """Trimmed mean over the valid rows: sort with +inf fill, keep ranks
+    [t, c - t) of the valid count c, t = min(trim, (c-1)//2); the kept
+    rows, the others as zeros, summed in XLA's row order over all m rows,
+    divided by max(c - 2t, 1)."""
+    m = x.shape[0]
+    c = valid_count(valid)
+    t = torch.clamp(torch.div(c - 1, 2, rounding_mode="floor"), max=trim)
+    xs = _sorted_with_inf_fill(x, valid)
+    rank = torch.arange(m, device=x.device).reshape(
+        (-1,) + (1,) * (x.dim() - 1))
+    keep = (rank >= t) & (rank < c - t)
+    kept = torch.where(keep, xs, _zero(x))
+    return (xla_sum_rows(list(kept.unbind(0)))
+            / torch.clamp(c - 2 * t, min=1).to(x.dtype))
+
+
+def bucket_rows(w_mat, a):
+    """W @ a over the leading axis, one fused multiply-add per row in row
+    order for each bucket (the reference's compiled einsum)."""
+    flat = a.reshape(a.shape[0], -1).float()
+    out = torch.stack([weighted_rows(w, flat) for w in w_mat.float()])
+    return out.reshape((w_mat.shape[0],) + tuple(a.shape[1:]))
 
 
 def bucketize(key, x, s: int):
@@ -175,6 +254,16 @@ class Aggregator:
             return coord_trimmed_mean(x, self.trim)
         raise ValueError(self.rule)
 
+    def _masked_rule(self, x, valid):
+        """The coordinate rule over the valid rows of x."""
+        if self.rule == "mean":
+            return masked_mean(x, valid)
+        if self.rule == "cm":
+            return masked_coord_median(x, valid)
+        if self.rule == "tm":
+            return masked_coord_trimmed_mean(x, valid, self.trim)
+        raise ValueError(self.rule)
+
     def __call__(self, key, x):
         """Flat stacked workers x (n, d) -> (d,)."""
         if self.bucket_size > 1 and self.rule != "mean":
@@ -194,6 +283,56 @@ class Aggregator:
         if self.norm_based:
             return self._norm_tree(xs)
         return tu.tree_map(self._rule, xs)
+
+    def tree_masked(self, key, xs: dict, valid) -> dict:
+        """Guarded twin of ``tree``: rows with ``valid[i] == False`` get
+        exactly zero weight. Invalid rows are select-zeroed before any
+        arithmetic, each bucket renormalizes over its valid members
+        (``faults.guard.masked_bucket_matrix``), and a bucket with no
+        valid member is itself dropped."""
+        from repro_torch.faults.guard import masked_bucket_matrix
+        n = tu.leaves(xs)[0].shape[0]
+        xs = _sanitize_rows(xs, valid)
+        bvalid = valid
+        if self.bucket_size > 1 and self.rule != "mean":
+            perm = R.permutation(key, n)
+            w_mat, bvalid = masked_bucket_matrix(perm, n, self.bucket_size,
+                                                 valid)
+            xs = tu.tree_map(lambda a: bucket_rows(w_mat, a).to(a.dtype), xs)
+        if self.coordinatewise:
+            return tu.tree_map(lambda a: self._masked_rule(a, bvalid), xs)
+        if self.rule == "rfa":
+            return self._rfa_masked(xs, bvalid)
+        return self._krum_masked(xs, bvalid)
+
+    def _rfa_masked(self, xs: dict, valid) -> dict:
+        """Weiszfeld over the valid (already zeroed) rows: invalid rows
+        get zero weight at every iteration; the start is the valid
+        mean."""
+        z = tu.tree_map(lambda a: masked_mean(a, valid), xs)
+        for _ in range(self.iters):
+            sq = _tree_sqdist_to(xs, z)
+            w = torch.where(valid, 1.0 / torch.sqrt(sq + self.eps), 0.0)
+            w = w / torch.clamp(torch.sum(w), min=1e-30)
+            z = _tree_weighted_sum(w, xs)
+        return z
+
+    def _krum_masked(self, xs: dict, valid) -> dict:
+        """Krum over the valid rows: invalid rows and columns are +inf in
+        the distance matrix, the neighbour count tracks the valid count c
+        (k = max(c - n_byz - 2, 1)), and an invalid row never wins."""
+        n = tu.leaves(xs)[0].shape[0]
+        d2 = _tree_pair_sqdists(xs)
+        inf = torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device)
+        d2 = torch.where(valid[:, None] & valid[None, :], d2, inf)
+        d2 = d2 + torch.diag(inf.expand(n))
+        k = torch.clamp(valid_count(valid) - self.n_byz - 2, min=1)
+        near = torch.arange(n, device=d2.device)[None, :] < k
+        srt = torch.sort(d2, dim=1).values
+        scores = torch.where(near, srt, 0.0).sum(1)
+        scores = torch.where(valid, scores, inf)
+        onehot = F.one_hot(torch.argmin(scores), n).float()
+        return _tree_weighted_sum(onehot, xs)
 
     def _norm_tree(self, xs: dict) -> dict:
         return self._rfa_tree(xs) if self.rule == "rfa" else self._krum_tree(xs)

@@ -11,16 +11,32 @@ import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
+import torch
+
+
+def fma_f32(a, b, c):
+    """a·b + c of float32 tensors, rounded once to float32: the fused
+    multiply-add of the reference's compiled code and of the kernels. The
+    product of two float32 values is exact in float64; the float64 sum is
+    rounded to odd (where it is inexact and even, it steps one ulp towards
+    the exact value, whose error TwoSum gives), and a value rounded to odd
+    with 29 spare bits rounds to float32 as the exact value would."""
+    p = a.double() * b.double()
+    cd = c.double()
+    r = p + cd
+    bv = r - p
+    err = (p - (r - bv)) + (cd - bv)
+    even = (r.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, float("inf"), float("-inf")).to(r.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(r, away),
+                       r).float()
 
 
 def alie_value(m, z: float, s):
     """float32 m - z·s rounded once, as the reference's compiled code
-    computes it (a fused multiply-add): the float32 product is exact in
-    float64, so one float64 subtraction and one rounding to float32 give
-    the fused result (up to a double rounding, which needs the exact value
-    within 2^-53 relative of a float32 midpoint)."""
-    zf = float(np.float32(z))
-    return (m.double() - zf * s.double()).float()
+    computes it (a fused multiply-add)."""
+    zf = float(np.float32(-z))
+    return fma_f32(s.new_full((), zf), s, m)
 
 
 @dataclasses.dataclass(frozen=True)

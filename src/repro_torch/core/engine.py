@@ -3,9 +3,18 @@
 One round: parameter update, data corruption, the estimator's
 candidates, the omniscient attack, robust aggregation, the step. Under
 ``agg_mode="pallas"`` a kernel-fusable attack is injected inside the
-robust-aggregation kernel's load. Partial participation, the fault layer,
-telemetry twins and the buffered-ingest phase are not ported yet (ROADMAP
-queue 1, items 7, 8 and 10).
+robust-aggregation kernel's load.
+
+The chaos layer hooks into the message phase: ``cfg.fault_plan`` injects
+message-site faults into the candidates before the attack, and
+``cfg.fault_guard`` routes to ``guarded_message_phase``, where rows that
+are not finite get zero weight. Partial participation (``cfg.n_active``)
+samples a cohort per round (``sampled_worker_mask``), passed as an
+argument to the message phase (the reference publishes it through a
+module-level cell), aggregates over it alone, and freezes the per-worker
+state of the others (``carry_unsampled_state``). Telemetry twins and the
+buffered-ingest phase are not ported yet (ROADMAP queue 1, items 8 and
+10).
 """
 from __future__ import annotations
 
@@ -22,13 +31,17 @@ AGG_BACKENDS = ("gspmd", "all_to_all", "sparse_support", "pallas")
 PORTED_BACKENDS = ("gspmd", "pallas")
 
 
-def apply_attack(cfg, key, cand: dict) -> dict:
+def apply_attack(cfg, key, cand: dict, stats_valid=None) -> dict:
     """The vectors actually sent: byzantine rows replaced by the attack,
-    computed from the good workers' per-coordinate mean/std."""
+    computed from the good workers' per-coordinate mean/std.
+    ``stats_valid`` (fault guard, participation) restricts the statistics
+    to valid rows."""
     if cfg.attack.name in ("NA", "LF") or cfg.n_byz == 0:
         return cand
     mask = cfg.byz_mask(tu.leaves(cand)[0].device)
-    means, stds = tu.masked_mean_std(cand, ~mask)
+    good = ~mask if stats_valid is None else ~mask & stats_valid
+    means, stds = tu.masked_mean_std(cand, good,
+                                     sanitize=stats_valid is not None)
 
     def leaf(h, m, s):
         v = cfg.attack.apply(key, h, m, s).to(h.dtype)
@@ -48,48 +61,164 @@ def stacked_grads(loss_fn, params: dict, batches: dict, keys):
     return losses.mean(), grads
 
 
-def aggregate(cfg, key, sent: dict) -> dict:
-    """Backend dispatch for g = ARAgg(sent_1, ..., sent_n)."""
+def aggregate(cfg, key, sent: dict, valid=None) -> dict:
+    """Backend dispatch for g = ARAgg(sent_1, ..., sent_n); ``valid``
+    (n,) gives invalid rows zero weight through the masked twins."""
     if cfg.agg_mode == "gspmd":
+        if valid is not None:
+            return cfg.aggregator.tree_masked(key, sent, valid)
         return cfg.aggregator.tree(key, sent)
     if cfg.agg_mode == "pallas":
         from repro_torch.core.sharded_agg import tree_aggregate_pallas
-        return tree_aggregate_pallas(cfg, key, sent)
+        return tree_aggregate_pallas(cfg, key, sent, valid=valid)
     raise NotImplementedError(
         f"agg_mode {cfg.agg_mode!r} is not ported yet (ROADMAP queue 1, "
         "item 11)")
 
 
-def fusable_attack_ctx(cfg, cand: dict, mask):
+def fusable_attack_ctx(cfg, cand: dict, mask, stats_valid=None):
     """Fused-attack context: mask plus the good workers' mean/std trees,
-    computed only when the attack reads them."""
+    computed only when the attack reads them; ``stats_valid`` restricts
+    the statistics to valid rows."""
     from repro_torch.core.sharded_agg import AttackCtx
     means = stds = None
     if cfg.attack.needs_mean or cfg.attack.needs_std:
-        means, stds = tu.masked_mean_std(cand, ~mask)
+        good = ~mask if stats_valid is None else ~mask & stats_valid
+        means, stds = tu.masked_mean_std(cand, good,
+                                         sanitize=stats_valid is not None)
         if not cfg.attack.needs_std:
             stds = None
     return AttackCtx(fn=cfg.attack.coord_apply, mask=mask, means=means,
                      stds=stds)
 
 
-def message_phase(cfg, attack_key, agg_key, cand):
+# fold_in salt of the participation stream, apart from the fault layer's
+# 0xFA17, so the attack, fault and participation streams are independent
+_PART_SALT = 0x5A3B1E
+
+
+def sampled_worker_mask(cfg, step_key):
+    """(n,) bool: this round's uniformly sampled cohort, or None under
+    full participation. A uniform n_active-subset without replacement:
+    rank the workers by a permutation drawn from fold_in(step key,
+    ``_PART_SALT``) and take the first ``n_active``."""
+    if cfg.n_active is None or cfg.n_active >= cfg.n_workers:
+        return None
+    rank = R.permutation(R.fold_in(step_key, _PART_SALT), cfg.n_workers)
+    return rank < cfg.n_active
+
+
+def _fusable(cfg) -> bool:
+    """The pallas backend with no attack, or one that rides into the
+    kernels' load."""
+    return cfg.agg_mode == "pallas" and (
+        cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF")
+        or cfg.attack.coord_apply is not None)
+
+
+def _fused_phase(cfg, agg_key, cand, valid=None):
+    """Attack and aggregation in the kernels (``_fusable`` configs), the
+    attack's statistics and the aggregate over the ``valid`` rows."""
+    from repro_torch.core.sharded_agg import tree_aggregate_pallas
+    if cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF"):
+        return tree_aggregate_pallas(cfg, agg_key, cand, valid=valid)
+    mask = cfg.byz_mask(tu.leaves(cand)[0].device)
+    ctx = fusable_attack_ctx(cfg, cand, mask, stats_valid=valid)
+    return tree_aggregate_pallas(cfg, agg_key, cand, attack_ctx=ctx,
+                                 valid=valid)
+
+
+def participating_message_phase(cfg, attack_key, agg_key, cand, sampled):
+    """``message_phase`` over the sampled cohort: non-sampled rows get zero
+    weight through the masked twins, the attack's statistics see only the
+    sampled good workers, and under the guard the validity is ``sampled``
+    and finite. A ``WireCandidates`` payload is reconstructed densely
+    first, after its faults are injected."""
+    from repro_torch.core import wire
+    from repro_torch.faults import guard as fguard, inject
+    plan = cfg.fault_plan
+    if isinstance(cand, wire.WireCandidates):
+        if plan is not None and plan.message_faults:
+            cand = inject.inject_wire(plan, attack_key, cand)
+        cand = wire.reconstruct(cand)
+    elif plan is not None and plan.tensor_faults:
+        cand = inject.inject_candidates(plan, attack_key, cand)
+    if cfg.fault_guard:
+        valid_pre = fguard.finite_row_mask(cand) & sampled
+        sent = apply_attack(cfg, attack_key, cand, stats_valid=valid_pre)
+        return aggregate(cfg, agg_key, sent,
+                         valid=fguard.finite_row_mask(sent) & sampled)
+    if _fusable(cfg):
+        return _fused_phase(cfg, agg_key, cand, sampled)
+    sent = apply_attack(cfg, attack_key, cand, stats_valid=sampled)
+    return aggregate(cfg, agg_key, sent, valid=sampled)
+
+
+def guarded_message_phase(cfg, attack_key, agg_key, cand):
+    """Fail-closed twin of ``message_phase`` over dense candidates: rows
+    that are not finite in every coordinate get zero weight, as if the
+    workers had been dropped. The attack's statistics see only honest and
+    valid rows. On the fused path the validity stays the pre-attack one
+    (the load zeroes a byzantine row that is also faulty, after the
+    attack); materializing paths re-check the attacked tensor, so even a
+    non-finite attack output fails closed."""
+    from repro_torch.faults import guard as fguard
+    valid_pre = fguard.finite_row_mask(cand)
+    if _fusable(cfg):
+        return _fused_phase(cfg, agg_key, cand, valid_pre)
+    sent = apply_attack(cfg, attack_key, cand, stats_valid=valid_pre)
+    return aggregate(cfg, agg_key, sent,
+                     valid=fguard.finite_row_mask(sent))
+
+
+def message_phase(cfg, attack_key, agg_key, cand, sampled=None):
     """Lines 9-10 of the round: omniscient attack, then robust
     aggregation. ``cand`` is a stacked dense tree or, on the wire path, a
-    ``wire.WireCandidates`` payload."""
+    ``wire.WireCandidates`` payload. A fault plan injects its message
+    faults first; ``cfg.fault_guard`` takes the guarded phases;
+    ``sampled`` (the round's cohort) takes
+    ``participating_message_phase``."""
     from repro_torch.core import wire
+    from repro_torch.faults import inject
+    if sampled is not None:
+        return participating_message_phase(cfg, attack_key, agg_key, cand,
+                                           sampled)
+    plan = cfg.fault_plan
     if isinstance(cand, wire.WireCandidates):
+        if plan is not None and plan.message_faults:
+            cand = inject.inject_wire(plan, attack_key, cand)
         return wire.wire_message_phase(cfg, attack_key, agg_key, cand)
-    if cfg.agg_mode == "pallas":
-        from repro_torch.core.sharded_agg import tree_aggregate_pallas
-        if cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF"):
-            return tree_aggregate_pallas(cfg, agg_key, cand)
-        if cfg.attack.coord_apply is not None:
-            mask = cfg.byz_mask(tu.leaves(cand)[0].device)
-            ctx = fusable_attack_ctx(cfg, cand, mask)
-            return tree_aggregate_pallas(cfg, agg_key, cand, attack_ctx=ctx)
+    if plan is not None and plan.tensor_faults:
+        cand = inject.inject_candidates(plan, attack_key, cand)
+    if cfg.fault_guard:
+        return guarded_message_phase(cfg, attack_key, agg_key, cand)
+    if _fusable(cfg):
+        return _fused_phase(cfg, agg_key, cand)
     sent = apply_attack(cfg, attack_key, cand)
     return aggregate(cfg, agg_key, sent)
+
+
+def carry_unsampled_state(state: dict, updates: dict, sampled,
+                          n_workers: int) -> dict:
+    """Freeze the per-worker state of the workers not sampled this round:
+    they neither computed nor uploaded anything. Per-worker state is
+    marked by the ``worker_`` key prefix (every leaf's leading axis is
+    n_workers); for those keys the round's update is merged row-wise with
+    the previous state. Server-side updates pass through."""
+    out = {}
+    for k, new in updates.items():
+        old = state.get(k)
+        if old is None or not k.startswith("worker_"):
+            out[k] = new
+            continue
+
+        def merge(nl, ol):
+            assert nl.shape[0] == n_workers, (k, nl.shape)
+            keep = sampled.reshape((-1,) + (1,) * (nl.dim() - 1))
+            return torch.where(keep, nl, ol)
+
+        out[k] = tu.tree_map(merge, new, old)
+    return out
 
 
 def param_update(cfg, params: dict, g: dict, opt_state):
@@ -129,7 +258,9 @@ class GradientEstimator:
         raise NotImplementedError
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys) -> RoundOutput:
+              keys, sampled=None) -> RoundOutput:
+        """``sampled``: the round's cohort (None at full participation),
+        for estimators that run the message phase themselves."""
         raise NotImplementedError
 
     def round_bits(self, cfg, d: int, full_round: bool = True) -> int:
@@ -156,6 +287,7 @@ def make_engine_step(cfg, loss_fn, estimator: GradientEstimator,
     def step(state, batch, anchor, key):
         keys = dict(zip(est.rng, R.split(key, len(est.rng))))
         old_params = state["params"]
+        sampled = sampled_worker_mask(cfg, key)
         if est.update_params_first:
             new_params, new_opt = param_update(cfg, old_params, state["g"],
                                                state["opt_state"])
@@ -164,17 +296,21 @@ def make_engine_step(cfg, loss_fn, estimator: GradientEstimator,
         batch = maybe_corrupt(cfg, corrupt_fn, batch)
         anchor = maybe_corrupt(cfg, corrupt_fn, anchor)
         ro = est.round(cfg, loss_fn, state, new_params, old_params, batch,
-                       anchor, keys)
+                       anchor, keys, sampled=sampled)
         updates = dict(ro.updates or {})
         if ro.g_new is not None:
             g = ro.g_new
         else:
-            agg = message_phase(cfg, keys["attack"], keys["agg"], ro.cand)
+            agg = message_phase(cfg, keys["attack"], keys["agg"], ro.cand,
+                                sampled)
             if ro.finalize is not None:
                 g, fin_updates = ro.finalize(agg)
                 updates.update(fin_updates)
             else:
                 g = agg
+        if sampled is not None:
+            updates = carry_unsampled_state(state, updates, sampled,
+                                            cfg.n_workers)
         if not est.update_params_first:
             new_params, new_opt = param_update(cfg, old_params, g,
                                                state["opt_state"])

@@ -43,7 +43,7 @@ class MarinaEstimator(GradientEstimator):
         return message_phase(cfg, k_attack, k_agg, grads), {}
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys):
+              keys, sampled=None):
         from repro_torch.core import wire
 
         n = cfg.n_workers
@@ -51,7 +51,8 @@ class MarinaEstimator(GradientEstimator):
         wkeys = tu.per_worker_keys(keys["grad"], n)
         if c_k:
             loss, grads = stacked_grads(loss_fn, params, anchor, wkeys)
-            g = message_phase(cfg, keys["attack"], keys["agg"], grads)
+            g = message_phase(cfg, keys["attack"], keys["agg"], grads,
+                              sampled)
         else:
             qkeys = tu.per_worker_keys(
                 keys["q"], n, common=cfg.compressor.common_randomness)
@@ -71,7 +72,8 @@ class MarinaEstimator(GradientEstimator):
             else:
                 qs = tu.compress_stacked(cfg.compressor, qkeys, deltas)
                 cand = {k: state["g"][k][None] + qs[k] for k in sorted(qs)}
-            g = message_phase(cfg, keys["attack"], keys["agg"], cand)
+            g = message_phase(cfg, keys["attack"], keys["agg"], cand,
+                              sampled)
         dims = [p.numel() for p in tu.leaves(params)]
         wire_bits = (32.0 * sum(dims) if c_k else wire.tree_wire_bits(
             cfg.compressor, tu.tree_map(lambda p: p[None], params)))
@@ -104,7 +106,7 @@ class ByzEF21Estimator(CompressedUploadBits, GradientEstimator):
         return message_phase(cfg, k_attack, k_agg, g_i), {"worker_g": g_i}
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys):
+              keys, sampled=None):
         from repro_torch.core import wire
 
         n = cfg.n_workers

@@ -1,5 +1,5 @@
 """The kernel aggregation backend, ``agg_mode="pallas"`` (port of the
-unguarded part of ``repro/core/sharded_agg.py``).
+kernel part of ``repro/core/sharded_agg.py``).
 
 Every rule runs on the kernels: mean / cm / tm on the robust-aggregation
 kernel, RFA and Krum through the ``norm_agg`` drivers, whose distances
@@ -16,8 +16,16 @@ the coordinate rules in plain PyTorch, and RFA / Krum on the fused drivers
 when the bucketed rows fit under ``MAX_FUSED_WORKERS``, else on the
 blocked ones. Wire rounds at that size are reconstructed densely first.
 
-The ``all_to_all`` backend, staleness weights, the fault guard and
-telemetry are not ported yet (ROADMAP queue 1, items 7, 8, 10 and 11).
+``valid`` ((n,) bool: the fault guard's finite rows, or the sampled
+cohort under partial participation) switches every rule to its masked
+twin: the kernels select-zero invalid rows in their load, bucketing uses
+``faults.guard.masked_bucket_matrix`` (each bucket renormalized over its
+valid members), and the rules track the (m,) bucket validity ``bvalid``.
+The giant-n tier zeroes the rows before bucketing and hands ``bvalid`` to
+the drivers.
+
+The ``all_to_all`` backend, staleness weights and telemetry are not
+ported yet (ROADMAP queue 1, items 8, 10 and 11).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch import random as R
 from repro_torch.core import aggregators as A
 from repro_torch.core import tree_utils as tu
 from repro_torch.core.aggregators import COORD_KERNEL_RULE, MAX_FUSED_WORKERS
+from repro_torch.faults.guard import masked_bucket_matrix
 from repro_torch.kernels import norm_agg
 from repro_torch.kernels.robust_agg import robust_agg
 
@@ -47,27 +56,35 @@ class AttackCtx:
     stds: object = None
 
 
-def _bucket_operator(agg, key, n, device):
-    if agg.bucket_size > 1 and agg.rule != "mean":
-        perm = R.permutation(key, n)
-        return norm_agg.bucket_matrix(perm, n, agg.bucket_size).to(device)
-    return None
+def _bucket_operator(agg, key, n, device, valid=None):
+    """(W, bvalid): the (nb, n) bucket operator (None without bucketing)
+    and the bucket validity (None unguarded). Under ``valid`` W is the
+    masked operator, or, without bucketing, bvalid is ``valid`` itself."""
+    bucketed = agg.bucket_size > 1 and agg.rule != "mean"
+    if not bucketed:
+        return None, valid
+    perm = R.permutation(key, n).to(device)
+    if valid is None:
+        return norm_agg.bucket_matrix(perm, n, agg.bucket_size), None
+    return masked_bucket_matrix(perm, n, agg.bucket_size, valid)
 
 
-def _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds):
+def _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds, valid=None,
+               bvalid=None):
     """The rule over kernel inputs ``srcs`` (dense segments or WireSrcs):
     one (d_j,) aggregate per input."""
     if agg.rule == "rfa":
         return norm_agg.rfa_segments(
             srcs, w_mat=w_mat, mask=mask, means=means, stds=stds,
-            attack=attack_fn, iters=agg.iters, eps=agg.eps)
+            attack=attack_fn, iters=agg.iters, eps=agg.eps, valid=valid,
+            bvalid=bvalid)
     if agg.rule == "krum":
         return norm_agg.krum_segments(
             srcs, w_mat=w_mat, mask=mask, means=means, stds=stds,
-            attack=attack_fn, n_byz=agg.n_byz)
+            attack=attack_fn, n_byz=agg.n_byz, valid=valid, bvalid=bvalid)
     rule = COORD_KERNEL_RULE[agg.rule]
-    return [robust_agg(src, w_mat, mask, mu, sd, rule=rule, trim=agg.trim,
-                       attack=attack_fn)
+    return [robust_agg(src, w_mat, mask, mu, sd, valid, bvalid, rule=rule,
+                       trim=agg.trim, attack=attack_fn)
             for src, mu, sd in zip(srcs, means, stds)]
 
 
@@ -130,49 +147,65 @@ def _materialize_attack_flat(flats, dtypes, attack_ctx):
     return out
 
 
-def _tree_aggregate_large_n(cfg, key, sent: dict, attack_ctx=None) -> dict:
+def _tree_aggregate_large_n(cfg, key, sent: dict, attack_ctx=None,
+                            valid=None) -> dict:
     """Giant-n tier of ``tree_aggregate_pallas`` (more than
     ``MAX_FUSED_WORKERS`` workers): bucket first, so that no kernel holds
     the whole worker axis, then run the rule on the m bucketed rows of
-    each leaf (module docstring). ``Aggregator.tree`` over the attacked
-    candidates is its reference."""
+    each leaf (module docstring). ``Aggregator.tree`` (``tree_masked``
+    under ``valid``) over the attacked candidates is its reference."""
     agg = cfg.aggregator
     leaves = tu.leaves(sent)
     n = leaves[0].shape[0]
     flats = [a.reshape(n, -1).float() for a in leaves]
     flats = _materialize_attack_flat(flats, [a.dtype for a in leaves],
                                      attack_ctx)
+    if valid is not None:
+        # select-zero, never multiply (0·NaN = NaN)
+        flats = [torch.where(valid[:, None], xf, 0.0) for xf in flats]
+    bvalid = valid
     if agg.bucket_size > 1 and agg.rule != "mean":
         perm = R.permutation(key, n)
-        flats = [A._bucketize_perm(xf, perm, agg.bucket_size) for xf in flats]
+        if valid is None:
+            flats = [A._bucketize_perm(xf, perm, agg.bucket_size)
+                     for xf in flats]
+        else:
+            w_mat, bvalid = masked_bucket_matrix(perm, n, agg.bucket_size,
+                                                 valid)
+            flats = [w_mat @ xf for xf in flats]
     flats = [xf.contiguous() for xf in flats]
     m = flats[0].shape[0]
     if agg.rule in COORD_KERNEL_RULE:
-        outs = [agg._rule(xf) for xf in flats]
+        outs = [agg._rule(xf) if bvalid is None
+                else agg._masked_rule(xf, bvalid) for xf in flats]
     elif agg.rule == "rfa":
         if m <= MAX_FUSED_WORKERS:
-            outs = norm_agg.rfa_segments(flats, iters=agg.iters, eps=agg.eps)
+            outs = norm_agg.rfa_segments(flats, iters=agg.iters, eps=agg.eps,
+                                         bvalid=bvalid)
         else:
             outs = norm_agg.rfa_segments_blocked(flats, iters=agg.iters,
-                                                 eps=agg.eps)
+                                                 eps=agg.eps, bvalid=bvalid)
     elif m <= MAX_FUSED_WORKERS:
-        outs = norm_agg.krum_segments(flats, n_byz=agg.n_byz)
+        outs = norm_agg.krum_segments(flats, n_byz=agg.n_byz, bvalid=bvalid)
     else:
-        outs = norm_agg.krum_segments_blocked(flats, n_byz=agg.n_byz)
+        outs = norm_agg.krum_segments_blocked(flats, n_byz=agg.n_byz,
+                                              bvalid=bvalid)
     return tu.unflatten(sent, [o.reshape(a.shape[1:]).to(a.dtype)
                                for o, a in zip(outs, leaves)])
 
 
-def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None) -> dict:
+def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None,
+                          valid=None) -> dict:
     """Aggregate the stacked candidate tree through the kernels, leaf-wise
     by segment, with one shared bucket operator; more than
-    ``MAX_FUSED_WORKERS`` workers take the giant-n tier."""
+    ``MAX_FUSED_WORKERS`` workers take the giant-n tier. ``valid`` as in
+    the module docstring."""
     agg = cfg.aggregator
     leaves = tu.leaves(sent)
     n = leaves[0].shape[0]
     if n > MAX_FUSED_WORKERS:
-        return _tree_aggregate_large_n(cfg, key, sent, attack_ctx)
-    w_mat = _bucket_operator(agg, key, n, leaves[0].device)
+        return _tree_aggregate_large_n(cfg, key, sent, attack_ctx, valid)
+    w_mat, bvalid = _bucket_operator(agg, key, n, leaves[0].device, valid)
     attack_fn = mask = None
     ctx = None
     if attack_ctx is not None:
@@ -182,7 +215,8 @@ def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None) -> dict:
             None if attack_ctx.means is None else tu.leaves(attack_ctx.means),
             None if attack_ctx.stds is None else tu.leaves(attack_ctx.stds))
     segs, means, stds, splits = _segments(leaves, ctx)
-    outs = _rule_outs(agg, segs, w_mat, attack_fn, mask, means, stds)
+    outs = _rule_outs(agg, segs, w_mat, attack_fn, mask, means, stds, valid,
+                      bvalid)
     tree_out = [None] * len(leaves)
     for out, split in zip(outs, splits):
         for i, off, sz in split:
@@ -191,7 +225,8 @@ def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None) -> dict:
     return tu.unflatten(sent, tree_out)
 
 
-def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None) -> dict:
+def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None,
+                               valid=None) -> dict:
     """Wire twin of ``tree_aggregate_pallas``: each leaf launches the
     kernels on its ``quantize.WireSrc`` (no packing: payloads do not
     concatenate); ``attack_ctx`` carries per-leaf flat stat lists. More
@@ -209,9 +244,10 @@ def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None) -> dict:
                     for name, st, sh in zip(wc.names, stats, wc.shapes)}
             ctx = AttackCtx(ctx.fn, ctx.mask, unflat(ctx.means),
                             unflat(ctx.stds))
-        return _tree_aggregate_large_n(cfg, key, W.reconstruct(wc), ctx)
+        return _tree_aggregate_large_n(cfg, key, W.reconstruct(wc), ctx,
+                                       valid)
     srcs = W.wire_srcs(wc)
-    w_mat = _bucket_operator(agg, key, n, srcs[0].device)
+    w_mat, bvalid = _bucket_operator(agg, key, n, srcs[0].device, valid)
     attack_fn = mask = None
     means = stds = [None] * len(srcs)
     if attack_ctx is not None:
@@ -220,7 +256,8 @@ def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None) -> dict:
             means = list(attack_ctx.means)
         if attack_ctx.stds is not None:
             stds = list(attack_ctx.stds)
-    outs = _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds)
+    outs = _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds, valid,
+                      bvalid)
     return {name: out.reshape(sh).to(dt)
             for name, out, sh, dt in zip(wc.names, outs, wc.shapes,
                                          wc.dtypes)}

@@ -44,21 +44,32 @@ def tree_size(a) -> int:
     return sum(x.numel() for x in leaves(a))
 
 
-def masked_mean_std(xs: dict, good_mask: torch.Tensor):
+def masked_mean_std(xs: dict, good_mask: torch.Tensor,
+                    sanitize: bool = False):
     """Per-coordinate mean/std over the good workers of a stacked tree
-    (leaves (n, ...), good_mask (n,) bool) -> (mean_tree, std_tree)."""
+    (leaves (n, ...), good_mask (n,) bool) -> (mean_tree, std_tree).
+
+    ``sanitize`` (fault guard): masked-out rows are replaced before the
+    weighted sums, since a zero weight does not neutralize a non-finite
+    row (0·NaN = NaN)."""
     g = good_mask.float()
     cnt = torch.clamp(g.sum(), min=1.0)
 
     def mean_leaf(a):
         w = g.reshape((-1,) + (1,) * (a.dim() - 1))
-        return (a.float() * w).sum(0) / cnt
+        af = a.float()
+        if sanitize:
+            af = torch.where(w > 0.0, af, 0.0)
+        return (af * w).sum(0) / cnt
 
     means = tree_map(mean_leaf, xs)
 
     def std_leaf(a, m):
         w = g.reshape((-1,) + (1,) * (a.dim() - 1))
-        var = ((a.float() - m[None]).square() * w).sum(0) / cnt
+        af = a.float()
+        if sanitize:
+            af = torch.where(w > 0.0, af, m[None])
+        var = ((af - m[None]).square() * w).sum(0) / cnt
         return torch.sqrt(torch.clamp(var, min=0.0))
 
     return means, tree_map(std_leaf, xs, means)

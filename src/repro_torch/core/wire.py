@@ -1,5 +1,5 @@
 """The wire protocol layer: compressed payloads from worker to kernel
-(port of ``repro/core/wire.py``, sparse RandK and TopK wire, unguarded).
+(port of ``repro/core/wire.py``, sparse RandK and TopK wire).
 
 Under ``agg_mode="pallas"`` MARINA's VR round and every Byz-EF21 round
 hand the engine a ``WireCandidates`` payload instead of the dense
@@ -16,7 +16,8 @@ candidates never exist in device memory. The base is MARINA's shared g^k
 * ``reconstruct``      — the dense candidate tree (base + decoded).
 * ``wire_stats``       — good-worker mean/std read from the wire with flat
                          scatter-adds, never an (n, d) scatter.
-* ``wire_message_phase`` — attack + aggregation over the wire.
+* ``wire_message_phase`` — attack + aggregation over the wire, with the
+                         fault guard's decode check.
 """
 from __future__ import annotations
 
@@ -156,10 +157,14 @@ def tree_wire_bits(compressor, stacked: dict) -> float:
     return float(total)
 
 
-def wire_stats(wc: WireCandidates, good_mask):
+def wire_stats(wc: WireCandidates, good_mask, sanitize: bool = False):
     """Good-worker per-coordinate (mean, std) of the candidates, as
     per-leaf flat (d_j,) lists, from the sparse wire: a flat scatter-add
-    for Σ w·q and gathered cross-terms for Σ w·(x - m)²."""
+    for Σ w·q and gathered cross-terms for Σ w·(x - m)².
+
+    ``sanitize`` (fault guard): the masked-out rows' values and indices
+    are zeroed first, since a zero weight does not neutralize a NaN value
+    and a garbled index would scatter out of range."""
     g = good_mask.float()
     cnt = torch.clamp(g.sum(), min=1.0)
     w = g[:, None]
@@ -173,6 +178,10 @@ def wire_stats(wc: WireCandidates, good_mask):
         base = None if wc.base is None else wc.base[j]
         vals = p["vals"].float()                          # (n, k)
         idx = p["idx"].long()                             # (n, k)
+        if sanitize:
+            ok = good_mask[:, None]
+            vals = torch.where(ok, vals, 0.0)
+            idx = torch.where(ok, idx, 0)
         fi = idx.reshape(-1)
         zeros = torch.zeros(d, dtype=torch.float32, device=vals.device)
         qsum = zeros.index_add(0, fi, (w * vals).reshape(-1))
@@ -201,15 +210,28 @@ def wire_stats(wc: WireCandidates, good_mask):
 def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
     """Omniscient attack + robust aggregation over a wire payload: the
     kernel-fusable attacks ride into the kernel; other backends
-    reconstruct densely."""
+    reconstruct densely.
+
+    ``cfg.fault_guard`` adds the fail-closed decode guard: rows whose
+    payload does not decode safely (``faults.guard.payload_valid``:
+    non-finite floats, sparse indices outside [0, d)) get zero weight and
+    stay out of the attack's statistics; the kernels select-zero them
+    after reconstruction. Paths that materialize the attacked candidates
+    also reject rows the attack left non-finite."""
     from repro_torch.core import engine
     from repro_torch.core.sharded_agg import AttackCtx, \
         tree_aggregate_pallas_wire
+    from repro_torch.faults import guard as fguard
+    guard = cfg.fault_guard
+    valid = fguard.payload_valid(wc) if guard else None
     if cfg.agg_mode != "pallas":
-        sent = engine.apply_attack(cfg, attack_key, reconstruct(wc))
-        return engine.aggregate(cfg, agg_key, sent)
+        sent = engine.apply_attack(cfg, attack_key, reconstruct(wc),
+                                   stats_valid=valid)
+        if guard:
+            valid = valid & fguard.finite_row_mask(sent)
+        return engine.aggregate(cfg, agg_key, sent, valid=valid)
     if cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF"):
-        return tree_aggregate_pallas_wire(cfg, agg_key, wc)
+        return tree_aggregate_pallas_wire(cfg, agg_key, wc, valid=valid)
     if cfg.attack.coord_apply is None:
         raise NotImplementedError(
             f"attack {cfg.attack.name!r} over the wire is not ported yet "
@@ -217,9 +239,11 @@ def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
     mask = cfg.byz_mask(wc.payloads[0]["vals"].device)
     means = stds = None
     if cfg.attack.needs_mean or cfg.attack.needs_std:
-        means, stds = wire_stats(wc, ~mask)
+        good = ~mask if valid is None else ~mask & valid
+        means, stds = wire_stats(wc, good, sanitize=guard)
         if not cfg.attack.needs_std:
             stds = None
     ctx = AttackCtx(fn=cfg.attack.coord_apply, mask=mask, means=means,
                     stds=stds)
-    return tree_aggregate_pallas_wire(cfg, agg_key, wc, attack_ctx=ctx)
+    return tree_aggregate_pallas_wire(cfg, agg_key, wc, attack_ctx=ctx,
+                                      valid=valid)

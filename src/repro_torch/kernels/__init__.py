@@ -16,7 +16,10 @@
   ``rfa_agg``, ``krum_agg``, ``wire_agg``, ``block_quantize``) and the
   oracles of ``ref``, the plain reference versions.
 
-The fused kernels share one block load, ``csrc/agg_prologue.cuh``; all
+The fused kernels share one block load, ``csrc/agg_prologue.cuh``, which
+also takes the fault guard's (and partial participation's) ``valid``
+select; ``robust_agg`` has the masked coordinate rule beside the plain
+ones, and the drivers take the bucket validity ``bvalid``. All
 are built at first use by ``_build``; ``_launch`` holds what their wrappers
 share. Every kernel has a plain PyTorch version beside it, taken for CPU
 tensors only; a CUDA tensor launches the kernel or raises.

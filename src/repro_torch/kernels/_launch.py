@@ -14,7 +14,7 @@ from repro_torch.kernels import quantize
 
 SRC_ARGTYPES = ([ctypes.c_void_p] * 4
                 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                + [ctypes.c_void_p] * 3
+                + [ctypes.c_void_p] * 4
                 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                    ctypes.c_longlong])
 
@@ -43,10 +43,19 @@ def check(who, name, t, device, dtype, shape) -> int:
     return t.data_ptr()
 
 
-def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile):
+def as_float_mask(m):
+    """A bool mask as the kernels read it, float32 (> 0 is set); other
+    dtypes pass through to ``check``, which refuses what is not float32."""
+    return m.float() if m.dtype == torch.bool else m
+
+
+def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
+             valid=None):
     """(args, keep): the ``SRC_PARAMS`` of a launch on the dense (n, d)
     float32 stack or sparse ``quantize.WireSrc`` ``x``, and the tensors
-    made here that must stay alive until the launch is enqueued."""
+    made here that must stay alive until the launch is enqueued. ``valid``
+    (fault guard) is the optional (n,) row-validity mask, checked like
+    ``mask``."""
     if not 1 <= n <= MAX_FUSED_WORKERS:
         raise ValueError(f"{who} kernel takes 1..{MAX_FUSED_WORKERS} "
                          f"workers, got {n}")
@@ -79,16 +88,21 @@ def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile):
     if code:
         if mask is None:
             raise ValueError(f"{who}: an attack needs the byzantine mask")
-        if mask.dtype == torch.bool:
-            mask = mask.float()
-            keep.append(mask)
+        mask = as_float_mask(mask)
+        keep.append(mask)
         mask_ptr = check(who, "mask", mask, device, f32, (n,))
         if attack.kind in ("ALIE", "IPM"):
             mean_ptr = check(who, "good_mean", good_mean, device, f32, (d,))
         if attack.kind == "ALIE":
             std_ptr = check(who, "good_std", good_std, device, f32, (d,))
-    args = [x_ptr, vals, idx, starts, k, base, base_rows, mask_ptr, mean_ptr,
-            std_ptr, code, float(attack.param) if code else 0.0, n, d]
+    valid_ptr = None
+    if valid is not None:
+        valid = as_float_mask(valid)
+        keep.append(valid)
+        valid_ptr = check(who, "valid", valid, device, f32, (n,))
+    args = [x_ptr, vals, idx, starts, k, base, base_rows, mask_ptr,
+            valid_ptr, mean_ptr, std_ptr, code,
+            float(attack.param) if code else 0.0, n, d]
     return args, keep
 
 

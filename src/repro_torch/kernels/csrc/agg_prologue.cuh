@@ -7,10 +7,13 @@
 // n worker rows in shared memory, from the dense float32 stack or from the
 // sparse RandK wire payload plus a base of 0, 1 or n rows; replaces the
 // byzantine rows with the omniscient BF / ALIE / IPM value computed from the
-// good workers' per-coordinate mean / std; and, when a bucket operator is
-// given, forms xb = W x with the (m, n) Alg. 2 operator. Neither the
-// attacked stack nor the bucketed one (nor, on the wire, the dense
-// candidates) is ever written to device memory.
+// good workers' per-coordinate mean / std; under the fault guard (or partial
+// participation) zeroes the rows whose `valid` entry is not > 0, with a
+// select (0 * NaN would be NaN), after the attack and before W, as the
+// reference's _prologue orders them, so an attacked row that is invalid
+// stays zero; and, when a bucket operator is given, forms xb = W x with the
+// (m, n) Alg. 2 operator. Neither the attacked stack nor the bucketed one
+// (nor, on the wire, the dense candidates) is ever written to device memory.
 //
 // Arithmetic follows the reference's compiled float32 code with explicitly
 // rounded intrinsics, so the compiler can neither fuse nor reorder it: the
@@ -32,6 +35,7 @@ struct Src {
   const int* starts;    // sparse (n, n_tiles + 1) row pointers per tile
   const float* base;    // (base_rows, d) or null
   const float* mask;    // (n,) byzantine rows > 0, or null
+  const float* valid;   // (n,) rows > 0 are valid (fault guard), or null
   const float* mean;    // (d,) or null
   const float* stdv;    // (d,) or null
   long long d;
@@ -44,30 +48,30 @@ struct Src {
 #define SRC_PARAMS                                                          \
   const float *x, const float *vals, const int *idx, const int *starts,     \
       int k, const float *base, int base_rows, const float *mask,           \
-      const float *mean, const float *stdv, int attack, float attack_param, \
-      int n, long long d
+      const float *valid, const float *mean, const float *stdv, int attack, \
+      float attack_param, int n, long long d
 #define SRC_ARGS \
-  x, vals, idx, starts, k, base, base_rows, mask, mean, stdv, attack, \
+  x, vals, idx, starts, k, base, base_rows, mask, valid, mean, stdv, attack, \
       attack_param, n, d
 
 inline Src make_src(SRC_PARAMS) {
   Src a;
   a.x = x; a.vals = vals; a.idx = idx; a.starts = starts; a.base = base;
-  a.mask = mask; a.mean = mean; a.stdv = stdv;
+  a.mask = mask; a.valid = valid; a.mean = mean; a.stdv = stdv;
   a.d = d; a.n = n; a.k = k; a.n_tiles = (int)((d + TILE - 1) / TILE);
   a.base_rows = base_rows; a.attack = attack; a.attack_param = attack_param;
   return a;
 }
 
 // Shared-memory carve of the load: the attacked stack x (n, TILE), the
-// bucketed stack b (m, TILE) and W (m, n) when bucketed, the mask (n,);
-// `rest` is where a kernel's own scratch begins.
+// bucketed stack b (m, TILE) and W (m, n) when bucketed, the byzantine mask
+// (n,), the validity (n,); `rest` is where a kernel's own scratch begins.
 struct Smem {
-  float *x, *b, *w, *mask, *rest;
+  float *x, *b, *w, *mask, *valid, *rest;
 };
 
 inline size_t prologue_words(int n, int m, bool bucketed) {
-  return (size_t)n * TILE + n
+  return (size_t)n * TILE + 2 * (size_t)n
       + (bucketed ? (size_t)m * TILE + (size_t)m * n : 0);
 }
 
@@ -78,25 +82,34 @@ __device__ __forceinline__ Smem carve(float* smem, int n, int m,
   s.b = s.x + n * TILE;
   s.w = s.b + (bucketed ? m * TILE : 0);
   s.mask = s.w + (bucketed ? m * n : 0);
-  s.rest = s.mask + n;
+  s.valid = s.mask + n;
+  s.rest = s.valid + n;
   return s;
 }
 
-// Copy the byzantine mask and, when given, W into shared memory. Readers
-// wait for the next barrier.
+// Copy the byzantine mask, the validity (1 where none is given) and, when
+// given, W into shared memory. Readers wait for the next barrier.
 __device__ __forceinline__ void stage_consts(const Src& a,
                                              const float* w_mat, int m,
                                              const Smem& s) {
   const int tid = threadIdx.x;
   if (w_mat)
     for (int q = tid; q < m * a.n; q += TILE) s.w[q] = w_mat[q];
-  for (int q = tid; q < a.n; q += TILE) s.mask[q] = a.mask ? a.mask[q] : 0.f;
+  for (int q = tid; q < a.n; q += TILE) {
+    s.mask[q] = a.mask ? a.mask[q] : 0.f;
+    s.valid[q] = a.valid ? a.valid[q] : 1.f;
+  }
 }
 
 // Sparse wire: zero-fill the (n, TILE) tile `tile`, then scatter its
 // payload into it, one warp per worker row (RandK indices of a worker are
-// distinct, so no atomics). Ends without a barrier.
+// distinct, so no atomics). Invalid rows are skipped (the load zeroes
+// them): a garbled payload's indices are neither ascending nor in range,
+// and an index outside the tile is dropped all the same, as the reference's
+// sentinel guard drops it. Reads s_valid, so staged constants must be
+// visible. Ends without a barrier.
 __device__ __forceinline__ void scatter_tile(const Src& a, int tile,
+                                             const float* s_valid,
                                              float* s_x) {
   const int tid = threadIdx.x;
   const long long lo = (long long)tile * TILE;
@@ -104,22 +117,26 @@ __device__ __forceinline__ void scatter_tile(const Src& a, int tile,
   __syncthreads();
   const int warp = tid >> 5, lane = tid & 31;
   for (int i = warp; i < a.n; i += TILE / 32) {
+    if (!(s_valid[i] > 0.f)) continue;
     const int* st = a.starts + (long long)i * (a.n_tiles + 1) + tile;
     const int s = st[0], e = st[1];
     const float* v = a.vals + (long long)i * a.k;
     const int* ix = a.idx + (long long)i * a.k;
-    for (int p = s + lane; p < e; p += 32)
-      s_x[i * TILE + (int)(ix[p] - lo)] = v[p];
+    for (int p = s + lane; p < e; p += 32) {
+      const long long col = (long long)ix[p] - lo;
+      if (col >= 0 && col < TILE) s_x[i * TILE + (int)col] = v[p];
+    }
   }
 }
 
 // Column c < d of the attacked stack into s_x[:, tid]: the dense rows, or
 // the scattered payload plus the base; byzantine rows take the forged value
-// (BF negates the row's own value).
+// (BF negates the row's own value); then invalid rows become +0.
 template <bool SPARSE>
 __device__ __forceinline__ void load_column(const Src& a, long long c,
-                                            const float* s_mask,
-                                            float* s_x) {
+                                            const Smem& s) {
+  const float* s_mask = s.mask;
+  float* s_x = s.x;
   const int tid = threadIdx.x;
   float forged = 0.f;     // the ALIE / IPM value of this column
   if (a.attack == ATTACK_ALIE)
@@ -137,6 +154,7 @@ __device__ __forceinline__ void load_column(const Src& a, long long c,
     }
     if (a.attack != ATTACK_NONE && s_mask[i] > 0.f)
       v = a.attack == ATTACK_BF ? -v : forged;
+    if (!(s.valid[i] > 0.f)) v = 0.f;
     s_x[i * TILE + tid] = v;
   }
 }
@@ -154,6 +172,29 @@ __device__ __forceinline__ void bucket_column(const float* s_w,
   }
 }
 
+// XLA on the CPU rewrites a reduction over more rows than this into windows
+// of this many rows (aggregators.xla_sum_rows).
+constexpr int XLA_WINDOW = 32;
+
+// sum_i w[i] v[i * TILE] over `cnt` <= 64 rows of one column, as the
+// reference's compiled kernel body takes sum(x * w, axis=0) on the CPU: up
+// to 32 rows one fused multiply-add per row in row order; above, the rounded
+// products summed in two windows cut at 32 - (64 - cnt) / 2, each in order,
+// then the two window sums added.
+__device__ __forceinline__ float weighted_col(const float* v, const float* w,
+                                              int cnt) {
+  float lo = 0.f, hi = 0.f;
+  if (cnt <= XLA_WINDOW) {
+    for (int i = 0; i < cnt; ++i) lo = __fmaf_rn(v[i * TILE], w[i], lo);
+    return lo;
+  }
+  const int cut = XLA_WINDOW - (2 * XLA_WINDOW - cnt) / 2;
+  for (int i = 0; i < cut; ++i) lo = __fadd_rn(lo, __fmul_rn(v[i * TILE], w[i]));
+  for (int i = cut; i < cnt; ++i)
+    hi = __fadd_rn(hi, __fmul_rn(v[i * TILE], w[i]));
+  return __fadd_rn(lo, hi);
+}
+
 // Tile `tile` into shared memory, for a block that loops over tiles:
 // s.x the attacked rows and s.b = W s.x when bucketed; columns past d are
 // zeros, which add nothing to a Gram or a sum of squares. Returns the rows
@@ -169,11 +210,11 @@ __device__ __forceinline__ const float* load_tile(const Src& a,
   const long long c = (long long)tile * TILE + tid;
   __syncthreads();
   if (SPARSE) {
-    scatter_tile(a, tile, s.x);
+    scatter_tile(a, tile, s.valid, s.x);
     __syncthreads();
   }
   if (c < a.d) {
-    load_column<SPARSE>(a, c, s.mask, s.x);
+    load_column<SPARSE>(a, c, s);
     if (bucketed) bucket_column(s.w, s.x, a.n, m, s.b);
   } else {
     for (int i = 0; i < a.n; ++i) s.x[i * TILE + tid] = 0.f;

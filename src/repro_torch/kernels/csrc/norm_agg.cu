@@ -6,9 +6,11 @@
 //   rfa_iter      z = w^T xb and sq_b = |xb_b - z|^2 (one Weiszfeld pass)
 //   weighted_sum  sum_i w_i sent_i, bucketing folded into w
 // Each takes the dense (n, d) float32 stack or the sparse RandK wire, with
-// the fused BF / ALIE / IPM attack, through the block load of
+// the fused BF / ALIE / IPM attack and, under the fault guard or partial
+// participation, the (n,) validity select, through the block load of
 // agg_prologue.cuh, so neither the attacked nor the bucketed stack is
-// written to device memory.
+// written to device memory. The masked cases change the load alone: the
+// drivers apply the bucket validity to the weights and the scores.
 //
 // Bound: device-memory bytes. Each pass reads the stack (or the wire
 // payload) and mean / std once; the Gram adds m(m+1) flops per column,
@@ -28,9 +30,8 @@
 //     `lanes` threads (1 to 32, as many as 128 threads allow) and reduced
 //     with a warp shuffle; lanes start at rotated columns, so the threads
 //     of a warp hit distinct banks.
-//   rfa_iter: one thread per column computes z_c (one fused multiply-add
-//     per row, in row order, as the reference's compiled code) and writes
-//     it, then adds (xb_bc - z_c)^2 into its own column of an (m, TILE)
+//   rfa_iter: one thread per column computes z_c (in the reference's
+//     compiled order, weighted_col) and writes it, then adds (xb_bc - z_c)^2 into its own column of an (m, TILE)
 //     accumulator; at the end each row of it is summed by one warp.
 //   weighted_sum: one thread per column, one block per tile; no W and no
 //     reduction across blocks.
@@ -132,9 +133,7 @@ __global__ void __launch_bounds__(TILE) rfa_iter_partial(
     const float* rows = load_tile<SPARSE>(a, s, bucketed, m, tile);
     const long long c = (long long)tile * TILE + tid;
     if (c >= a.d) continue;
-    float zc = 0.f;
-    for (int b = 0; b < m; ++b)
-      zc = __fmaf_rn(rows[b * TILE + tid], s_wr[b], zc);
+    const float zc = weighted_col(rows + tid, s_wr, m);
     z[c] = zc;
     for (int b = 0; b < m; ++b) {
       const float e = __fsub_rn(rows[b * TILE + tid], zc);
@@ -173,14 +172,11 @@ __global__ void __launch_bounds__(TILE) weighted_sum_kernel(
   const long long c = (long long)blockIdx.x * TILE + tid;
   stage_consts(a, nullptr, a.n, s);
   for (int q = tid; q < a.n; q += TILE) s_wr[q] = w[q];
-  if (SPARSE) scatter_tile(a, blockIdx.x, s.x);
+  if (SPARSE) scatter_tile(a, blockIdx.x, s.valid, s.x);
   __syncthreads();
   if (c >= a.d) return;
-  load_column<SPARSE>(a, c, s.mask, s.x);
-  float acc = 0.f;
-  for (int i = 0; i < a.n; ++i)
-    acc = __fmaf_rn(s.x[i * TILE + tid], s_wr[i], acc);
-  out[c] = acc;
+  load_column<SPARSE>(a, c, s);
+  out[c] = weighted_col(s.x + tid, s_wr, a.n);
 }
 
 static size_t gram_smem(int n, int m, bool bucketed) {

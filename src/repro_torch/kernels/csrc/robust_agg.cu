@@ -11,8 +11,21 @@
 //             0, 1 or n rows;
 //   attack    the omniscient BF / ALIE / IPM attack replaces the byzantine
 //             rows, from the good workers' per-coordinate mean / std;
-//   bucket    xb = W x with the (m, n) Alg. 2 bucket operator;
-//   rule      mean, median or trimmed mean over the m rows of each column.
+//   guard     under the fault guard or partial participation, rows whose
+//             (n,) `valid` entry is not > 0 become zeros;
+//   bucket    xb = W x with the (m, n) Alg. 2 bucket operator (the masked
+//             operator renormalizes each bucket over its valid members);
+//   rule      mean, median or trimmed mean over the m rows of each column,
+//             or, given the (m,) bucket validity `bvalid`, the masked rule
+//             (the twin of robust_agg.py::_masked_coord_rule_block): with
+//             c = the valid rows, counted in the block from `bvalid`, the
+//             mean divides the sum of all m rows (invalid ones are zero) by
+//             max(c, 1), a true division by a count known at run time; the
+//             median and the trimmed mean fill invalid rows with +inf, sort,
+//             and take ranks (c-1)/2 and c/2, or sum ranks [t, c - t) with
+//             t = min(trim, (c-1)/2), the others as zeros, in XLA's order,
+//             divided by max(c - 2t, 1). A rank is read as the reference's
+//             where-sum reads it, 0 + v, so -0.0 comes out +0.0.
 //
 // Bound: device-memory bytes. Each column's work is O(m^2) compares on
 // values already on chip, so the least time is the bytes moved (the stack
@@ -37,38 +50,87 @@
 
 enum { RULE_MEAN = 0, RULE_MEDIAN = 1, RULE_TRIMMED = 2 };
 
-constexpr int XLA_WINDOW = 32;
-
 // Sum of the `cnt` rows v[0], v[TILE], ... of one column (cnt <= 64) in the
 // order the reference's compiled float32 code sums rows on the CPU
 // (aggregators.xla_sum_rows): in order up to 32 rows; above, two windows
 // cut at 32 - (64 - cnt) / 2 (the zero rows XLA pads with on both sides
 // add nothing), each summed in order, then the two window sums added.
-__device__ __forceinline__ float row_sum(const float* v, int cnt) {
+// Rows outside [keep_lo, keep_hi) add as zeros (the masked trimmed mean's
+// where-sum).
+__device__ __forceinline__ float row_sum(const float* v, int cnt,
+                                         int keep_lo = 0,
+                                         int keep_hi = 1 << 30) {
   const int cut = cnt <= XLA_WINDOW ? cnt
                                     : XLA_WINDOW - (2 * XLA_WINDOW - cnt) / 2;
   float lo = 0.f, hi = 0.f;
-  for (int i = 0; i < cut; ++i) lo = __fadd_rn(lo, v[i * TILE]);
+  for (int i = 0; i < cut; ++i)
+    lo = __fadd_rn(lo, i >= keep_lo && i < keep_hi ? v[i * TILE] : 0.f);
   if (cut == cnt) return lo;
-  for (int i = cut; i < cnt; ++i) hi = __fadd_rn(hi, v[i * TILE]);
+  for (int i = cut; i < cnt; ++i)
+    hi = __fadd_rn(hi, i >= keep_lo && i < keep_hi ? v[i * TILE] : 0.f);
   return __fadd_rn(lo, hi);
+}
+
+// Rank r of a sorted column as the reference's where-sum gathers it: 0 + v
+// where 0 <= r < m (so -0.0 reads +0.0), else 0.
+__device__ __forceinline__ float rank_at(const float* col, int r, int m) {
+  return r >= 0 && r < m ? __fadd_rn(0.f, col[r * TILE]) : 0.f;
+}
+
+// floor(a / 2) for a >= -1 (C division truncates toward zero).
+__device__ __forceinline__ int half_floor(int a) {
+  return a < 0 ? -1 : a / 2;
+}
+
+// Insertion sort of one column of `m` rows.
+__device__ __forceinline__ void sort_column(float* col, int m) {
+  for (int i = 1; i < m; ++i) {
+    const float v = col[i * TILE];
+    int j = i - 1;
+    while (j >= 0 && col[j * TILE] > v) {
+      col[(j + 1) * TILE] = col[j * TILE];
+      --j;
+    }
+    col[(j + 1) * TILE] = v;
+  }
+}
+
+// The masked rule over the m rows of one column (`col` = rows + tid), with
+// c valid rows marked in s_bv.
+__device__ __forceinline__ float masked_rule(float* col, const float* s_bv,
+                                             int m, int c, int rule,
+                                             int trim) {
+  if (rule == RULE_MEAN)
+    return __fdiv_rn(row_sum(col, m), (float)max(c, 1));
+  for (int b = 0; b < m; ++b)
+    if (!(s_bv[b] > 0.f)) col[b * TILE] = __int_as_float(0x7f800000);
+  sort_column(col, m);
+  if (rule == RULE_MEDIAN)
+    return __fmul_rn(0.5f, __fadd_rn(rank_at(col, half_floor(c - 1), m),
+                                     rank_at(col, c / 2, m)));
+  const int t = min(trim, half_floor(c - 1));
+  return __fdiv_rn(row_sum(col, m, t, c - t), (float)max(c - 2 * t, 1));
 }
 
 template <bool SPARSE>
 __global__ void __launch_bounds__(TILE) robust_agg_kernel(
-    Src a, const float* w_mat, int m, int rule, int trim, float* out) {
+    Src a, const float* w_mat, int m, const float* bvalid, int rule,
+    int trim, float* out) {
   extern __shared__ float smem[];
   const bool bucketed = w_mat != nullptr;
   const Smem s = carve(smem, a.n, m, bucketed);
+  float* s_bv = s.rest;                     // (m,) bucket validity
   const int tid = threadIdx.x;
   const long long c = (long long)blockIdx.x * TILE + tid;
 
   stage_consts(a, w_mat, m, s);
-  if (SPARSE) scatter_tile(a, blockIdx.x, s.x);
+  if (bvalid)
+    for (int q = tid; q < m; q += TILE) s_bv[q] = bvalid[q];
+  if (SPARSE) scatter_tile(a, blockIdx.x, s.valid, s.x);
   __syncthreads();
   if (c >= a.d) return;   // no barrier below: the rest is per column
 
-  load_column<SPARSE>(a, c, s.mask, s.x);
+  load_column<SPARSE>(a, c, s);
   float* rows = s.x;
   if (bucketed) {
     bucket_column(s.w, s.x, a.n, m, s.b);
@@ -76,18 +138,14 @@ __global__ void __launch_bounds__(TILE) robust_agg_kernel(
   }
 
   float r;
-  if (rule == RULE_MEAN) {
+  if (bvalid) {
+    int valid_rows = 0;
+    for (int b = 0; b < m; ++b) valid_rows += s_bv[b] > 0.f;
+    r = masked_rule(rows + tid, s_bv, m, valid_rows, rule, trim);
+  } else if (rule == RULE_MEAN) {
     r = __fmul_rn(row_sum(rows + tid, m), __frcp_rn((float)m));
   } else {
-    for (int i = 1; i < m; ++i) {        // insertion sort of the column
-      const float v = rows[i * TILE + tid];
-      int j = i - 1;
-      while (j >= 0 && rows[j * TILE + tid] > v) {
-        rows[(j + 1) * TILE + tid] = rows[j * TILE + tid];
-        --j;
-      }
-      rows[(j + 1) * TILE + tid] = v;
-    }
+    sort_column(rows + tid, m);
     if (rule == RULE_MEDIAN) {
       const int h = m / 2;
       r = (m & 1) ? rows[h * TILE + tid]
@@ -106,22 +164,26 @@ extern "C" int robust_agg_tile() { return TILE; }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // Dense when `vals` is null; sparse wire otherwise. `m` is W's row count
-// (ignored without W).
+// (ignored without W); `bvalid` the (m,) bucket validity of the masked
+// rule, or null for the plain rule.
 extern "C" int robust_agg_launch(SRC_PARAMS, const float* w_mat, int m,
-                                 int rule, int trim, float* out,
-                                 void* stream) {
+                                 const float* bvalid, int rule, int trim,
+                                 float* out, void* stream) {
   const Src a = make_src(SRC_ARGS);
   if (!w_mat) m = n;
-  const size_t smem = prologue_words(n, m, w_mat != nullptr) * sizeof(float);
+  const size_t smem =
+      (prologue_words(n, m, w_mat != nullptr) + m) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (vals) {
     if ((err = allow_smem(robust_agg_kernel<true>, smem))) return (int)err;
-    robust_agg_kernel<true><<<a.n_tiles, TILE, smem, st>>>(a, w_mat, m, rule,
+    robust_agg_kernel<true><<<a.n_tiles, TILE, smem, st>>>(a, w_mat, m,
+                                                           bvalid, rule,
                                                            trim, out);
   } else {
     if ((err = allow_smem(robust_agg_kernel<false>, smem))) return (int)err;
-    robust_agg_kernel<false><<<a.n_tiles, TILE, smem, st>>>(a, w_mat, m, rule,
+    robust_agg_kernel<false><<<a.n_tiles, TILE, smem, st>>>(a, w_mat, m,
+                                                            bvalid, rule,
                                                             trim, out);
   }
   return (int)cudaGetLastError();

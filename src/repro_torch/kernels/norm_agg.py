@@ -27,8 +27,15 @@ whose attack and bucketing are already applied:
 * ``weighted_sum_blocked`` — Σ_i w_i·x_i.
 
 Their kernels are in ``csrc/norm_agg_blocked.cu``; ``rfa_segments_blocked``
-and ``krum_segments_blocked`` drive them. Not ported yet: the fault-guard
-masks and the telemetry returns (ROADMAP queue 1, items 7 and 8).
+and ``krum_segments_blocked`` drive them.
+
+Under the fault guard or partial participation the fused kernels take a
+(n,) ``valid`` mask, which their load applies after the attack and before
+W (invalid rows become zeros), and every driver takes the (m,) bucket
+validity ``bvalid``, which it applies to the weights and the scores; the
+blocked kernels take no mask (the giant-n tier zeroes the rows before
+bucketing). Not ported yet: the telemetry returns (ROADMAP queue 1,
+item 8).
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregators import (MAX_FUSED_WORKERS, weighted_rows,
+from repro_torch.core.aggregators import (MAX_FUSED_WORKERS,
+                                          XLA_REDUCE_WINDOW, weighted_rows,
                                           xla_sum_rows)
 from repro_torch.kernels import _build, _launch, quantize
 
@@ -81,16 +89,21 @@ def stack(x):
 
 
 def prologue(x, w_mat=None, mask=None, good_mean=None, good_std=None,
-             attack=None):
+             attack=None, valid=None):
     """Plain form of the kernel prologue on a (n, d) float32 stack: the
     fused attack replaces the masked rows (values round-trip through the
-    float32 candidate dtype, a no-op here), then xb = W @ x."""
+    float32 candidate dtype, a no-op here), then the fault guard's
+    ``valid`` select zeroes the invalid rows (a select, never a multiply:
+    0·NaN = NaN; an attacked row that is invalid stays zero), then
+    xb = W @ x."""
     if attack is not None and mask is not None:
         d = x.shape[1]
         mu = None if good_mean is None else good_mean.reshape(1, d).float()
         sd = None if good_std is None else good_std.reshape(1, d).float()
         v = attack(x, mu, sd)
         x = torch.where(mask.reshape(-1, 1) > 0, v, x)
+    if valid is not None:
+        x = torch.where(valid.reshape(-1, 1) > 0, x, 0.0)
     if w_mat is not None:
         x = w_mat @ x
     return x
@@ -100,77 +113,93 @@ def prologue(x, w_mat=None, mask=None, good_mean=None, good_std=None,
 # plain versions (the op order of the reference's kernel bodies)
 # ---------------------------------------------------------------------------
 
+def kernel_row_sum(w, x):
+    """Σ_i w_i·x_i over the rows of a (m, d) block as the reference's
+    compiled kernel body takes ``jnp.sum(x * w, axis=0)`` on the CPU: up to
+    32 rows, one fused multiply-add per row in row order
+    (``weighted_rows``); above, the rounded products summed in XLA's
+    windows (``xla_sum_rows``)."""
+    if x.shape[0] <= XLA_REDUCE_WINDOW:
+        return weighted_rows(w, x)
+    return xla_sum_rows(list((x * w.float()[:, None]).unbind(0)))
+
+
 def pair_gram_plain(x, w_mat=None, mask=None, good_mean=None, good_std=None,
-                    *, attack=None):
+                    valid=None, *, attack=None):
     """(m, m) Gram xb @ xbᵀ of the attacked, bucketed stack: its upper
     triangle, mirrored as the kernel mirrors it, so that G is symmetric
     bit for bit and Krum's tied scores (a mutual nearest pair) tie
     exactly."""
-    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack)
+    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack, valid)
     g = xb @ xb.T
     return torch.triu(g) + torch.triu(g, 1).T
 
 
 def rfa_iter_plain(x, w, w_mat=None, mask=None, good_mean=None,
-                   good_std=None, *, attack=None):
-    """(z (d,), sq (m,)): z = Σ_b w_b·xb_b, one fused multiply-add per row
-    in row order; sq_b = ‖xb_b − z‖²."""
-    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack)
-    z = weighted_rows(w, xb)
+                   good_std=None, valid=None, *, attack=None):
+    """(z (d,), sq (m,)): z = Σ_b w_b·xb_b in the kernel body's order
+    (``kernel_row_sum``); sq_b = ‖xb_b − z‖²."""
+    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack, valid)
+    z = kernel_row_sum(w, xb)
     diff = xb - z
     return z, (diff * diff).sum(1)
 
 
-def weighted_sum_plain(x, w, mask=None, good_mean=None, good_std=None, *,
-                       attack=None):
-    """Σ_i w_i·sent_i over the attacked rows, as ``rfa_iter_plain``'s z."""
-    return weighted_rows(w, prologue(stack(x), None, mask, good_mean,
-                                     good_std, attack))
+def weighted_sum_plain(x, w, mask=None, good_mean=None, good_std=None,
+                       valid=None, *, attack=None):
+    """Σ_i w_i·sent_i over the attacked (and guarded) rows, as
+    ``rfa_iter_plain``'s z."""
+    return kernel_row_sum(w, prologue(stack(x), None, mask, good_mean,
+                                      good_std, attack, valid))
 
 
 # ---------------------------------------------------------------------------
 # kernel entry points
 # ---------------------------------------------------------------------------
 
-def pair_gram(x, w_mat=None, mask=None, good_mean=None, good_std=None, *,
-              attack=None):
+def pair_gram(x, w_mat=None, mask=None, good_mean=None, good_std=None,
+              valid=None, *, attack=None):
     """(n, d) stack or WireSrc -> (m, m) float32 Gram of the attacked,
-    bucketed stack (m = W's rows, or n). CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    guarded, bucketed stack (m = W's rows, or n). CPU tensors take the
+    plain version; CUDA tensors the kernel."""
     pair_gram.calls += 1
     if _launch.on_cpu("pair_gram", x.device):
-        return pair_gram_plain(x, w_mat, mask, good_mean, good_std,
+        return pair_gram_plain(x, w_mat, mask, good_mean, good_std, valid,
                                attack=attack)
-    return _launch_pair_gram(x, w_mat, mask, good_mean, good_std, attack)
+    return _launch_pair_gram(x, w_mat, mask, good_mean, good_std, valid,
+                             attack)
 
 
-def rfa_iter(x, w, w_mat=None, mask=None, good_mean=None, good_std=None, *,
-             attack=None):
+def rfa_iter(x, w, w_mat=None, mask=None, good_mean=None, good_std=None,
+             valid=None, *, attack=None):
     """(n, d) stack or WireSrc, weights w (m,) -> (z (d,), sq (m,))
     float32, as ``rfa_iter_plain``. CPU tensors take the plain version;
     CUDA tensors the kernel."""
     rfa_iter.calls += 1
     if _launch.on_cpu("rfa_iter", x.device):
-        return rfa_iter_plain(x, w, w_mat, mask, good_mean, good_std,
+        return rfa_iter_plain(x, w, w_mat, mask, good_mean, good_std, valid,
                               attack=attack)
-    return _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, attack)
+    return _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid,
+                            attack)
 
 
-def weighted_sum(x, w, mask=None, good_mean=None, good_std=None, *,
-                 attack=None):
+def weighted_sum(x, w, mask=None, good_mean=None, good_std=None,
+                 valid=None, *, attack=None):
     """(n, d) stack or WireSrc, weights w (n,) -> (d,) float32
     Σ_i w_i·sent_i. CPU tensors take the plain version; CUDA tensors the
     kernel."""
     weighted_sum.calls += 1
     if _launch.on_cpu("weighted_sum", x.device):
-        return weighted_sum_plain(x, w, mask, good_mean, good_std,
+        return weighted_sum_plain(x, w, mask, good_mean, good_std, valid,
                                   attack=attack)
-    return _launch_weighted_sum(x, w, mask, good_mean, good_std, attack)
+    return _launch_weighted_sum(x, w, mask, good_mean, good_std, valid,
+                                attack)
 
 
-# calls: every call, plain or kernel; launches: kernel launches alone
+# calls: every call, plain or kernel; launches: kernel launches alone;
+# masked_launches: of those, the launches with a validity mask
 for _fn in (pair_gram, rfa_iter, weighted_sum):
-    _fn.calls = _fn.launches = 0
+    _fn.calls = _fn.launches = _fn.masked_launches = 0
 
 _KERNEL = {"pair_gram": 0, "rfa_iter": 1}    # norm_agg_blocks selector
 _RESIDENT: dict = {}
@@ -209,12 +238,13 @@ def _blocks(lib, who, x, n, m, bucketed, d):
     return min(_RESIDENT[key], -(-d // lib.norm_agg_tile()))
 
 
-def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, attack):
+def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, valid, attack):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
     args, keep = _launch.src_args("pair_gram", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.norm_agg_tile())
+                                  good_std, attack, lib.norm_agg_tile(),
+                                  valid)
     m, w_ptr = _launch.bucket_args("pair_gram", w_mat, n, dev)
     blocks = _blocks(lib, "pair_gram", x, n, m, w_mat is not None, d)
     part = torch.empty(blocks, m * (m + 1) // 2, dtype=torch.float32,
@@ -224,15 +254,17 @@ def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, attack):
                                out.data_ptr(), _launch.stream(dev))
     _launch.raise_on("pair_gram", err)
     pair_gram.launches += 1
+    pair_gram.masked_launches += int(valid is not None)
     return out
 
 
-def _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, attack):
+def _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid, attack):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
     args, keep = _launch.src_args("rfa_iter", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.norm_agg_tile())
+                                  good_std, attack, lib.norm_agg_tile(),
+                                  valid)
     m, w_ptr = _launch.bucket_args("rfa_iter", w_mat, n, dev)
     wr = _launch.check("rfa_iter", "w", w, dev, torch.float32, (m,))
     blocks = _blocks(lib, "rfa_iter", x, n, m, w_mat is not None, d)
@@ -244,21 +276,24 @@ def _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, attack):
                               _launch.stream(dev))
     _launch.raise_on("rfa_iter", err)
     rfa_iter.launches += 1
+    rfa_iter.masked_launches += int(valid is not None)
     return z, sq
 
 
-def _launch_weighted_sum(x, w, mask, good_mean, good_std, attack):
+def _launch_weighted_sum(x, w, mask, good_mean, good_std, valid, attack):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
     args, keep = _launch.src_args("weighted_sum", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.norm_agg_tile())
+                                  good_std, attack, lib.norm_agg_tile(),
+                                  valid)
     wr = _launch.check("weighted_sum", "w", w, dev, torch.float32, (n,))
     out = torch.empty(d, dtype=torch.float32, device=dev)
     err = lib.weighted_sum_launch(*args, wr, out.data_ptr(),
                                   _launch.stream(dev))
     _launch.raise_on("weighted_sum", err)
     weighted_sum.launches += 1
+    weighted_sum.masked_launches += int(valid is not None)
     return out
 
 
@@ -272,58 +307,94 @@ def _launch_weighted_sum(x, w, mask, good_mean, good_std, attack):
 # drivers never read a device value on the host: weights, scores and the
 # Krum winner stay tensors between launches.
 
+def _start_weights(m, bvalid, device):
+    """Weiszfeld's first weights: uniform over the rows, or over the valid
+    rows, bvalid / max(Σ bvalid, 1), counted on the device."""
+    if bvalid is None:
+        return torch.full((m,), 1.0 / m, dtype=torch.float32, device=device)
+    bv = bvalid.float()
+    return bv / torch.clamp(bv.sum(), min=1.0)
+
+
+def _next_weights(sq, eps, bvalid):
+    """1 / sqrt(sq + eps), pinned to 0 on invalid rows, normalized."""
+    w = 1.0 / torch.sqrt(sq + eps)
+    if bvalid is not None:
+        w = torch.where(bvalid, w, 0.0)
+    return w / torch.clamp(torch.sum(w), min=1e-30)
+
+
 def rfa_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
-                 attack=None, iters: int = 8, eps: float = 1e-8):
+                 attack=None, iters: int = 8, eps: float = 1e-8,
+                 valid=None, bvalid=None):
     """Smoothed Weiszfeld (Pillutla et al. 2022) with global distances
     across segments, ``Aggregator._rfa_tree``'s semantics: uniform w_0
     makes the first pass's z the (bucketed) mean, each ``rfa_iter`` pass
     gives the distances to z_t, and a final ``weighted_sum`` with w_eff =
-    w_T @ W realizes z_T. Returns the per-segment (d_j,) aggregates."""
+    w_T @ W realizes z_T. Returns the per-segment (d_j,) aggregates.
+
+    ``valid`` / ``bvalid`` (fault guard, partial participation): the
+    kernels select-zero the invalid worker rows in their load, and the
+    weights of invalid (bucketed) rows are pinned to zero every iteration,
+    ``Aggregator._rfa_masked``'s semantics."""
     n = src_dims(segs[0])[0]
     m = w_mat.shape[0] if w_mat is not None else n
     means = means if means is not None else [None] * len(segs)
     stds = stds if stds is not None else [None] * len(segs)
-    w = torch.full((m,), 1.0 / m, dtype=torch.float32, device=segs[0].device)
+    w = _start_weights(m, bvalid, segs[0].device)
     for _ in range(iters):
-        sq = sum(rfa_iter(xs, w, w_mat, mask, mu, sd, attack=attack)[1]
+        sq = sum(rfa_iter(xs, w, w_mat, mask, mu, sd, valid, attack=attack)[1]
                  for xs, mu, sd in zip(segs, means, stds))
-        w = 1.0 / torch.sqrt(sq + eps)
-        w = w / torch.clamp(torch.sum(w), min=1e-30)
+        w = _next_weights(sq, eps, bvalid)
     w_eff = w if w_mat is None else w @ w_mat
-    return [weighted_sum(xs, w_eff, mask, mu, sd, attack=attack)
+    return [weighted_sum(xs, w_eff, mask, mu, sd, valid, attack=attack)
             for xs, mu, sd in zip(segs, means, stds)]
 
 
-def krum_select(g, n_byz: int):
+def krum_select(g, n_byz: int, bvalid=None):
     """Krum scoring (Eq. 15) from an (m, m) Gram matrix: the tiny O(m²)
     step between the two kernel passes. Returns ``(onehot, scores,
     best)``: the winner's one-hot over the (bucketed) rows, the per-row
-    scores and the argmin, all device tensors."""
+    scores and the argmin, all device tensors.
+
+    ``bvalid``: invalid rows and columns leave the distance pool (+inf),
+    the neighbour count tracks the valid count c, k = max(c - n_byz - 2,
+    1), counted on the device, and an invalid row scores +inf
+    (``Aggregator._krum_masked``)."""
     m = g.shape[0]
     sq = torch.diagonal(g)
     d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * g, min=0.0)
-    d2 = d2 + torch.diag(torch.full((m,), float("inf"), dtype=d2.dtype,
-                                    device=d2.device))
-    k = max(m - n_byz - 2, 1)
-    scores = torch.sort(d2, dim=1).values[:, :k].sum(1)
+    inf = torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device)
+    d2 = d2 + torch.diag(inf.expand(m))
+    if bvalid is None:
+        k = max(m - n_byz - 2, 1)
+        scores = torch.sort(d2, dim=1).values[:, :k].sum(1)
+    else:
+        d2 = torch.where(bvalid[:, None] & bvalid[None, :], d2, inf)
+        kv = torch.clamp(bvalid.to(torch.int64).sum() - n_byz - 2, min=1)
+        near = torch.arange(m, device=g.device)[None, :] < kv
+        srt = torch.sort(d2, dim=1).values
+        scores = torch.where(near, srt, 0.0).sum(1)
+        scores = torch.where(bvalid, scores, inf)
     best = torch.argmin(scores)
     onehot = (torch.arange(m, device=g.device) == best).float()
     return onehot, scores, best
 
 
 def krum_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
-                  attack=None, n_byz: int = 1):
+                  attack=None, n_byz: int = 1, valid=None, bvalid=None):
     """Krum (Eq. 15) in two passes, ``Aggregator._krum_tree``'s semantics:
     one ``pair_gram`` per segment (global pairwise distances), the scoring
     (``krum_select``), one ``weighted_sum`` per segment extracting the
-    winner through w_eff = onehot @ W."""
+    winner through w_eff = onehot @ W. ``valid`` / ``bvalid`` as in
+    ``rfa_segments``."""
     means = means if means is not None else [None] * len(segs)
     stds = stds if stds is not None else [None] * len(segs)
-    g = sum(pair_gram(xs, w_mat, mask, mu, sd, attack=attack)
+    g = sum(pair_gram(xs, w_mat, mask, mu, sd, valid, attack=attack)
             for xs, mu, sd in zip(segs, means, stds))
-    onehot, _, _ = krum_select(g, n_byz)
+    onehot, _, _ = krum_select(g, n_byz, bvalid)
     w_eff = onehot if w_mat is None else onehot @ w_mat
-    return [weighted_sum(xs, w_eff, mask, mu, sd, attack=attack)
+    return [weighted_sum(xs, w_eff, mask, mu, sd, valid, attack=attack)
             for xs, mu, sd in zip(segs, means, stds)]
 
 
@@ -528,37 +599,29 @@ def _launch_weighted_sum_blocked(x, w):
 # blocked rule drivers (giant n; dense segments, prologue already applied)
 # ---------------------------------------------------------------------------
 
-def _no_bvalid(who, bvalid):
-    if bvalid is not None:
-        raise NotImplementedError(
-            f"{who} with a validity mask (the fault guard's masked twin) is "
-            "not ported yet (ROADMAP queue 1, item 7)")
-
-
 def rfa_segments_blocked(segs, *, iters: int = 8, eps: float = 1e-8,
                          bvalid=None):
     """Giant-n smoothed Weiszfeld over dense (m, d_j) segments with global
-    distances, ``Aggregator._rfa_tree``'s semantics: per pass one
-    ``weighted_sum_blocked`` (z_t) and one ``sqdist_to_blocked`` per
-    segment, then a final weighted sum. Returns the per-segment (d_j,)
-    aggregates; nothing is read on the host between launches."""
-    _no_bvalid("rfa_segments_blocked", bvalid)
+    distances, ``Aggregator._rfa_tree``'s semantics (``_rfa_masked``'s
+    with ``bvalid``): per pass one ``weighted_sum_blocked`` (z_t) and one
+    ``sqdist_to_blocked`` per segment, then a final weighted sum. Returns
+    the per-segment (d_j,) aggregates; nothing is read on the host between
+    launches."""
     m = segs[0].shape[0]
-    w = torch.full((m,), 1.0 / m, dtype=torch.float32, device=segs[0].device)
+    w = _start_weights(m, bvalid, segs[0].device)
     for _ in range(iters):
         zs = [weighted_sum_blocked(xs, w) for xs in segs]
         sq = sum(sqdist_to_blocked(xs, z) for xs, z in zip(segs, zs))
-        w = 1.0 / torch.sqrt(sq + eps)
-        w = w / torch.clamp(torch.sum(w), min=1e-30)
+        w = _next_weights(sq, eps, bvalid)
     return [weighted_sum_blocked(xs, w) for xs in segs]
 
 
 def krum_segments_blocked(segs, *, n_byz: int = 1, bvalid=None):
     """Giant-n Krum over dense (m, d_j) segments, ``Aggregator._krum_tree``'s
-    semantics: one ``pair_gram_blocked`` per segment (global distances),
-    the scoring (``krum_select``), one ``weighted_sum_blocked`` per segment
-    extracting the winner through its one-hot."""
-    _no_bvalid("krum_segments_blocked", bvalid)
+    semantics (``_krum_masked``'s with ``bvalid``): one
+    ``pair_gram_blocked`` per segment (global distances), the scoring
+    (``krum_select``), one ``weighted_sum_blocked`` per segment extracting
+    the winner through its one-hot."""
     g = sum(pair_gram_blocked(xs) for xs in segs)
-    onehot, _, _ = krum_select(g, n_byz)
+    onehot, _, _ = krum_select(g, n_byz, bvalid)
     return [weighted_sum_blocked(xs, onehot) for xs in segs]

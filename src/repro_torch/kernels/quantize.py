@@ -256,9 +256,14 @@ def decode(fmt: str, payload: dict, d: int):
         raise NotImplementedError(
             f"wire format {fmt!r} is not ported yet (ROADMAP queue 2)")
     vals = payload["vals"].float()
-    out = torch.zeros(vals.shape[:-1] + (d,), dtype=torch.float32,
+    idx = payload["idx"].long()
+    # the reference's scatter (mode="drop"): a negative index counts from
+    # the end, and one still outside [0, d) is dropped (a garbled payload)
+    idx = torch.where(idx < 0, idx + d, idx)
+    idx = torch.where((idx >= 0) & (idx < d), idx, d)
+    out = torch.zeros(vals.shape[:-1] + (d + 1,), dtype=torch.float32,
                       device=vals.device)
-    return out.scatter_(-1, payload["idx"].long(), vals)
+    return out.scatter_(-1, idx, vals)[..., :d]
 
 
 def recon(src: WireSrc):

@@ -7,9 +7,14 @@ IPM) from the byzantine mask and the good workers' mean / std, the (m, n)
 bucket operator W, and the rule (mean / median / trimmed), and returns
 the (d,) float32 aggregate. On a CUDA tensor it launches the hand-written
 kernel ``csrc/robust_agg.cu`` (or raises); on a CPU tensor it runs
-``robust_agg_plain``, the step-by-step plain PyTorch version. Not ported
-yet (ROADMAP queue 2): the masked twin (fault guard), the int8 / sign /
-bf16 wire loads and bf16 candidates.
+``robust_agg_plain``, the step-by-step plain PyTorch version.
+
+The masked twin (fault guard, partial participation): ``valid`` (n,)
+select-zeroes invalid worker rows in the load, after the attack and
+before W, and ``bvalid`` (m,) over the bucketed rows switches the rule to
+``masked_coord_rule``, which fills invalid rows with +inf and picks its
+ranks from the valid count c taken on the device. Not ported yet (ROADMAP
+queue 2): the int8 / sign / bf16 wire loads and bf16 candidates.
 """
 from __future__ import annotations
 
@@ -18,7 +23,9 @@ import ctypes
 import torch
 
 from repro_torch.core.aggregators import (coord_median, coord_trimmed_mean,
-                                          mean0)
+                                          masked_coord_median,
+                                          masked_coord_trimmed_mean,
+                                          masked_mean, mean0)
 from repro_torch.kernels import _build, _launch, quantize
 from repro_torch.kernels.norm_agg import prologue, src_dims, stack
 
@@ -36,57 +43,93 @@ def coord_rule(x, rule: str, trim: int = 1):
     raise ValueError(rule)
 
 
+def masked_coord_rule(x, bvalid, rule: str, trim: int = 1):
+    """The rule over the valid rows of a (m, d) block, the twin of the
+    reference's ``_masked_coord_rule_block``: c = Σ bvalid; the mean is
+    the sum of all m rows (invalid ones are zeros) divided by max(c, 1);
+    median and trimmed mean sort with invalid rows at +inf, the median
+    takes 0.5·(rank (c-1)//2 + rank c//2), the trimmed mean sums ranks
+    [t, c - t), t = min(trim, (c-1)//2), and divides by max(c - 2t, 1).
+    The kernel reads a rank as 0 + v, as the reference's where-sum does,
+    so a -0.0 there is +0.0 where this gather keeps it: equal under
+    ``==`` and ``torch.equal``."""
+    if rule == "mean":
+        return masked_mean(x, bvalid)
+    if rule == "median":
+        return masked_coord_median(x, bvalid)
+    if rule == "trimmed":
+        return masked_coord_trimmed_mean(x, bvalid, trim)
+    raise ValueError(rule)
+
+
 def robust_agg_plain(x, w_mat=None, mask=None, good_mean=None,
-                     good_std=None, *, rule: str = "median", trim: int = 1,
-                     attack=None):
+                     good_std=None, valid=None, bvalid=None, *,
+                     rule: str = "median", trim: int = 1, attack=None):
     """Plain PyTorch version: decode (wire), round-trip, add the base,
-    attack select, W @ x in float32, sort over the workers, pick."""
-    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack)
+    attack select, valid select, W @ x in float32, sort over the workers,
+    pick (the masked rule under ``bvalid``)."""
+    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack, valid)
+    if bvalid is not None:
+        return masked_coord_rule(xb, bvalid > 0, rule, trim)
     return coord_rule(xb, rule, trim)
 
 
-def robust_agg(x, w_mat=None, mask=None, good_mean=None, good_std=None, *,
-               rule: str = "median", trim: int = 1, attack=None):
+def robust_agg(x, w_mat=None, mask=None, good_mean=None, good_std=None,
+               valid=None, bvalid=None, *, rule: str = "median",
+               trim: int = 1, attack=None):
     """(n, d) stack or WireSrc -> (d,) float32 aggregate. CPU tensors take
     the plain version; CUDA tensors the kernel."""
     robust_agg.calls += 1
     if _launch.on_cpu("robust_agg", x.device):
-        return robust_agg_plain(x, w_mat, mask, good_mean, good_std,
-                                rule=rule, trim=trim, attack=attack)
-    return _launch_kernel(x, w_mat, mask, good_mean, good_std, rule, trim,
-                          attack)
+        return robust_agg_plain(x, w_mat, mask, good_mean, good_std, valid,
+                                bvalid, rule=rule, trim=trim, attack=attack)
+    return _launch_kernel(x, w_mat, mask, good_mean, good_std, valid, bvalid,
+                          rule, trim, attack)
 
 
 robust_agg.calls = 0            # every call, plain or kernel
 robust_agg.launches = 0         # kernel launches since the last reset
 robust_agg.wire_launches = 0    # of which on a sparse wire payload
+robust_agg.masked_launches = 0  # of which with a validity mask
+robust_agg.masked_wire_launches = 0   # of which on the wire and masked
 
 
 def _lib():
     lib = _build.load("robust_agg")
     if lib.robust_agg_launch.argtypes is None:
         lib.robust_agg_launch.argtypes = _launch.SRC_ARGTYPES + [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.robust_agg_launch.restype = ctypes.c_int
         lib.robust_agg_tile.argtypes = []
         lib.robust_agg_tile.restype = ctypes.c_int
     return lib
 
 
-def _launch_kernel(x, w_mat, mask, good_mean, good_std, rule, trim, attack):
+def _launch_kernel(x, w_mat, mask, good_mean, good_std, valid, bvalid, rule,
+                   trim, attack):
     if rule not in RULES:
         raise ValueError(rule)
     n, d = src_dims(x)
     lib = _lib()
     args, keep = _launch.src_args("robust_agg", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.robust_agg_tile())
+                                  good_std, attack, lib.robust_agg_tile(),
+                                  valid)
     m, w_ptr = _launch.bucket_args("robust_agg", w_mat, n, x.device)
+    bv_ptr = None
+    if bvalid is not None:
+        bvalid = _launch.as_float_mask(bvalid)
+        bv_ptr = _launch.check("robust_agg", "bvalid", bvalid, x.device,
+                               torch.float32, (m,))
     out = torch.empty(d, dtype=torch.float32, device=x.device)
-    err = lib.robust_agg_launch(*args, w_ptr, m, RULES.index(rule),
+    err = lib.robust_agg_launch(*args, w_ptr, m, bv_ptr, RULES.index(rule),
                                 int(trim), out.data_ptr(),
                                 _launch.stream(x.device))
     _launch.raise_on("robust_agg", err)
+    wire = isinstance(x, quantize.WireSrc)
+    masked = valid is not None or bvalid is not None
     robust_agg.launches += 1
-    robust_agg.wire_launches += int(isinstance(x, quantize.WireSrc))
+    robust_agg.wire_launches += int(wire)
+    robust_agg.masked_launches += int(masked)
+    robust_agg.masked_wire_launches += int(masked and wire)
     return out

@@ -149,10 +149,24 @@ def test_krum_segments_blocked(m):
 @pytest.mark.parametrize("driver", ["rfa", "krum"])
 def test_blocked_drivers_with_a_validity_mask_name_their_roadmap_item(
         driver):
-    segs = [torch.zeros(65, 3)]
+    """The validity mask of ROADMAP queue 1, item 7, now ported: the
+    blocked drivers with ``bvalid`` follow the reference's, and the
+    invalid rows (zeroed, as the giant-n tier hands them over) neither
+    win Krum nor carry RFA weight."""
+    segs = _segments(65, 13)
+    bvalid = np.ones(65, bool)
+    bvalid[[0, 7, 64]] = False
+    for x in segs:
+        x[~bvalid] = 0.0
+    jfn = getattr(jnorm, f"{driver}_segments_blocked")
     fn = getattr(norm_agg, f"{driver}_segments_blocked")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        fn(segs, bvalid=torch.ones(65, dtype=torch.bool))
+    kw = {"iters": 8} if driver == "rfa" else {"n_byz": 6}
+    ref = jfn([jnp.asarray(x) for x in segs], bvalid=jnp.asarray(bvalid),
+              interpret=True, **kw)
+    got = fn([torch.as_tensor(x) for x in segs],
+             bvalid=torch.as_tensor(bvalid), **kw)
+    for a, b in zip(got, ref):
+        _close(a, b, AGG_TOL if driver == "rfa" else 0)
 
 
 @pytest.mark.parametrize("n", [65, 130, 200])

@@ -335,3 +335,124 @@ def test_block_quantize_rejects_what_the_kernel_does_not_take(dev):
         block_quantize(x, x[:-1])
     with pytest.raises(ValueError, match="levels"):
         block_quantize(x, x, levels=0)
+
+
+def _masked(n, s, dev, invalid):
+    """(valid, W, bvalid): rows ``invalid`` dropped, and the masked bucket
+    operator over a fixed permutation when s > 1."""
+    from repro_torch.faults.guard import masked_bucket_matrix
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[list(invalid)] = False
+    if not s:
+        return valid, None, valid
+    perm = R.permutation(R.PRNGKey(n, device=dev), n)
+    w, bvalid = masked_bucket_matrix(perm, n, s, valid)
+    return valid, w, bvalid
+
+
+def _poison(x, valid):
+    """NaN into the invalid rows of a dense stack: the load must zero them
+    with a select, so nothing of them reaches the result."""
+    if isinstance(x, quantize.WireSrc):
+        vals = dict(x.arrays)["vals"].clone()
+        vals[~valid] = float("nan")
+        return quantize.WireSrc(fmt="sparse", n=x.n, d=x.d,
+                                arrays=(("vals", vals),
+                                        ("idx", dict(x.arrays)["idx"])),
+                                base=x.base)
+    x = x.clone()
+    x[~valid] = float("nan")
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("load", ["dense", "wire"])
+@pytest.mark.parametrize("s", [0, 2, 3])
+@pytest.mark.parametrize("rule", ["mean", "median", "trimmed"])
+@pytest.mark.parametrize("n", [5, 8, 64])
+def test_masked_robust_agg(dev, n, rule, s, load):
+    """The masked rule equals its plain version (``torch.equal``: the
+    kernel and the plain version both read a rank as 0 + v)."""
+    x, _, mask, mean, std = _inputs(n, 5000, dev, 0)
+    if load == "wire":
+        x = _wire(n, 5000, dev, 1)
+    valid, w, bvalid = _masked(n, s, dev, range(n - 2, n))
+    x = _poison(x, valid)
+    before = robust_agg.masked_launches
+    args = (x, w, mask, mean, std, valid, bvalid)
+    got = robust_agg(*args, rule=rule, attack=ALIE)
+    want = robust_agg_plain(*args, rule=rule, attack=ALIE)
+    torch.cuda.synchronize()
+    assert robust_agg.masked_launches == before + 1
+    assert torch.isfinite(got).all()
+    if s == 3:       # W x: the plain version's matmul sums in another order
+        torch.testing.assert_close(got, want, rtol=0, atol=TOL * 4 * max(
+            1.0, float(want.abs().max())))
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [0, 2, 3])
+@pytest.mark.parametrize("n", [5, 8, 64])
+@pytest.mark.parametrize("load", ["dense", "wire"])
+def test_masked_norm_kernels(dev, load, n, s):
+    """pair_gram / rfa_iter / weighted_sum with a validity mask against
+    their plain versions, at the unmasked cases' tolerances, and bit for
+    bit twice."""
+    x, _, mask, mean, std = _inputs(n, 5000, dev, 0)
+    if load == "wire":
+        x = _wire(n, 5000, dev, 1)
+    valid, w, _ = _masked(n, s, dev, [n - 1])
+    x = _poison(x, valid)
+    m = n if w is None else w.shape[0]
+    wr = torch.full((m,), 1.0 / m, device=dev)
+    wn = torch.rand(n, device=dev)
+    before = {k: fn.masked_launches for k, fn in NORM.items()}
+    gram = [norm_agg.pair_gram(x, w, mask, mean, std, valid, attack=ALIE)
+            for _ in range(2)]
+    rfa = [norm_agg.rfa_iter(x, wr, w, mask, mean, std, valid, attack=ALIE)
+           for _ in range(2)]
+    ws = [norm_agg.weighted_sum(x, wn, mask, mean, std, valid, attack=ALIE)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {k: fn.masked_launches - before[k] for k, fn in NORM.items()} == {
+        k: 2 for k in NORM}
+    assert torch.equal(gram[0], gram[1]) and torch.equal(ws[0], ws[1])
+    assert all(torch.equal(a, b) for a, b in zip(rfa[0], rfa[1]))
+    sent = norm_agg.prologue(norm_agg.stack(x), None, mask, mean, std, ALIE,
+                             valid)
+    scale = float(sent.abs().max())
+    want = norm_agg.pair_gram_plain(x, w, mask, mean, std, valid,
+                                    attack=ALIE)
+    _near(gram[0], want, float(want.abs().max()))
+    z, sq = norm_agg.rfa_iter_plain(x, wr, w, mask, mean, std, valid,
+                                    attack=ALIE)
+    _near(rfa[0][0], z, scale)
+    _near(rfa[0][1], sq, float(sq.max()))
+    _near(ws[0], norm_agg.weighted_sum_plain(x, wn, mask, mean, std, valid,
+                                             attack=ALIE), scale)
+
+
+@pytest.mark.gpu
+def test_garbled_wire_rows_are_dropped(dev):
+    """A row whose indices are garbled (out of range, not ascending) and
+    marked invalid leaves the result untouched: the kernel skips its
+    scatter and zeroes it, as the plain version does."""
+    n, d = 8, 5000
+    x = _wire(n, d, dev, 1)
+    arr = dict(x.arrays)
+    idx = arr["idx"].clone()
+    idx[3] = torch.randint(-2 ** 31, 2 ** 31 - 1, idx[3].shape, device=dev,
+                           dtype=torch.int64).int()
+    bad = quantize.WireSrc(fmt="sparse", n=n, d=d,
+                           arrays=(("vals", arr["vals"]), ("idx", idx)),
+                           base=x.base)
+    _, _, mask, mean, std = _inputs(n, d, dev, 0)
+    valid, w, bvalid = _masked(n, 2, dev, [3])
+    got = robust_agg(bad, w, mask, mean, std, valid, bvalid, rule="median",
+                     attack=ALIE)
+    want = robust_agg_plain(x, w, mask, mean, std, valid, bvalid,
+                            rule="median", attack=ALIE)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -189,11 +189,16 @@ def test_spec_json_is_shared():
     assert JaxRunSpec.from_json(tspec.to_json()) == jspec
 
 
+# the fault layer and partial participation are ported (their tests are
+# tests/test_torch_faults.py and tests/test_torch_participation.py); the
+# cases that named them now pair them with what is still unported
 @pytest.mark.parametrize("override", [
     {"method": "sgd"}, {"compressor": "int8"}, {"compressor": "sign"},
-    {"attack": "RN"}, {"agg_mode": "all_to_all"}, {"participation": 0.6},
-    {"fault_guard": True}, {"trace": True}, {"optimizer": "adam"},
-    {**GIANT, "participation": 0.5},
+    {"attack": "RN"}, {"agg_mode": "all_to_all"},
+    {"participation": 0.6, "method": "diana"},
+    {"fault_guard": True, "compressor": "bf16"}, {"trace": True},
+    {"optimizer": "adam"},
+    {**GIANT, "participation": 0.5, "method": "mvr"},
 ])
 def test_unported_components_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

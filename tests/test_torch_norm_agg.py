@@ -268,13 +268,22 @@ def test_aggregator_flat_call(rule):
 
 def test_krum_over_64_rows_names_its_roadmap_item():
     """Krum over more than 64 rows runs, on the plain Gram; its masked twin
-    (the fault guard's) is what is left to port, and says so."""
+    (the fault guard's, ROADMAP queue 1, item 7) is ported too: with every
+    row valid it is the unmasked Krum, and an invalid row never wins."""
     xs = {"w": torch.randn(65, 3, generator=torch.Generator().manual_seed(0))}
     out = tagg.get_aggregator("krum").tree(R.PRNGKey(0), xs)
     assert out["w"].shape == (3,) and torch.isfinite(out["w"]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        norm_agg.krum_segments_blocked(
-            [xs["w"]], bvalid=torch.ones(65, dtype=torch.bool))
+    every = torch.ones(65, dtype=torch.bool)
+    torch.testing.assert_close(
+        norm_agg.krum_segments_blocked([xs["w"]], bvalid=every)[0],
+        norm_agg.krum_segments_blocked([xs["w"]])[0], rtol=0, atol=0)
+    _, _, best = norm_agg.krum_select(
+        norm_agg.pair_gram_blocked(xs["w"]), 1)
+    drop = every.clone()
+    drop[best] = False
+    _, scores, best2 = norm_agg.krum_select(
+        norm_agg.pair_gram_blocked(xs["w"]), 1, drop)
+    assert int(best2) != int(best) and torch.isinf(scores[best])
 
 
 def test_cpu_tensors_take_the_plain_version():
