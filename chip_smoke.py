@@ -16,9 +16,14 @@ the block quantizer through the ``repro_torch.kernels.ops`` entry point;
 the chaos paths (the fault guard on, NaN gradients and corrupted wire
 payloads on worker 4) with cm, RFA and Krum, which run the masked
 kernels on dense and wire rounds; and partial participation, at 5
-workers with cm (80% sampled) and at 256 with RFA and Krum (75%). The
-masked kernels (``valid`` in the load, the masked coordinate rule) are
-held to their plain versions beside the unmasked ones. It checks that
+workers with cm (80% sampled) and at 256 with RFA and Krum (75%); the
+int8, sign and bf16 wires: MARINA with int8 (cm, RFA and Krum, and cm
+under the chaos plan), Byz-EF21 with sign (cm) and with bf16 (cm, and
+Krum under the chaos plan); and the ``kernels.ops`` entry points on every
+wire format and on a bfloat16 stack. The masked kernels (``valid`` in the
+load, the masked coordinate rule) are held to their plain versions beside
+the unmasked ones, and so is every load (dense float32 or bfloat16, the
+sparse, int8, sign and bf16 wires) in each fused kernel. It checks that
 every aggregation and selection went through the kernels (launch counts
 against each path's formula) and that the first rounds agree with the
 plain CPU path. Any failure raises and exits
@@ -48,6 +53,12 @@ REPS = 21                        # timed runs per measurement (median taken)
 MAIN_STEPS = 300                 # rounds of each main path
 CPU_CHECK_STEPS = 30
 TRAJ_TOL = 2e-5
+# the paths of a compressor that rounds (int8 levels, signs, bf16): the
+# card's gradients and its sums over d take another order than the CPU's,
+# and a coordinate within that rounding of a step takes the neighbouring
+# value (a level, norm/127; the other sign, 2·scale; a bf16 ulp), a jump
+# that moves later losses by ~1e-5 (2.8e-5 seen on MARINA + int8 with RFA)
+QUANT_TRAJ_TOL = 1e-4
 KERNEL_TOL = 1e-5                # x max|input|: W·x sums in another order
 SUM_TOL = 1e-5                   # x the largest entry: sums over d in
                                  # another order (blocked kernels: always)
@@ -77,6 +88,12 @@ EF21_SPEC = dict(
     aggregator="cm", bucket_size=2, agg_mode="pallas", compressor="topk",
     compressor_kwargs={"ratio": 0.1}, lr=0.5, steps=MAIN_STEPS,
     data_kwargs={"n_samples": 6000, "dim": 5000, "batch_size": 32})
+# the dense wires: MARINA with int8 (blockwise ℓ2 dithering, one norm per
+# 256 coordinates) at a9a width; Byz-EF21 with sign and with bf16 at
+# gisette width
+INT8_SPEC = dict(MAIN_SPEC, compressor="int8", compressor_kwargs={})
+SIGN_SPEC = dict(EF21_SPEC, compressor="sign", compressor_kwargs={})
+BF16_SPEC = dict(EF21_SPEC, compressor="bf16", compressor_kwargs={})
 
 # (label, n, d, k or None for the dense load, base rows, bucket s, rule);
 # every case carries the ALIE attack on max(1, n // 5) byzantine rows
@@ -122,6 +139,10 @@ MASKED_WIDE_CASES = [
 REPLACES = {
     "dense": "src/repro/kernels/robust_agg.py:142",
     "sparse_wire": "src/repro/kernels/quantize.py:383",
+    "int8": "src/repro/kernels/quantize.py:390",
+    "sign": "src/repro/kernels/quantize.py:397",
+    "bf16": "src/repro/kernels/quantize.py:399",
+    "dense_bf16": "src/repro/kernels/norm_agg.py:172",
     "masked": "src/repro/kernels/robust_agg.py:69",
     "pair_gram": "src/repro/kernels/norm_agg.py:220",
     "rfa_iter": "src/repro/kernels/norm_agg.py:262",
@@ -132,6 +153,44 @@ REPLACES = {
     "topk_select": "src/repro/kernels/quantize.py:195",
     "block_quantize": "src/repro/kernels/quantize.py:88",
 }
+
+# the loads of the dense wires and of the bfloat16 stack, held in each
+# fused kernel at the main paths' shapes and at full width, unmasked and
+# masked: (kind, label, n, d, k (None), base rows, s, rule); the base is
+# MARINA's shared g (1 row) for int8, Byz-EF21's g_i (n rows) for sign
+# and bf16
+NEW_LOADS = ("int8", "sign", "bf16", "dense_bf16")
+LOAD_MAIN_CASES = [
+    ("int8", "MARINA int8 wire, leaf w (a9a width)", 5, 123, None, 1, 2,
+     "median"),
+    ("int8", "MARINA int8 wire, leaf b", 5, 1, None, 1, 2, "median"),
+    ("sign", "Byz-EF21 sign wire, leaf w (gisette width)", 5, 5000, None, 5,
+     2, "median"),
+    ("sign", "Byz-EF21 sign wire, leaf b", 5, 1, None, 5, 2, "median"),
+    ("bf16", "Byz-EF21 bf16 wire, leaf w (gisette width)", 5, 5000, None, 5,
+     2, "median"),
+    ("bf16", "Byz-EF21 bf16 wire, leaf b", 5, 1, None, 5, 2, "median"),
+    ("dense_bf16", "ops entry: bf16 stack (gisette width)", 5, 5000, None,
+     0, 2, "median"),
+]
+LOAD_WIDE_CASES = [
+    ("int8", "qwen3-1.7b q_proj layer 2048x2048, int8 wire, shared base", 8,
+     1 << 22, None, 1, 2, "median"),
+    ("sign", "qwen3-1.7b q_proj layer 2048x2048, sign wire, per-worker "
+     "base", 8, 1 << 22, None, 8, 2, "median"),
+    ("bf16", "qwen3-1.7b q_proj layer 2048x2048, bf16 wire, per-worker "
+     "base", 8, 1 << 22, None, 8, 2, "median"),
+]
+# the bf16 stack at full width goes through robust_agg alone
+LOAD_BF16_STACK_CASE = ("dense_bf16", "qwen3-1.7b stacked q_proj "
+                        "28x2048x2048, bf16 stack", 8, 117_440_512, None, 0,
+                        2, "median")
+LOAD_MASKED_MAIN_CASES = [c + ((4,),) for c in LOAD_MAIN_CASES]
+LOAD_MASKED_WIDE_CASES = [c + ((7,),) for c in LOAD_WIDE_CASES]
+# the ops entry points on every wire format and on a bf16 stack, at
+# gisette width: (format, base rows)
+OPS_WIRES = [("int8", 1), ("sign", 5), ("bf16", 5)]
+OPS_RULES = ("median", "rfa", "krum")
 
 # the norm kernels' cases: (kind, label, n, d, k or None, base rows, s);
 # ALIE on max(1, n // 5) rows as above
@@ -199,19 +258,36 @@ def cuda_ms(fn) -> float:
     return statistics.median(times)
 
 
-def make_inputs(n, d, k, base_rows, s, dev):
+def make_inputs(n, d, k, base_rows, s, dev, kind=None):
     """(x, w, mask, mean, std) of one kernel call, made on the card from a
-    fixed seed, and the bytes of x (dense stack, or wire payload, base and
-    row pointers)."""
+    fixed seed, and the bytes of x: the dense stack (float32, or bfloat16
+    for ``kind="dense_bf16"``), or the wire payload (sparse when k is
+    given, else of ``kind``: int8, sign or bf16, packed from random rows;
+    the int8 levels counted over d, their padding unread), its base and
+    the sparse row pointers."""
     from repro_torch import random as R
     from repro_torch.kernels import norm_agg, quantize
     g = torch.Generator(device=dev).manual_seed(n * 7919 + d)
     mask = torch.arange(n, device=dev) < max(1, n // 5)
     mean = torch.randn(d, device=dev, generator=g)
     std = torch.rand(d, device=dev, generator=g)
-    if k is None:
+    if kind in ("int8", "sign", "bf16"):
+        rows = torch.randn(n, d, device=dev, generator=g)
+        keys = R.fold_in(R.PRNGKey(d, device=dev),
+                         torch.arange(n, device=dev))
+        pay = quantize.PACK[kind](keys, rows)
+        base = torch.randn(base_rows, d, device=dev, generator=g)
+        x = quantize.WireSrc(fmt=kind, n=n, d=d, arrays=tuple(pay.items()),
+                             base=base)
+        value_bytes = {"int8": 1, "sign": 1, "bf16": 2}[kind]
+        side = {"int8": n * -(-d // 256) * 4, "sign": n * 4, "bf16": 0}[kind]
+        in_bytes = n * d * value_bytes + side + base.numel() * 4
+        del rows
+    elif k is None:
         x = torch.randn(n, d, device=dev, generator=g)
-        in_bytes = x.numel() * 4
+        if kind == "dense_bf16":
+            x = x.bfloat16()
+        in_bytes = x.numel() * x.element_size()
     else:
         keys = R.fold_in(R.PRNGKey(d, device=dev), torch.arange(n, device=dev))
         idx = torch.sort(R.permutation(keys, d)[:, :k], dim=1).values
@@ -229,10 +305,10 @@ def make_inputs(n, d, k, base_rows, s, dev):
     return (x, w, mask, mean, std), in_bytes
 
 
-def make_case(n, d, k, base_rows, s, rule, dev):
+def make_case(n, d, k, base_rows, s, rule, dev, kind=None):
     """Inputs of one robust_agg call, its bytes and operations."""
     from repro_torch.core.attacks import CoordAttack
-    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev)
+    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev, kind)
     w = args[1]
     m = n if w is None else w.shape[0]
     kw = dict(rule=rule, trim=1, attack=CoordAttack("ALIE", 1.06))
@@ -245,11 +321,10 @@ def make_case(n, d, k, base_rows, s, rule, dev):
 def library_call(args, kw):
     """One PyTorch call computing the rule step alone on the already
     attacked and bucketed stack (None for the trimmed mean)."""
-    from repro_torch.kernels import quantize
-    from repro_torch.kernels.norm_agg import prologue
+    from repro_torch.kernels import norm_agg as N
     x, w, mask, mean, std = args
-    xf = quantize.recon(x) if isinstance(x, quantize.WireSrc) else x
-    xb = prologue(xf, w, mask, mean, std, kw["attack"])
+    xb = N.prologue(N.stack(x), w, mask, mean, std, kw["attack"], None,
+                    N.cand_dtype(x))
     if kw["rule"] == "median":
         return lambda: torch.median(xb, dim=0)
     if kw["rule"] == "mean":
@@ -261,14 +336,17 @@ def mask_inputs(args, n, s, invalid):
     """The masked twin of a case's (x, W, mask, mean, std): the invalid
     workers' rows (the dense stack, or the wire's values) set to NaN in
     place, the masked bucket operator over the identity permutation and
-    the validity masks -> (x, W, mask, mean, std, valid, bvalid)."""
+    the validity masks -> (x, W, mask, mean, std, valid, bvalid). On a
+    wire every float array is poisoned (values, norms, scale)."""
     from repro_torch.faults.guard import masked_bucket_matrix
     from repro_torch.kernels import quantize
     x, _, mask, mean, std = args
     valid = torch.ones(n, dtype=torch.bool, device=mask.device)
     valid[list(invalid)] = False
-    rows = dict(x.arrays)["vals"] if isinstance(x, quantize.WireSrc) else x
-    rows[~valid] = float("nan")
+    rows = ([a for _, a in x.arrays if a.is_floating_point()]
+            if isinstance(x, quantize.WireSrc) else [x])
+    for a in rows:
+        a[~valid] = float("nan")
     if s <= 1:
         return x, None, mask, mean, std, valid, valid
     w, bvalid = masked_bucket_matrix(torch.arange(n, device=mask.device), n,
@@ -283,9 +361,11 @@ def kernel_case(case, dev):
     rank as 0 + v); an unmasked one agree to KERNEL_TOL, since its W·x
     sums in another order."""
     from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
+    from repro_torch.kernels.norm_agg import stack
     kind, label, n, d, k, base_rows, s, rule, *rest = case
     invalid = rest[0] if rest else ()
-    args, kw, bytes_moved, ops = make_case(n, d, k, base_rows, s, rule, dev)
+    args, kw, bytes_moved, ops = make_case(n, d, k, base_rows, s, rule, dev,
+                                           kind)
     if invalid:
         args = mask_inputs(args, n, s, invalid)
         bytes_moved += 4 * (n + (n if args[1] is None else args[1].shape[0]))
@@ -298,10 +378,8 @@ def kernel_case(case, dev):
         limit = 0.0
         ok = torch.equal(got, want)
     else:
-        scale = max(1.0, float((x.arrays[0][1] if k else x).abs().max()),
+        scale = max(1.0, float(stack(x).abs().max()),
                     float(args[3].abs().max()) + 1.06 * float(args[4].max()))
-        if k:
-            scale += float(x.base.abs().max())
         err = float((got - want).abs().max())
         limit = KERNEL_TOL * scale
         ok = err <= limit
@@ -313,8 +391,8 @@ def kernel_case(case, dev):
     lib = None if invalid else library_call(args, kw)
     library_ms = None if lib is None else cuda_ms(lib)
     bound_ms, bound_by = bound_of(bytes_moved, ops)
-    row = {"kind": kind, "label": label, "n": n, "d": d, "k": k,
-           "base_rows": base_rows, "s": s, "rule": rule,
+    row = {"kernel": "robust_agg", "kind": kind, "label": label, "n": n,
+           "d": d, "k": k, "base_rows": base_rows, "s": s, "rule": rule,
            "invalid": list(invalid), "max_abs_err": err, "err_limit": limit,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
@@ -349,7 +427,7 @@ def norm_case(case, dev):
     from repro_torch.kernels import norm_agg as N
     kind, label, n, d, k, base_rows, s, *rest = case
     invalid = rest[0] if rest else ()
-    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev)
+    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev, kind)
     valid = None
     if invalid:
         x, w, mask, mean, std, valid, _ = mask_inputs(args, n, s, invalid)
@@ -362,7 +440,8 @@ def norm_case(case, dev):
     wr = torch.rand(m, device=dev, generator=g) + 0.1
     wr = wr / wr.sum()
     wn = wr if w is None else wr @ w                   # w_eff, as the drivers
-    sent = N.prologue(N.stack(x), None, mask, mean, std, alie, valid)
+    sent = N.prologue(N.stack(x), None, mask, mean, std, alie, valid,
+                      N.cand_dtype(x))
     xb = sent if w is None else w @ sent
     scale = max(1.0, float(sent.abs().max()))
     sum_tol = WIDE_SUM_TOL if d > 1_000_000 else SUM_TOL
@@ -622,60 +701,77 @@ def ops_path(dev, card):
 
 
 QUANT_KERNELS = ("topk_select", "block_quantize")
-ROBUST_COUNTS = {"robust_agg": "launches", "robust_agg_wire": "wire_launches",
-                 "robust_agg_masked": "masked_launches",
-                 "robust_agg_masked_wire": "masked_wire_launches"}
-NORM_MASKED = tuple(f"{name}_masked" for name in NORM_KERNELS)
-COUNTED = (tuple(ROBUST_COUNTS) + NORM_KERNELS + NORM_MASKED
+FUSED_KERNELS = ("robust_agg",) + NORM_KERNELS
+LOADS = ("dense", "dense_bf16", "sparse", "int8", "sign", "bf16")
+# a fused kernel's launches per load, unmasked and masked:
+# "robust_agg/int8", "pair_gram/bf16 masked", ...
+COUNTED = (tuple(f"{name}/{load}{tag}" for name in FUSED_KERNELS
+                 for load in LOADS for tag in ("", " masked"))
            + BLOCKED_KERNELS + QUANT_KERNELS)
 
 
-def reset_counts():
-    from repro_torch.kernels import norm_agg, quantize
+def _fused(name):
+    from repro_torch.kernels import norm_agg
     from repro_torch.kernels.robust_agg import robust_agg
-    for attr in ROBUST_COUNTS.values():
-        setattr(robust_agg, attr, 0)
-    for name in NORM_KERNELS:
-        getattr(norm_agg, name).masked_launches = 0
-    for name in NORM_KERNELS + BLOCKED_KERNELS:
+    return robust_agg if name == "robust_agg" else getattr(norm_agg, name)
+
+
+def reset_counts():
+    from repro_torch.kernels import _launch, norm_agg, quantize
+    for name in FUSED_KERNELS:
+        _launch.reset_counts(_fused(name))
+    for name in BLOCKED_KERNELS:
         getattr(norm_agg, name).launches = 0
     for name in QUANT_KERNELS:
         getattr(quantize, name).launches = 0
 
 
 def read_counts() -> dict:
+    """Every count of COUNTED: a fused kernel's launches on each load
+    without a validity mask ("name/load") and with one ("... masked")."""
     from repro_torch.kernels import norm_agg, quantize
-    from repro_torch.kernels.robust_agg import robust_agg
-    counts = {key: getattr(robust_agg, attr)
-              for key, attr in ROBUST_COUNTS.items()}
+    counts = {}
+    for name in FUSED_KERNELS:
+        fn = _fused(name)
+        for load in LOADS:
+            masked = fn.masked_load_launches[load]
+            counts[f"{name}/{load}"] = fn.load_launches[load] - masked
+            counts[f"{name}/{load} masked"] = masked
     counts.update({name: getattr(norm_agg, name).launches
-                   for name in NORM_KERNELS + BLOCKED_KERNELS})
-    counts.update({f"{name}_masked": getattr(norm_agg, name).masked_launches
-                   for name in NORM_KERNELS})
+                   for name in BLOCKED_KERNELS})
     counts.update({name: getattr(quantize, name).launches
                    for name in QUANT_KERNELS})
     return counts
 
 
+def nonzero(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _add(counts, name, load, n, masked=False):
+    key = f"{name}/{load}{' masked' if masked else ''}"
+    counts[key] += n
+
+
 def expected_counts(aggregator, full, vr, giant=False, guard=False,
-                    cohort=False) -> dict:
-    """Launches of one run: one init aggregation and F full rounds on the
-    packed b+w segment, V VR rounds on two wire leaves; RFA makes T = 8
-    Weiszfeld passes and a weighted sum per segment, Krum a Gram and a
-    weighted sum. At 256 workers every aggregation (dense or wire) takes
-    the giant-n tier on the two leaves b and w, unpacked: RFA 2·(8 + 1)
-    blocked weighted sums and 2·8 blocked distances, Krum 2 blocked Grams
-    and 2 blocked weighted sums, and no fused kernel (with or without a
-    sampled cohort: the masked bucket operator keeps m = 128 rows). The
-    fault guard adds no launch and masks every one (the init's too).
-    Under a sampled cohort (``cohort``, cm at 5 workers) the init is
-    unmasked, and every round, VR rounds reconstructed densely, is one
-    masked launch on the packed segment."""
-    agg_rounds = 1 + full
+                    cohort=False, fmt="sparse") -> dict:
+    """Launches of one MARINA run: one init aggregation and F full rounds
+    on the packed b+w segment (dense load), V VR rounds on the two leaves'
+    wire payloads of ``fmt``; RFA makes T = 8 Weiszfeld passes and a
+    weighted sum per segment, Krum a Gram and a weighted sum. At 256
+    workers every aggregation (dense or wire) takes the giant-n tier on
+    the two leaves b and w, unpacked: RFA 2·(8 + 1) blocked weighted sums
+    and 2·8 blocked distances, Krum 2 blocked Grams and 2 blocked weighted
+    sums, and no fused kernel (with or without a sampled cohort: the
+    masked bucket operator keeps m = 128 rows). The fault guard adds no
+    launch and masks every one (the init's too). Under a sampled cohort
+    (``cohort``, cm at 5 workers) the init is unmasked, and every round,
+    VR rounds reconstructed densely, is one masked launch on the packed
+    segment."""
     counts = dict.fromkeys(COUNTED, 0)
     if cohort:
-        counts["robust_agg"] = 1 + full + vr
-        counts["robust_agg_masked"] = full + vr
+        _add(counts, "robust_agg", "dense", 1)
+        _add(counts, "robust_agg", "dense", full + vr, masked=True)
         return counts
     if giant:
         aggs = 1 + full + vr
@@ -686,39 +782,42 @@ def expected_counts(aggregator, full, vr, giant=False, guard=False,
             counts["pair_gram_blocked"] = 2 * aggs
             counts["weighted_sum_blocked"] = 2 * aggs
         return counts
-    if aggregator == "cm":
-        counts["robust_agg"] = agg_rounds + 2 * vr
-        counts["robust_agg_wire"] = 2 * vr
-    elif aggregator == "rfa":
-        counts["rfa_iter"] = 8 * agg_rounds + 16 * vr
-        counts["weighted_sum"] = agg_rounds + 2 * vr
-    else:
-        counts["pair_gram"] = counts["weighted_sum"] = agg_rounds + 2 * vr
-    if guard:
-        counts["robust_agg_masked"] = counts["robust_agg"]
-        counts["robust_agg_masked_wire"] = counts["robust_agg_wire"]
-        for name in NORM_KERNELS:
-            counts[f"{name}_masked"] = counts[name]
+    per_agg = {"cm": {"robust_agg": 1},
+               "rfa": {"rfa_iter": 8, "weighted_sum": 1},
+               "krum": {"pair_gram": 1, "weighted_sum": 1}}[aggregator]
+    for name, times in per_agg.items():
+        _add(counts, name, "dense", times * (1 + full), guard)
+        _add(counts, name, fmt, times * 2 * vr, guard)
     return counts
 
 
-def ef21_counts(rounds) -> dict:
+def ef21_counts(rounds, fmt="sparse", aggregator="cm",
+                guard=False) -> dict:
     """Launches of a Byz-EF21 run: the dense init and every round on the
-    wire each aggregate the leaves b and w apart (w, 5000 wide, is not
-    packed with b: only leaves under 1024 share a launch), and every round
+    wire of ``fmt`` each aggregate the leaves b and w apart (w, 5000 wide,
+    is not packed with b: only leaves under 1024 share a launch), with cm
+    (robust_agg) or Krum (a Gram and a weighted sum per leaf), every one
+    masked under the fault guard; on the sparse (TopK) wire every round
     selects TopK on w (b, one wide, takes the plain sort)."""
     counts = dict.fromkeys(COUNTED, 0)
-    counts["robust_agg"] = 2 * (1 + rounds)
-    counts["robust_agg_wire"] = 2 * rounds
-    counts["topk_select"] = rounds
+    names = (("robust_agg",) if aggregator == "cm"
+             else ("pair_gram", "weighted_sum"))
+    for name in names:
+        _add(counts, name, "dense", 2, guard)
+        _add(counts, name, fmt, 2 * rounds, guard)
+    if fmt == "sparse":
+        counts["topk_select"] = rounds
     return counts
 
 
-def main_path(dev, card, tag, spec, want_counts):
+def main_path(dev, card, tag, spec, want_counts, diverges=False,
+              traj_tol=TRAJ_TOL):
     """One path through ``api.run`` on the card, the counts set to 0 just
     before; its launches against ``want_counts(full, vr, rounds)``, its
     losses finite and falling, and its first rounds against the CPU
-    path."""
+    path, to ``traj_tol``. A path that ``diverges`` (as the reference
+    diverges on it) starts finite and must agree with the CPU path round
+    for round, NaN for NaN, to ``traj_tol`` relative to max(1, |loss|)."""
     from repro_torch.api import RunSpec, run
     ef21 = spec["method"] == "byz_ef21"
     reset_counts()
@@ -740,38 +839,137 @@ def main_path(dev, card, tag, spec, want_counts):
     print(f"[main {tag}] {len(hist)} rounds, {rounds}; "
           f"{per_round_ms:.3f} ms per round (host clock, loop "
           f"only); run() wall {wall:.2f} s incl. data and init; launches "
-          f"{counts} [{card}]", flush=True)
-    if not all(math.isfinite(v) for v in losses):
+          f"{nonzero(counts)} [{card}]", flush=True)
+    finite = [math.isfinite(v) for v in losses]
+    if diverges:
+        if not finite[0]:
+            raise AssertionError(f"{tag}: the first loss is not finite")
+        print(f"[main {tag}] diverges as the reference does: first "
+              f"non-finite loss at round "
+              f"{finite.index(False) if False in finite else None}",
+              flush=True)
+    elif not all(finite):
         raise AssertionError(f"non-finite loss on the {tag} path")
-    if not losses[-1] < losses[0]:
+    elif not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: final loss {losses[-1]} not "
                              f"below the first {losses[0]}")
     want = want_counts(full, vr, len(hist))
     if counts != want:
         raise AssertionError(
-            f"{tag}: launches {counts}, expected {want}: an "
-            "aggregation bypassed its kernel")
+            f"{tag}: launches {nonzero(counts)}, expected {nonzero(want)}: "
+            "an aggregation bypassed its kernel")
     cpu = run(RunSpec(**{**spec, "steps": CPU_CHECK_STEPS}), device="cpu",
               log_every=1)
     cpu_ck = [int(h.get("c_k", 1)) for h in cpu.history]
     if cpu_ck != ck[:CPU_CHECK_STEPS]:
         raise AssertionError(f"{tag}: c_k differs from the CPU path: "
                              f"{cpu_ck} vs {ck[:CPU_CHECK_STEPS]}")
-    diff = float(np.max(np.abs(np.array(losses[:CPU_CHECK_STEPS])
-                               - [h["loss"] for h in cpu.history])))
+    got = np.array(losses[:CPU_CHECK_STEPS])
+    ref = np.array([h["loss"] for h in cpu.history])
+    if diverges:
+        fin = np.isfinite(ref)
+        same = np.array_equal(np.isnan(got), np.isnan(ref))
+        diff = float(np.max(np.abs(got[fin] - ref[fin])
+                            / np.maximum(1.0, np.abs(ref[fin]))))
+        what = "max |loss diff| / max(1, |loss|), NaN for NaN"
+    else:
+        same = True
+        diff = float(np.max(np.abs(got - ref)))
+        what = "max |loss diff|"
     print(f"[main {tag}] first {CPU_CHECK_STEPS} rounds vs the CPU "
-          f"plain path: c_k identical, max |loss diff| {diff:.3e} (limit "
-          f"{TRAJ_TOL})", flush=True)
-    if not diff <= TRAJ_TOL:
+          f"plain path: c_k identical, {what} {diff:.3e} (limit "
+          f"{traj_tol})", flush=True)
+    if not (same and diff <= traj_tol):
         raise AssertionError(f"{tag}: loss differs from the CPU path "
-                             f"by {diff}")
+                             f"by {diff} (NaN rounds alike: {same})")
     return {"method": spec["method"], "aggregator": spec["aggregator"],
+            "compressor": spec["compressor"],
             "n_workers": spec["n_workers"], "dim": spec["data_kwargs"]["dim"],
             "launches": counts,
             "rounds": len(hist), "full_rounds": full,
             "per_round_ms": per_round_ms, "run_wall_s": wall,
             "final_loss": losses[-1], "first_loss": losses[0],
-            "cpu_loss_diff": diff}
+            "cpu_loss_diff": diff, "diverges": diverges}
+
+
+def ops_wire_path(dev, card):
+    """The ``kernels.ops`` entry points on the dense wires and on a
+    bfloat16 stack at gisette width (5 workers, bucketing s = 2), the
+    counts set to 0 just before: ``wire_agg`` with cm, RFA and Krum on an
+    int8 payload with a shared base and on sign and bf16 payloads with
+    per-worker bases, and ``robust_agg``, ``rfa_agg`` and ``krum_agg`` on
+    the bf16 stack. Each result against the same call on CPU copies of
+    the inputs (the plain versions): KERNEL_TOL of the largest input for
+    cm (W·x in another order), 2e-5 for RFA and Krum."""
+    from repro_torch import random as R
+    from repro_torch.kernels import ops, quantize
+    n, d = 5, 5000
+    g = torch.Generator(device=dev).manual_seed(d)
+    key = R.PRNGKey(7, device=dev)
+    inputs = []
+    for fmt, base_rows in OPS_WIRES:
+        rows = torch.randn(n, d, device=dev, generator=g)
+        keys = R.fold_in(R.PRNGKey(d, device=dev),
+                         torch.arange(n, device=dev))
+        pay = quantize.PACK[fmt](keys, rows)
+        inputs.append((fmt, quantize.WireSrc(
+            fmt=fmt, n=n, d=d, arrays=tuple(pay.items()),
+            base=torch.randn(base_rows, d, device=dev, generator=g))))
+    stack = torch.randn(n, d, device=dev, generator=g).bfloat16()
+
+    def calls(on):
+        out = {}
+        for fmt, src in inputs:
+            src = on(src)
+            for rule in OPS_RULES:
+                out[f"wire_agg {fmt} {rule}"] = ops.wire_agg(
+                    src, on(key), bucket_size=2, rule=rule)
+        x = on(stack)
+        out["robust_agg bf16 stack"] = ops.robust_agg(x, on(key),
+                                                      bucket_size=2)
+        out["rfa_agg bf16 stack"] = ops.rfa_agg(x, on(key), bucket_size=2)
+        out["krum_agg bf16 stack"] = ops.krum_agg(x, on(key), bucket_size=2)
+        return out
+
+    reset_counts()
+    got = calls(lambda t: t)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want_counts = dict.fromkeys(COUNTED, 0)
+    for load in ("int8", "sign", "bf16", "dense_bf16"):
+        for name, times in (("robust_agg", 1), ("rfa_iter", 8),
+                            ("weighted_sum", 2), ("pair_gram", 1)):
+            _add(want_counts, name, load, times)
+    if counts != want_counts:
+        raise AssertionError(f"ops wire path: launches {nonzero(counts)}, "
+                             f"expected {nonzero(want_counts)}")
+
+    def to_cpu(t):
+        if isinstance(t, quantize.WireSrc):
+            return quantize.WireSrc(
+                fmt=t.fmt, n=t.n, d=t.d,
+                arrays=tuple((k, a.cpu()) for k, a in t.arrays),
+                base=t.base.cpu(), cand_dtype=t.cand_dtype)
+        return t.cpu()
+
+    want = calls(to_cpu)
+    scale = max(1.0, float(stack.float().abs().max()),
+                 *(float(quantize.recon(src).abs().max())
+                   for _, src in inputs))
+    errs = {}
+    for name, out in got.items():
+        err = float((out.cpu() - want[name]).abs().max())
+        limit = (KERNEL_TOL if "median" in name or "robust" in name
+                 else TRAJ_TOL) * scale
+        errs[name] = err
+        if not (out.shape == (d,) and torch.isfinite(out).all()
+                and err <= limit):
+            raise AssertionError(f"ops {name}: max abs err {err} > {limit}")
+    print(f"[ops wire] kernels.ops on the int8, sign and bf16 wires and a "
+          f"bf16 stack (n={n}, d={d}): launches {nonzero(counts)}; against "
+          f"the plain versions, max abs err {max(errs.values()):.3e} "
+          f"[{card}]", flush=True)
+    return {"launches": counts, "max_abs_err": errs}
 
 
 def kernel_entry(name, source, replaces, launches, rows):
@@ -826,6 +1024,19 @@ def main() -> int:
                         for r in norm_case(c[:7] + c[8:], dev)]
     norm_masked_wide = [r for c in MASKED_WIDE_CASES
                         for r in norm_case(c[:7] + c[8:], dev)]
+    load_main = [kernel_case(c, dev) for c in LOAD_MAIN_CASES]
+    load_wide = [kernel_case(c, dev)
+                 for c in LOAD_WIDE_CASES + [LOAD_BF16_STACK_CASE]]
+    load_norm_main = [r for c in LOAD_MAIN_CASES
+                      for r in norm_case(c[:7], dev)]
+    load_norm_wide = [r for c in LOAD_WIDE_CASES
+                      for r in norm_case(c[:7], dev)]
+    load_masked_main = [kernel_case(c, dev) for c in LOAD_MASKED_MAIN_CASES]
+    load_masked_wide = [kernel_case(c, dev) for c in LOAD_MASKED_WIDE_CASES]
+    load_norm_masked_main = [r for c in LOAD_MASKED_MAIN_CASES
+                             for r in norm_case(c[:7] + c[8:], dev)]
+    load_norm_masked_wide = [r for c in LOAD_MASKED_WIDE_CASES
+                             for r in norm_case(c[:7] + c[8:], dev)]
     paths = {}
     for agg in ("cm", "rfa", "krum"):
         paths[agg] = main_path(
@@ -855,38 +1066,76 @@ def main() -> int:
             {**MAIN_SPEC, **GIANT_PART_SPEC, "aggregator": agg},
             lambda f, v, r, a=agg: expected_counts(a, f, v, giant=True))
 
-    def launches(name):
-        return sum(p["launches"][name] for p in paths.values())
+    for agg in ("cm", "rfa", "krum"):
+        paths[f"marina int8 {agg}"] = main_path(
+            dev, card, f"marina int8 {agg}", {**INT8_SPEC, "aggregator": agg},
+            lambda f, v, r, a=agg: expected_counts(a, f, v, fmt="int8"),
+            traj_tol=QUANT_TRAJ_TOL)
+    paths["byz_ef21 sign"] = main_path(
+        dev, card, "byz_ef21 sign", dict(SIGN_SPEC),
+        lambda f, v, r: ef21_counts(r, fmt="sign"), traj_tol=QUANT_TRAJ_TOL)
+    paths["byz_ef21 bf16"] = main_path(
+        dev, card, "byz_ef21 bf16", dict(BF16_SPEC),
+        lambda f, v, r: ef21_counts(r, fmt="bf16"), traj_tol=QUANT_TRAJ_TOL)
+    # corrupt_wire flips 8-bit levels and float32 norms; the guard admits a
+    # finite garbled norm by design, and with ALIE's statistics taking it
+    # in the run diverges, in the reference as here
+    paths["marina int8 cm chaos"] = main_path(
+        dev, card, "marina int8 cm chaos", {**INT8_SPEC, **CHAOS_SPEC},
+        lambda f, v, r: expected_counts("cm", f, v, guard=True, fmt="int8"),
+        diverges=True, traj_tol=QUANT_TRAJ_TOL)
+    paths["byz_ef21 bf16 krum chaos"] = main_path(
+        dev, card, "byz_ef21 bf16 krum chaos",
+        {**BF16_SPEC, **CHAOS_SPEC, "aggregator": "krum"},
+        lambda f, v, r: ef21_counts(r, fmt="bf16", aggregator="krum",
+                                    guard=True), traj_tol=QUANT_TRAJ_TOL)
+    paths["ops wire"] = ops_wire_path(dev, card)
 
-    wire_masked = launches("robust_agg_masked_wire")
-    dense_masked = launches("robust_agg_masked") - wire_masked
-    robust_launches = {
-        "dense": launches("robust_agg") - launches("robust_agg_wire")
-        - dense_masked,
-        "sparse_wire": launches("robust_agg_wire") - wire_masked}
+    def launches(*keys):
+        return sum(p["launches"][k] for p in paths.values() for k in keys)
+
     kernels = []
-    for kind in ("dense", "sparse_wire"):
+    for kind, load in (("dense", "dense"), ("sparse_wire", "sparse")):
         kernels.append(kernel_entry(
             f"robust_agg ({kind} load)",
             "src/repro_torch/kernels/csrc/robust_agg.cu", REPLACES[kind],
-            robust_launches[kind],
+            launches(f"robust_agg/{load}"),
             [r for r in main_rows if r["kind"] == kind]))
-    for kind, n in (("dense", dense_masked), ("sparse_wire", wire_masked)):
+    for kind, load in (("dense", "dense"), ("sparse_wire", "sparse")):
         kernels.append(kernel_entry(
             f"robust_agg ({kind} load, masked)",
             "src/repro_torch/kernels/csrc/robust_agg.cu",
-            REPLACES["masked" if kind == "dense" else kind], n,
+            REPLACES["masked" if kind == "dense" else kind],
+            launches(f"robust_agg/{load} masked"),
             [r for r in masked_main if r["kind"] == kind]))
     for name in NORM_KERNELS:
         kernels.append(kernel_entry(
             name, "src/repro_torch/kernels/csrc/norm_agg.cu",
-            REPLACES[name], launches(name) - launches(f"{name}_masked"),
+            REPLACES[name], launches(f"{name}/dense", f"{name}/sparse"),
             [r for r in norm_main if r["kernel"] == name]))
         kernels.append(kernel_entry(
             f"{name} (masked load)",
             "src/repro_torch/kernels/csrc/norm_agg.cu", REPLACES[name],
-            launches(f"{name}_masked"),
+            launches(f"{name}/dense masked", f"{name}/sparse masked"),
             [r for r in norm_masked_main if r["kernel"] == name]))
+    # this slice's loads: a row for each fused kernel and load that a path
+    # launched, masked apart; every (kernel, load) pair, masked or not, is
+    # held to its plain version above whether a path reaches it or not
+    for load in NEW_LOADS:
+        for name in FUSED_KERNELS:
+            for tag, rows in (("", load_main + load_norm_main),
+                              (" masked", load_masked_main
+                               + load_norm_masked_main)):
+                n_launch = launches(f"{name}/{load}{tag}")
+                if not n_launch:
+                    continue
+                src = ("robust_agg.cu" if name == "robust_agg"
+                       else "norm_agg.cu")
+                kernels.append(kernel_entry(
+                    f"{name} ({load} load{',' if tag else ''}{tag})",
+                    f"src/repro_torch/kernels/csrc/{src}", REPLACES[load],
+                    n_launch, [r for r in rows if r["kind"] == load
+                               and r["kernel"] == name]))
     for name in BLOCKED_KERNELS:
         kernels.append(kernel_entry(
             name, "src/repro_torch/kernels/csrc/norm_agg_blocked.cu",
@@ -911,6 +1160,13 @@ def main() -> int:
          "masked_main_cases": masked_main, "masked_wide_cases": masked_wide,
          "norm_masked_main_cases": norm_masked_main,
          "norm_masked_wide_cases": norm_masked_wide,
+         "load_main_cases": load_main, "load_wide_cases": load_wide,
+         "load_norm_main_cases": load_norm_main,
+         "load_norm_wide_cases": load_norm_wide,
+         "load_masked_main_cases": load_masked_main,
+         "load_masked_wide_cases": load_masked_wide,
+         "load_norm_masked_main_cases": load_norm_masked_main,
+         "load_norm_masked_wide_cases": load_norm_masked_wide,
          "block_quantize_cases": quant["cases"],
          "main_paths": paths, "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))

@@ -116,13 +116,17 @@ def run(spec, device=None, *, log_every: int = 10,
     state = exp.method.init(params, exp.anchor(0), k_run)
     history = []
     comm_bits = 0.0
+    # under partial participation only the sampled cohort uploads: each
+    # round is billed at n_active / n_workers of its bits, the measured
+    # twin of theory.comm_bits_per_round(..., participation=...)
+    part_frac = spec.resolved_participation() / spec.n_workers
     t0 = time.time()
     for it in range(spec.steps):
         k_step, k_batch = R.split(R.fold_in(k_run, it + 1))
         state, metrics = exp.method.step(state, exp.minibatch(it, k_batch),
                                          exp.anchor(it), k_step)
-        comm_bits += exp.method.round_bits(n_params,
-                                           bool(metrics.get("c_k", 1)))
+        comm_bits += part_frac * exp.method.round_bits(
+            n_params, bool(metrics.get("c_k", 1)))
         if it % max(log_every, 1) == 0 or it == spec.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m.update(step=it, wall_s=round(time.time() - t0, 2),

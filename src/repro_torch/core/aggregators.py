@@ -43,6 +43,24 @@ def xla_sum_rows(rows):
                          for a, b in zip(cuts, cuts[1:])])
 
 
+def xla_sum_lanes(x):
+    """Σ over the last axis of a float32 tensor in ``xla_sum_rows``'s
+    order (XLA on the CPU reduces a lane axis in the same windows of 32),
+    vectorized over the windows, so a leaf of millions of coordinates
+    sums in a few passes."""
+    width = x.shape[-1]
+    if width > XLA_REDUCE_WINDOW:
+        k = -(-width // XLA_REDUCE_WINDOW)
+        lo = (k * XLA_REDUCE_WINDOW - width) // 2
+        x = F.pad(x, (lo, k * XLA_REDUCE_WINDOW - width - lo))
+        x = xla_sum_lanes(x.reshape(x.shape[:-1] + (k, XLA_REDUCE_WINDOW)))
+        return xla_sum_lanes(x)
+    acc = x[..., 0]
+    for i in range(1, width):
+        acc = acc + x[..., i]
+    return acc
+
+
 def mean0(x, dim: int = 0):
     """Float32 mean as the reference's compiled code takes it: the sum of
     ``xla_sum_rows``, times the rounded reciprocal of the count."""
@@ -147,9 +165,41 @@ def masked_coord_trimmed_mean(x, valid, trim: int):
             / torch.clamp(c - 2 * t, min=1).to(x.dtype))
 
 
+# float32 lanes of the vectors XLA on the CPU emits (256 bits)
+XLA_GEMV_LANES = 8
+
+
+def xla_gemv(w_mat, v):
+    """(m, n) W @ (n,) v as XLA on the CPU emits a matrix-vector product
+    (its tiled row-major GEMV): per row, the columns of whole 8-column
+    blocks accumulate lane by lane with fused multiply-adds, the last
+    n mod 8 columns into a scalar likewise, then the 8 lanes are summed,
+    pairwise ((l0+l1)+(l2+l3))+((l4+l5)+(l6+l7)) in whole tiles of 8 rows
+    and by halves ((l0+l4)+(l2+l6))+((l1+l5)+(l3+l7)) in the last partial
+    tile, and the scalar is added."""
+    m, n = w_mat.shape
+    lanes = XLA_GEMV_LANES
+    body = n - n % lanes
+    acc = torch.zeros(m, lanes, dtype=torch.float32, device=v.device)
+    for c in range(0, body, lanes):
+        acc = fma_f32(w_mat[:, c:c + lanes], v[None, c:c + lanes], acc)
+    tail = torch.zeros(m, dtype=torch.float32, device=v.device)
+    for c in range(body, n):
+        tail = fma_f32(w_mat[:, c], v[c], tail)
+    a = acc.unbind(1)
+    pairwise = ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]))
+    halves = ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7]))
+    full_tiles = torch.arange(m, device=v.device) < m - m % lanes
+    return torch.where(full_tiles, pairwise, halves) + tail
+
+
 def bucket_rows(w_mat, a):
-    """W @ a over the leading axis, one fused multiply-add per row in row
-    order for each bucket (the reference's compiled einsum)."""
+    """W @ a over the leading axis as the reference's compiled einsum
+    takes it: a 1-D leaf into more than one bucket is a matrix-vector
+    product (``xla_gemv``); otherwise one fused multiply-add per row in
+    row order for each bucket."""
+    if a.dim() == 1 and w_mat.shape[0] > 1:
+        return xla_gemv(w_mat.float(), a.float())
     flat = a.reshape(a.shape[0], -1).float()
     out = torch.stack([weighted_rows(w, flat) for w in w_mat.float()])
     return out.reshape((w_mat.shape[0],) + tuple(a.shape[1:]))

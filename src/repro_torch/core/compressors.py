@@ -1,10 +1,18 @@
 """Compression operators (port of ``repro/core/compressors.py``).
 
 Ported: ``identity``, ``rand_k`` (per-coordinate selection and the
-contiguous-block selection above ``_MAX_UNITS`` units) and ``top_k``. The
-other registry entries are named so specs validate, and raise
-``NotImplementedError`` when built; ``CONTRACTIVE`` names the entries with
-a contraction bound, ported or not, for ``byz_ef21``'s guard.
+contiguous-block selection above ``_MAX_UNITS`` units), ``top_k``,
+``sign_compressor``, ``int8_quantization`` (blockwise ℓ2 dithering onto
+int8 levels) and ``bf16_cast``. ``dither`` and ``natural`` are named so
+specs validate, and raise ``NotImplementedError`` when built;
+``CONTRACTIVE`` names the entries with a contraction bound, ported or not,
+for ``byz_ef21``'s guard.
+
+The float32 arithmetic is the reference's compiled code's: a sum over a
+leaf or a block follows XLA's windows of 32 lanes
+(``aggregators.xla_sum_lanes``), a division by a constant is a product
+with its rounded reciprocal, and the dither's ``scaled·127 + u`` is one
+fused multiply-add.
 """
 from __future__ import annotations
 
@@ -12,8 +20,11 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import random as R
+from repro_torch.core.aggregators import xla_sum_lanes
+from repro_torch.core.attacks import fma_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +145,114 @@ def top_k(ratio: float = 0.1) -> Compressor:
         contractive_fn=lambda d: 1.0 - _k(d) / d, wire_format="sparse")
 
 
+def _rcp(v) -> torch.Tensor:
+    """float32 1/v, correctly rounded: XLA's product for a division by the
+    constant v."""
+    return torch.ones((), dtype=torch.float32) / v
+
+
+def sign_scale(x):
+    """(..., d) -> (..., 1) float32 mean(|x|) over the last axis: the sum
+    in XLA's lane order times the rounded 1/d."""
+    xf = x.float()
+    return (xla_sum_lanes(xf.abs()) * _rcp(xf.shape[-1]).to(xf.device)
+            )[..., None]
+
+
+def sign_compressor() -> Compressor:
+    """sign(x)·‖x‖₁/d, biased and contractive:
+    ‖C(x) − x‖² ≤ (1 − 1/d)‖x‖². Wire: one bit a coordinate and a float32
+    scale."""
+
+    def compress(key, x):
+        xf = x.reshape(-1).float()
+        return (torch.sign(xf) * sign_scale(xf)).reshape(x.shape).to(x.dtype)
+
+    return Compressor(
+        name="sign", compress=compress,
+        omega_fn=lambda d: float("nan"),     # not unbiased; no omega
+        bits_fn=lambda d: d + 32,
+        density_fn=lambda d: d,
+        contractive_fn=lambda d: 1.0 - 1.0 / d, wire_format="sign")
+
+
+INT8_BLOCK = 256       # coordinates sharing one float32 ℓ2 norm
+INT8_LEVELS = 127      # the levels fit a signed int8
+
+
+def block_norms(xb):
+    """(..., blocks, B) float32 -> (..., blocks, 1) ℓ2 norms, as the
+    reference's compiled code takes them: the rounded squares summed over
+    the lanes in XLA's windows of 32 (``xla_sum_lanes``), then a correctly
+    rounded square root (``torch.sqrt`` on the CPU is not: the root is
+    taken in float64 and rounded once)."""
+    total = xla_sum_lanes(xb * xb)
+    return torch.sqrt(total.double()).float()[..., None]
+
+
+def _int8_encode(key, x):
+    """Blockwise ℓ2 dithering onto signed int8 levels, the encoder that
+    ``compress`` and ``quantize.pack_int8`` share. key (..., 2), x (..., d)
+    -> (levels (..., nb, B) int8, norms (..., nb) float32) over the
+    zero-padded blocks; the dither is drawn over the padded (nb, B)
+    shape."""
+    xf = x.float()
+    d = xf.shape[-1]
+    xb = F.pad(xf, (0, (-d) % INT8_BLOCK))
+    xb = xb.reshape(xb.shape[:-1] + (-1, INT8_BLOCK))
+    norm = block_norms(xb)
+    zero = torch.zeros((), device=x.device)
+    scaled = torch.where(norm > 0, xb.abs() / torch.clamp(norm, min=1e-30),
+                         zero)
+    u = R.uniform(key, xb.shape[-2:]).to(x.device)
+    level = torch.floor(fma_f32(scaled, torch.tensor(float(INT8_LEVELS),
+                                                     device=x.device), u))
+    return (torch.sign(xb) * level).to(torch.int8), norm[..., 0]
+
+
+def int8_products(levels, norms):
+    """(..., nb, B) int8 levels, (..., nb) norms -> (..., nb·B) float32
+    norm·level, the decode before its division by 127."""
+    out = norms[..., None] * levels.float()
+    return out.reshape(out.shape[:-2] + (-1,))
+
+
+def _int8_decode(levels, norms):
+    """(..., nb, B) int8 + (..., nb) float32 -> (..., nb·B) float32
+    dequantized values: norm·level times the rounded 1/127."""
+    return int8_products(levels, norms) * _rcp(INT8_LEVELS).to(norms.device)
+
+
+def int8_quantization() -> Compressor:
+    """Blockwise ℓ2 dithering packed into an int8 wire (QSGD with s = 127
+    levels per 256-coordinate block). Unbiased, ω ≤ min(B/s², √B/s);
+    wire: 8 bits a coordinate and a float32 norm per block."""
+    s, b = INT8_LEVELS, INT8_BLOCK
+
+    def compress(key, x):
+        levels, norms = _int8_encode(key, x.reshape(-1))
+        out = _int8_decode(levels, norms)
+        return out[:x.numel()].reshape(x.shape).to(x.dtype)
+
+    return Compressor(
+        name="int8", compress=compress,
+        omega_fn=lambda d: min(b / s**2, (b ** 0.5) / s),
+        bits_fn=lambda d: 8 * d + 32 * (-(-d // b)),
+        density_fn=lambda d: d, wire_format="int8")
+
+
+def bf16_cast() -> Compressor:
+    """Round to bfloat16 (nearest even) and back: biased, contractive with
+    δ = 2⁻¹⁶. Wire: 16 bits a coordinate."""
+    return Compressor(
+        name="bf16",
+        compress=lambda key, x: x.to(torch.bfloat16).to(x.dtype),
+        omega_fn=lambda d: float("nan"),     # deterministic rounding: biased
+        bits_fn=lambda d: 16 * d,
+        density_fn=lambda d: d,
+        contractive_fn=lambda d: 2.0 ** -16, wire_format="bf16")
+
+
 def _not_ported(name):
     def factory(**kw):
         raise NotImplementedError(
@@ -146,8 +265,11 @@ REGISTRY = {
     "identity": identity,
     "randk": rand_k,
     "topk": top_k,
-    **{nm: _not_ported(nm)
-       for nm in ("dither", "natural", "sign", "int8", "bf16")},
+    "dither": _not_ported("dither"),
+    "natural": _not_ported("natural"),
+    "sign": sign_compressor,
+    "int8": int8_quantization,
+    "bf16": bf16_cast,
 }
 
 # the entries whose compressor has a ``contractive_fn``, as in the reference

@@ -1,5 +1,6 @@
 """The wire protocol layer: compressed payloads from worker to kernel
-(port of ``repro/core/wire.py``, sparse RandK and TopK wire).
+(port of ``repro/core/wire.py``): the sparse RandK and TopK wire, and the
+dense int8, sign and bf16 wires.
 
 Under ``agg_mode="pallas"`` MARINA's VR round and every Byz-EF21 round
 hand the engine a ``WireCandidates`` payload instead of the dense
@@ -10,18 +11,22 @@ candidates never exist in device memory. The base is MARINA's shared g^k
 
 * ``pack_candidates``  — per (worker, leaf) packing on compress_tree's key
                          schedule (fold_in(worker_key, leaf_index)), so the
-                         RandK and TopK supports equal the dense
-                         compressor's.
+                         RandK and TopK supports and the int8 dither equal
+                         the dense compressor's.
 * ``decoded_payload``  — dense tree equal to compress_tree per worker.
 * ``reconstruct``      — the dense candidate tree (base + decoded).
-* ``wire_stats``       — good-worker mean/std read from the wire with flat
-                         scatter-adds, never an (n, d) scatter.
+* ``measured_bits``    — the semantic bits of a packed payload, and
+  ``tree_wire_bits``     their twin from static shapes.
+* ``wire_stats``       — good-worker mean/std read from the wire: the sparse
+                         wire with flat scatter-adds, never an (n, d)
+                         scatter; the dense formats decoded elementwise.
 * ``wire_message_phase`` — attack + aggregation over the wire, with the
                          fault guard's decode check.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -29,6 +34,8 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
+from repro_torch.core.aggregators import xla_sum_rows
+from repro_torch.core.attacks import fma_f32
 from repro_torch.core.compressors import _MAX_UNITS
 from repro_torch.kernels import quantize
 
@@ -69,23 +76,28 @@ def wire_supported(cfg, stacked=None) -> bool:
     return True
 
 
+def _pack_fn(compressor):
+    """(key (n, 2), x (n, d)) -> the worker-stacked payload of a leaf."""
+    fmt = compressor.wire_format
+    if fmt == "sparse":
+        # TopK is the contractive sparse operator, RandK the unbiased one
+        return functools.partial(quantize.pack_sparse, ratio=compressor.ratio,
+                                 topk=compressor.contractive_fn is not None)
+    return quantize.PACK[fmt]
+
+
 def pack_candidates(compressor, qkeys, stacked: dict, *, base=None,
                     base_shared: bool = False) -> WireCandidates:
     """Pack the stacked tree; leaf i of worker w packs under
     fold_in(qkeys[w], i), as compress_tree does."""
-    if compressor.wire_format != "sparse":
-        raise NotImplementedError(
-            f"wire format {compressor.wire_format!r} is not ported yet "
-            "(ROADMAP queue 2)")
     names = tuple(sorted(stacked))
     n = stacked[names[0]].shape[0]
+    fn = _pack_fn(compressor)
     base_leaves = tu.leaves(base) if base is not None else [None] * len(names)
     payloads, bases, shapes, dtypes, src_dtypes = [], [], [], [], []
     for i, name in enumerate(names):
         leaf = stacked[name]
-        payloads.append(quantize.pack_sparse(
-            R.fold_in(qkeys, i), leaf.reshape(n, -1), compressor.ratio,
-            topk=compressor.contractive_fn is not None))
+        payloads.append(fn(R.fold_in(qkeys, i), leaf.reshape(n, -1)))
         shapes.append(tuple(leaf.shape[1:]))
         src_dtypes.append(leaf.dtype)
         b = base_leaves[i]
@@ -96,7 +108,7 @@ def pack_candidates(compressor, qkeys, stacked: dict, *, base=None,
             bases.append(b.reshape(1 if base_shared else n, -1))
             dtypes.append(torch.promote_types(b.dtype, leaf.dtype))
     return WireCandidates(
-        fmt="sparse", n=n, payloads=tuple(payloads),
+        fmt=compressor.wire_format, n=n, payloads=tuple(payloads),
         base=None if base is None else tuple(bases), names=names,
         shapes=tuple(shapes), dtypes=tuple(dtypes),
         src_dtypes=tuple(src_dtypes))
@@ -116,9 +128,8 @@ def reconstruct(wc: WireCandidates) -> dict:
     out = {}
     for j, (name, p, sh, dt) in enumerate(zip(wc.names, wc.payloads,
                                               wc.shapes, wc.dtypes)):
-        x = quantize.decode(wc.fmt, p, _leaf_d(sh)).to(dt)
-        if wc.base is not None:
-            x = (x.float() + wc.base[j].float()).to(dt)
+        base = None if wc.base is None else wc.base[j]
+        x = quantize.recon_rows(wc.fmt, p, _leaf_d(sh), base, dt).to(dt)
         out[name] = x.expand(wc.n, -1).reshape((wc.n,) + sh)
     return out
 
@@ -133,18 +144,43 @@ def wire_srcs(wc: WireCandidates) -> list:
                                             wc.dtypes))]
 
 
-def _semantic_bits(fmt, d, *, k=None, vbits=32) -> float:
-    """Bits one worker's leaf payload carries (sparse: values + 32-bit
-    indices)."""
+def _semantic_bits(fmt, d, *, k=None, vbits=32, nblocks=None) -> float:
+    """Bits one worker's leaf payload carries: values at their packed
+    precision, plus 32-bit indices, norms or scale. A sign is one bit
+    (the int8 array is the device layout, not the wire's entropy)."""
     if fmt == "sparse":
         return k * (vbits + 32)
-    raise NotImplementedError(
-        f"wire format {fmt!r} is not ported yet (ROADMAP queue 2)")
+    if fmt == "int8":
+        return 8 * d + 32 * nblocks
+    if fmt == "sign":
+        return d + 32
+    if fmt == "bf16":
+        return 16 * d
+    raise ValueError(fmt)
+
+
+def measured_bits(wc: WireCandidates) -> float:
+    """Semantic wire bits per worker per round, read off the packed
+    arrays (the k, block counts and value dtypes the kernels consume)."""
+    total = 0.0
+    for p, sh in zip(wc.payloads, wc.shapes):
+        d = _leaf_d(sh)
+        if wc.fmt == "sparse":
+            total += _semantic_bits("sparse", d, k=p["vals"].shape[-1],
+                                    vbits=p["vals"].element_size() * 8)
+        elif wc.fmt == "int8":
+            total += _semantic_bits("int8", d,
+                                    nblocks=p["norms"].shape[-1])
+        else:
+            total += _semantic_bits(wc.fmt, d)
+    return float(total)
 
 
 def tree_wire_bits(compressor, stacked: dict) -> float:
-    """Per-worker wire bits of one compressed upload of ``stacked``, from
-    static shapes (the twin of the reference's measured bits)."""
+    """What ``measured_bits(pack_candidates(...))`` returns, from static
+    shapes alone, so that both backends report the same per-round
+    ``wire_bits``; the theory accounting (``Compressor.tree_bits``) for a
+    compressor without a kernel wire."""
     fmt = compressor.wire_format
     leaves = tu.leaves(stacked)
     dims = [_leaf_d(l.shape[1:]) for l in leaves]
@@ -152,30 +188,54 @@ def tree_wire_bits(compressor, stacked: dict) -> float:
         return compressor.tree_bits(dims)
     total = 0.0
     for leaf, d in zip(leaves, dims):
-        total += _semantic_bits(fmt, d, k=max(int(compressor.ratio * d), 1),
-                                vbits=leaf.element_size() * 8)
+        if fmt == "sparse":
+            total += _semantic_bits(
+                "sparse", d, k=max(int(compressor.ratio * d), 1),
+                vbits=leaf.element_size() * 8)
+        elif fmt == "int8":
+            total += _semantic_bits("int8", d,
+                                    nblocks=-(-d // quantize.INT8_BLOCK))
+        else:
+            total += _semantic_bits(fmt, d)
     return float(total)
 
 
 def wire_stats(wc: WireCandidates, good_mask, sanitize: bool = False):
     """Good-worker per-coordinate (mean, std) of the candidates, as
-    per-leaf flat (d_j,) lists, from the sparse wire: a flat scatter-add
-    for Σ w·q and gathered cross-terms for Σ w·(x - m)².
+    per-leaf flat (d_j,) lists. A sparse float32 leaf takes a flat
+    scatter-add for Σ w·q and gathered cross-terms for Σ w·(x - m)²; the
+    dense formats (and a sparse leaf of another candidate dtype) decode
+    elementwise (``quantize.recon_rows``) and take the masked mean and
+    variance over the rows in XLA's row order (``xla_sum_rows``), each
+    divided by the good count.
 
-    ``sanitize`` (fault guard): the masked-out rows' values and indices
-    are zeroed first, since a zero weight does not neutralize a NaN value
-    and a garbled index would scatter out of range."""
+    ``sanitize`` (fault guard): the masked-out rows are zeroed first (the
+    sparse wire's values and indices), since a zero weight does not
+    neutralize a NaN value and a garbled index would scatter out of
+    range."""
     g = good_mask.float()
     cnt = torch.clamp(g.sum(), min=1.0)
     w = g[:, None]
     means, stds = [], []
     for j, (p, sh, dt) in enumerate(zip(wc.payloads, wc.shapes, wc.dtypes)):
-        if wc.fmt != "sparse" or dt != torch.float32:
-            raise NotImplementedError(
-                "wire stats of non-float32 or non-sparse payloads are not "
-                "ported yet (ROADMAP queue 2)")
         d = _leaf_d(sh)
         base = None if wc.base is None else wc.base[j]
+        if wc.fmt != "sparse" or dt != torch.float32:
+            x = quantize.recon_rows(wc.fmt, p, d, base, dt).expand(wc.n, d)
+            if sanitize:
+                x = torch.where(w > 0.0, x, 0.0)
+            m = xla_sum_rows(list((x * w).unbind(0))) / cnt
+            if (wc.fmt == "int8" and base is None and dt == torch.float32
+                    and not sanitize):
+                # XLA fuses the decode's product into x - m
+                prod, rcp = quantize.int8_parts(p, d)
+                diff = fma_f32(prod, rcp, -m)
+            else:
+                diff = x - m[None]
+            var = xla_sum_rows(list((diff.square() * w).unbind(0))) / cnt
+            means.append(m)
+            stds.append(_sqrt_f32(var))
+            continue
         vals = p["vals"].float()                          # (n, k)
         idx = p["idx"].long()                             # (n, k)
         if sanitize:
@@ -203,8 +263,14 @@ def wire_stats(wc: WireCandidates, good_mask, sanitize: bool = False):
                 0, fi, (w * vals * (2.0 * (bg - mg) + vals)).reshape(-1))
             var = (t1 + cross) / cnt
         means.append(m)
-        stds.append(torch.sqrt(torch.clamp(var, min=0.0)))
+        stds.append(_sqrt_f32(var))
     return means, stds
+
+
+def _sqrt_f32(var):
+    """sqrt(max(var, 0)) correctly rounded (``torch.sqrt`` on the CPU is
+    not): taken in float64 and rounded once."""
+    return torch.sqrt(torch.clamp(var, min=0.0).double()).float()
 
 
 def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
@@ -236,7 +302,7 @@ def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
         raise NotImplementedError(
             f"attack {cfg.attack.name!r} over the wire is not ported yet "
             "(ROADMAP queue 1, item 3)")
-    mask = cfg.byz_mask(wc.payloads[0]["vals"].device)
+    mask = cfg.byz_mask(next(iter(wc.payloads[0].values())).device)
     means = stds = None
     if cfg.attack.needs_mean or cfg.attack.needs_std:
         good = ~mask if valid is None else ~mask & valid

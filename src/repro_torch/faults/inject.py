@@ -88,18 +88,24 @@ def inject_candidates(plan: FaultPlan, key, cand: dict) -> dict:
     return cand
 
 
+_CARRIER = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
 def _flip_bits(arr, key):
-    """XOR every element with 32 random bits (``jax.random.bits``), through
-    the int32 carrier: a float32 payload through ``view(torch.int32)``,
-    an int32 index directly. The sparse wire carries nothing narrower."""
-    if arr.element_size() != 4:
-        raise NotImplementedError(
-            f"bit flips of {arr.dtype} payloads are not ported yet (ROADMAP "
-            "queue 2)")
-    bits = arr.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    flipped = bits ^ R.random_bits(key, tuple(arr.shape))
-    flipped = torch.where(flipped >= 1 << 31, flipped - (1 << 32), flipped)
-    return flipped.to(torch.int32).view(arr.dtype)
+    """XOR every element with random bits of its own width through the
+    same-width integer carrier (float32 and int32 take 32 bits, bfloat16
+    16, the int8 levels and signs 8). ``jax.random.bits`` of a uint8 or
+    uint16 carrier is the low 8 or 16 bits of the 32-bit draw, so one
+    ``random_bits`` serves every width."""
+    width = 8 * arr.element_size()
+    if arr.element_size() not in _CARRIER:
+        raise ValueError(f"no bit-flip carrier for {arr.dtype}")
+    carrier = _CARRIER[arr.element_size()]
+    top = 1 << width
+    bits = arr.view(carrier).to(torch.int64) & (top - 1)
+    flipped = bits ^ (R.random_bits(key, tuple(arr.shape)) & (top - 1))
+    flipped = torch.where(flipped >= top >> 1, flipped - top, flipped)
+    return flipped.to(carrier).view(arr.dtype)
 
 
 def inject_wire(plan: FaultPlan, key, wc):

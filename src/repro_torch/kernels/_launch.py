@@ -1,7 +1,7 @@
 """What every CUDA aggregation launch shares: argument checks, the
 worker-stack arguments that lead each fused entry point's C signature
-(``SRC_PARAMS`` in ``csrc/agg_prologue.cuh``), in that order, and the
-dense stack of the blocked kernels."""
+(``SRC_PARAMS`` in ``csrc/agg_prologue.cuh``), in that order, the
+launch counts per load, and the dense stack of the blocked kernels."""
 from __future__ import annotations
 
 import ctypes
@@ -12,11 +12,40 @@ from repro_torch.core.aggregators import MAX_FUSED_WORKERS
 from repro_torch.core.attacks import attack_code
 from repro_torch.kernels import quantize
 
-SRC_ARGTYPES = ([ctypes.c_void_p] * 4
-                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                + [ctypes.c_void_p] * 4
-                + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_longlong])
+_P, _I, _Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SRC_ARGTYPES = ([_P] * 4 + [_I, _P, _Q, _P, _I, _P, _I] + [_P] * 4
+                + [_I, ctypes.c_float, _I, _I, _I, _Q])
+
+# the sources a fused kernel loads its worker stack from, in the order of
+# the LOAD_* codes of csrc/agg_prologue.cuh: the dense float32 / bfloat16
+# stack, or a wire payload (quantize.WireSrc) of each format
+LOADS = ("dense", "dense_bf16", "sparse", "int8", "sign", "bf16")
+
+
+def load_of(x) -> str:
+    """The load a kernel input takes: its wire format, or the dense stack
+    of its dtype."""
+    if isinstance(x, quantize.WireSrc):
+        return x.fmt
+    return "dense_bf16" if x.dtype == torch.bfloat16 else "dense"
+
+
+def reset_counts(fn) -> None:
+    """Zero a fused wrapper's counts: ``launches`` and ``masked_launches``
+    (those with a validity mask), and both split per load
+    (``load_launches``, ``masked_load_launches``)."""
+    fn.launches = fn.masked_launches = 0
+    fn.load_launches = dict.fromkeys(LOADS, 0)
+    fn.masked_load_launches = dict.fromkeys(LOADS, 0)
+
+
+def count(fn, load: str, masked: bool) -> None:
+    """One kernel launch of ``fn`` on ``load``."""
+    fn.launches += 1
+    fn.load_launches[load] += 1
+    if masked:
+        fn.masked_launches += 1
+        fn.masked_load_launches[load] += 1
 
 
 def on_cpu(who: str, device) -> bool:
@@ -51,38 +80,55 @@ def as_float_mask(m):
 
 def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
              valid=None):
-    """(args, keep): the ``SRC_PARAMS`` of a launch on the dense (n, d)
-    float32 stack or sparse ``quantize.WireSrc`` ``x``, and the tensors
-    made here that must stay alive until the launch is enqueued. ``valid``
-    (fault guard) is the optional (n,) row-validity mask, checked like
-    ``mask``."""
+    """(args, keep, load): the ``SRC_PARAMS`` of a launch on the dense
+    (n, d) float32 or bfloat16 stack or the ``quantize.WireSrc`` ``x``,
+    the tensors made here that must stay alive until the launch is
+    enqueued, and the load's name. ``valid`` (fault guard) is the
+    optional (n,) row-validity mask, checked like ``mask``."""
     if not 1 <= n <= MAX_FUSED_WORKERS:
         raise ValueError(f"{who} kernel takes 1..{MAX_FUSED_WORKERS} "
                          f"workers, got {n}")
     device = x.device
-    f32 = torch.float32
-    x_ptr = vals = idx = starts = base = None
-    k = base_rows = 0
+    f32, i8 = torch.float32, torch.int8
+    x_ptr = vals = idx = starts = q8 = qs = base = None
+    k = q8_ld = qs_ld = base_rows = 0
     keep = []
+    load = load_of(x)
     if isinstance(x, quantize.WireSrc):
-        if x.fmt != "sparse" or x.cand_dtype != f32:
-            raise NotImplementedError(
-                f"{who} kernel: {x.fmt} / {x.cand_dtype} wire loads are not "
-                "ported yet (ROADMAP queue 2)")
+        if x.cand_dtype not in (f32, torch.bfloat16):
+            raise TypeError(f"{who} kernel: candidates of {x.cand_dtype}")
+        cand_bf16 = x.cand_dtype == torch.bfloat16
         arr = dict(x.arrays)
-        k = arr["vals"].shape[1]
-        vals = check(who, "vals", arr["vals"], device, f32, (n, k))
-        idx = check(who, "idx", arr["idx"], device, torch.int32, (n, k))
-        st = quantize.wire_starts(arr["idx"], d, tile)
-        keep.append(st)
-        starts = st.data_ptr()
+        if load == "sparse":
+            k = arr["vals"].shape[1]
+            vals = check(who, "vals", arr["vals"], device, f32, (n, k))
+            idx = check(who, "idx", arr["idx"], device, torch.int32, (n, k))
+            st = quantize.wire_starts(arr["idx"], d, tile)
+            keep.append(st)
+            starts = st.data_ptr()
+        elif load == "int8":
+            qs_ld = -(-d // quantize.INT8_BLOCK)
+            q8_ld = qs_ld * quantize.INT8_BLOCK
+            q8 = check(who, "lev", arr["lev"], device, i8, (n, q8_ld))
+            qs = check(who, "norms", arr["norms"], device, f32, (n, qs_ld))
+        elif load == "sign":
+            q8_ld, qs_ld = d, 1
+            q8 = check(who, "signs", arr["signs"], device, i8, (n, d))
+            qs = check(who, "scale", arr["scale"], device, f32, (n, 1))
+        elif load == "bf16":
+            x_ptr = check(who, "vals", arr["vals"], device, torch.bfloat16,
+                          (n, d))
+        else:
+            raise ValueError(f"{who} kernel: wire format {x.fmt!r}")
         if x.base is not None:
             base_rows = x.base.shape[0]
             if base_rows not in (1, n):
                 raise ValueError(f"{who}: base has {base_rows} rows")
             base = check(who, "base", x.base, device, f32, (base_rows, d))
     else:
-        x_ptr = check(who, "x", x, device, f32, (n, d))
+        cand_bf16 = load == "dense_bf16"
+        x_ptr = check(who, "x", x, device,
+                      torch.bfloat16 if cand_bf16 else f32, (n, d))
     code = attack_code(attack)
     mask_ptr = mean_ptr = std_ptr = None
     if code:
@@ -100,10 +146,11 @@ def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
         valid = as_float_mask(valid)
         keep.append(valid)
         valid_ptr = check(who, "valid", valid, device, f32, (n,))
-    args = [x_ptr, vals, idx, starts, k, base, base_rows, mask_ptr,
-            valid_ptr, mean_ptr, std_ptr, code,
-            float(attack.param) if code else 0.0, n, d]
-    return args, keep
+    args = [x_ptr, vals, idx, starts, k, q8, q8_ld, qs, qs_ld, base,
+            base_rows, mask_ptr, valid_ptr, mean_ptr, std_ptr, code,
+            float(attack.param) if code else 0.0, LOADS.index(load),
+            int(cand_bf16), n, d]
+    return args, keep, load
 
 
 def dense_args(who, x):

@@ -5,8 +5,9 @@
 //   pair_gram     (m, m) Gram G = xb xb^T            (Krum's distances)
 //   rfa_iter      z = w^T xb and sq_b = |xb_b - z|^2 (one Weiszfeld pass)
 //   weighted_sum  sum_i w_i sent_i, bucketing folded into w
-// Each takes the dense (n, d) float32 stack or the sparse RandK wire, with
-// the fused BF / ALIE / IPM attack and, under the fault guard or partial
+// Each takes the dense (n, d) float32 or bfloat16 stack or a wire payload
+// (sparse, int8, sign or bf16, with its base), with the fused BF / ALIE /
+// IPM attack and, under the fault guard or partial
 // participation, the (n,) validity select, through the block load of
 // agg_prologue.cuh, so neither the attacked nor the bucketed stack is
 // written to device memory. The masked cases change the load alone: the
@@ -57,7 +58,7 @@ __host__ __device__ inline void pair_of(int q, int m, int* i, int* j) {
   *j = a + r;
 }
 
-template <bool SPARSE>
+template <int LOAD>
 __global__ void __launch_bounds__(TILE) pair_gram_partial(
     Src a, const float* w_mat, int m, int lanes, float* part) {
   extern __shared__ float smem[];
@@ -77,7 +78,7 @@ __global__ void __launch_bounds__(TILE) pair_gram_partial(
   const int groups = TILE / lanes, g = tid / lanes, l = tid % lanes;
   const int steps = TILE / lanes;           // columns per lane
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    const float* rows = load_tile<SPARSE>(a, s, bucketed, m, tile);
+    const float* rows = load_tile<LOAD>(a, s, bucketed, m, tile);
     __syncthreads();                        // every column is in place
     for (int q0 = 0; q0 < pairs; q0 += groups) {   // uniform trip count
       const int q = q0 + g;
@@ -116,7 +117,7 @@ __global__ void gram_finish(const float* part, int blocks, int m,
   out[j * m + i] = acc;
 }
 
-template <bool SPARSE>
+template <int LOAD>
 __global__ void __launch_bounds__(TILE) rfa_iter_partial(
     Src a, const float* w_mat, int m, const float* w, float* z,
     float* part) {
@@ -130,7 +131,7 @@ __global__ void __launch_bounds__(TILE) rfa_iter_partial(
   for (int q = tid; q < m; q += TILE) s_wr[q] = w[q];
   for (int b = 0; b < m; ++b) s_acc[b * TILE + tid] = 0.f;
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    const float* rows = load_tile<SPARSE>(a, s, bucketed, m, tile);
+    const float* rows = load_tile<LOAD>(a, s, bucketed, m, tile);
     const long long c = (long long)tile * TILE + tid;
     if (c >= a.d) continue;
     const float zc = weighted_col(rows + tid, s_wr, m);
@@ -162,7 +163,7 @@ __global__ void rows_finish(const float* part, int blocks, int m,
   sq[b] = acc;
 }
 
-template <bool SPARSE>
+template <int LOAD>
 __global__ void __launch_bounds__(TILE) weighted_sum_kernel(
     Src a, const float* w, float* out) {
   extern __shared__ float smem[];
@@ -172,10 +173,10 @@ __global__ void __launch_bounds__(TILE) weighted_sum_kernel(
   const long long c = (long long)blockIdx.x * TILE + tid;
   stage_consts(a, nullptr, a.n, s);
   for (int q = tid; q < a.n; q += TILE) s_wr[q] = w[q];
-  if (SPARSE) scatter_tile(a, blockIdx.x, s.valid, s.x);
+  if (LOAD == LOAD_SPARSE) scatter_tile(a, blockIdx.x, s.valid, s.x);
   __syncthreads();
   if (c >= a.d) return;
-  load_column<SPARSE>(a, c, s);
+  load_column<LOAD>(a, c, s);
   out[c] = weighted_col(s.x + tid, s_wr, a.n);
 }
 
@@ -204,27 +205,78 @@ static int resident_blocks(Kernel kernel, size_t smem) {
   return per_sm > 0 ? per_sm * sms : -(int)cudaErrorInvalidConfiguration;
 }
 
+template <int LOAD>
+struct GramBlocks {
+  static int run(size_t smem) {
+    return resident_blocks(pair_gram_partial<LOAD>, smem);
+  }
+};
+
+template <int LOAD>
+struct RfaBlocks {
+  static int run(size_t smem) {
+    return resident_blocks(rfa_iter_partial<LOAD>, smem);
+  }
+};
+
+template <int LOAD>
+struct PairGram {
+  static int run(Src a, const float* w_mat, int m, int lanes, int blocks,
+                 float* part, float* out, size_t smem, cudaStream_t st) {
+    cudaError_t err = allow_smem(pair_gram_partial<LOAD>, smem);
+    if (err) return (int)err;
+    pair_gram_partial<LOAD><<<blocks, TILE, smem, st>>>(a, w_mat, m, lanes,
+                                                        part);
+    if ((err = cudaGetLastError())) return (int)err;
+    const int pairs = m * (m + 1) / 2;
+    gram_finish<<<(pairs + 255) / 256, 256, 0, st>>>(part, blocks, m, out);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int LOAD>
+struct RfaIter {
+  static int run(Src a, const float* w_mat, int m, const float* w,
+                 int blocks, float* part, float* z, float* sq, size_t smem,
+                 cudaStream_t st) {
+    cudaError_t err = allow_smem(rfa_iter_partial<LOAD>, smem);
+    if (err) return (int)err;
+    rfa_iter_partial<LOAD><<<blocks, TILE, smem, st>>>(a, w_mat, m, w, z,
+                                                       part);
+    if ((err = cudaGetLastError())) return (int)err;
+    rows_finish<<<(m + 63) / 64, 64, 0, st>>>(part, blocks, m, sq);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int LOAD>
+struct WeightedSum {
+  static int run(Src a, const float* w, float* out, size_t smem,
+                 cudaStream_t st) {
+    cudaError_t err = allow_smem(weighted_sum_kernel<LOAD>, smem);
+    if (err) return (int)err;
+    weighted_sum_kernel<LOAD><<<a.n_tiles, TILE, smem, st>>>(a, w, out);
+    return (int)cudaGetLastError();
+  }
+};
+
 extern "C" int norm_agg_tile() { return TILE; }
 
-// How many blocks of pair_gram (kernel 0) or rfa_iter (kernel 1) are
-// resident on the current device at once; the wrapper launches
-// min(that, tiles) and sizes the workspace for it. Negative: -(CUDA error).
-extern "C" int norm_agg_blocks(int kernel, int sparse, int n, int m,
+// How many blocks of pair_gram (kernel 0) or rfa_iter (kernel 1) on the
+// source `load` are resident on the current device at once; the wrapper
+// launches min(that, tiles) and sizes the workspace for it. Negative:
+// -(CUDA error).
+extern "C" int norm_agg_blocks(int kernel, int load, int n, int m,
                                int bucketed) {
   if (!bucketed) m = n;
-  if (kernel == KERNEL_GRAM) {
-    const size_t smem = gram_smem(n, m, bucketed);
-    return sparse ? resident_blocks(pair_gram_partial<true>, smem)
-                  : resident_blocks(pair_gram_partial<false>, smem);
-  }
-  const size_t smem = rfa_smem(n, m, bucketed);
-  return sparse ? resident_blocks(rfa_iter_partial<true>, smem)
-                : resident_blocks(rfa_iter_partial<false>, smem);
+  if (kernel == KERNEL_GRAM)
+    return with_load<GramBlocks>(load, gram_smem(n, m, bucketed));
+  return with_load<RfaBlocks>(load, rfa_smem(n, m, bucketed));
 }
 
 // The launch entry points enqueue on `stream` and return cudaGetLastError()
-// (0 on success). Dense when `vals` is null; sparse wire otherwise. `m` is
-// W's row count (ignored without W); `part` is a (blocks, ...) workspace.
+// (0 on success), for the source `load` (a LOAD_* code). `m` is W's row
+// count (ignored without W); `part` is a (blocks, ...) workspace.
 
 extern "C" int pair_gram_launch(SRC_PARAMS, const float* w_mat, int m,
                                 int blocks, float* part, float* out,
@@ -234,21 +286,9 @@ extern "C" int pair_gram_launch(SRC_PARAMS, const float* w_mat, int m,
   const int pairs = m * (m + 1) / 2;
   int lanes = 1;
   while (lanes < 32 && pairs * lanes * 2 <= TILE) lanes *= 2;
-  const size_t smem = gram_smem(n, m, w_mat != nullptr);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (vals) {
-    if ((err = allow_smem(pair_gram_partial<true>, smem))) return (int)err;
-    pair_gram_partial<true><<<blocks, TILE, smem, st>>>(a, w_mat, m, lanes,
-                                                        part);
-  } else {
-    if ((err = allow_smem(pair_gram_partial<false>, smem))) return (int)err;
-    pair_gram_partial<false><<<blocks, TILE, smem, st>>>(a, w_mat, m, lanes,
-                                                         part);
-  }
-  if ((err = cudaGetLastError())) return (int)err;
-  gram_finish<<<(pairs + 255) / 256, 256, 0, st>>>(part, blocks, m, out);
-  return (int)cudaGetLastError();
+  return with_load<PairGram>(load, a, w_mat, m, lanes, blocks, part, out,
+                             gram_smem(n, m, w_mat != nullptr),
+                             (cudaStream_t)stream);
 }
 
 extern "C" int rfa_iter_launch(SRC_PARAMS, const float* w_mat, int m,
@@ -256,35 +296,15 @@ extern "C" int rfa_iter_launch(SRC_PARAMS, const float* w_mat, int m,
                                float* z, float* sq, void* stream) {
   const Src a = make_src(SRC_ARGS);
   if (!w_mat) m = n;
-  const size_t smem = rfa_smem(n, m, w_mat != nullptr);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (vals) {
-    if ((err = allow_smem(rfa_iter_partial<true>, smem))) return (int)err;
-    rfa_iter_partial<true><<<blocks, TILE, smem, st>>>(a, w_mat, m, w, z,
-                                                       part);
-  } else {
-    if ((err = allow_smem(rfa_iter_partial<false>, smem))) return (int)err;
-    rfa_iter_partial<false><<<blocks, TILE, smem, st>>>(a, w_mat, m, w, z,
-                                                        part);
-  }
-  if ((err = cudaGetLastError())) return (int)err;
-  rows_finish<<<(m + 63) / 64, 64, 0, st>>>(part, blocks, m, sq);
-  return (int)cudaGetLastError();
+  return with_load<RfaIter>(load, a, w_mat, m, w, blocks, part, z, sq,
+                            rfa_smem(n, m, w_mat != nullptr),
+                            (cudaStream_t)stream);
 }
 
 extern "C" int weighted_sum_launch(SRC_PARAMS, const float* w, float* out,
                                    void* stream) {
   const Src a = make_src(SRC_ARGS);
-  const size_t smem = (prologue_words(n, n, false) + n) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (vals) {
-    if ((err = allow_smem(weighted_sum_kernel<true>, smem))) return (int)err;
-    weighted_sum_kernel<true><<<a.n_tiles, TILE, smem, st>>>(a, w, out);
-  } else {
-    if ((err = allow_smem(weighted_sum_kernel<false>, smem))) return (int)err;
-    weighted_sum_kernel<false><<<a.n_tiles, TILE, smem, st>>>(a, w, out);
-  }
-  return (int)cudaGetLastError();
+  return with_load<WeightedSum>(
+      load, a, w, out, (prologue_words(n, n, false) + n) * sizeof(float),
+      (cudaStream_t)stream);
 }

@@ -1,14 +1,17 @@
 // Coordinate-wise robust aggregation for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/robust_agg.py::robust_agg together
-// with its input prologue repro/kernels/norm_agg.py::_prologue and the
-// sparse branch of repro/kernels/quantize.py::recon_block
-// (_recon_sparse_block). One launch turns n <= 64 worker rows into one
+// with its input prologue repro/kernels/norm_agg.py::_prologue and every
+// branch of repro/kernels/quantize.py::recon_block (_recon_sparse_block,
+// int8, sign, bf16). One launch turns n <= 64 worker rows into one
 // aggregate row:
 //
-//   load      dense (n, d) float32 stack, or a sparse RandK wire payload
-//             (vals/idx (n, k), CSR row pointers per tile) plus a base of
-//             0, 1 or n rows;
+//   load      dense (n, d) float32 or bfloat16 stack, or a wire payload
+//             plus a base of 0, 1 or n rows: sparse (vals/idx (n, k), CSR
+//             row pointers per tile), int8 levels with a norm per 256
+//             coordinates, int8 signs with a scale per row, or bfloat16
+//             values; each wire value rounds through the candidate dtype
+//             before and after the base add;
 //   attack    the omniscient BF / ALIE / IPM attack replaces the byzantine
 //             rows, from the good workers' per-coordinate mean / std;
 //   guard     under the fault guard or partial participation, rows whose
@@ -29,8 +32,9 @@
 //
 // Bound: device-memory bytes. Each column's work is O(m^2) compares on
 // values already on chip, so the least time is the bytes moved (the stack
-// or the wire payload, the base row, mean and std, and the output) over
-// the memory rate. The design keeps every intermediate on chip: a block
+// or the wire payload: 4, 2, 1 or about 1 + 4/256 bytes a value, or 8 a
+// kept sparse entry; the base rows, mean and std, and the output) over the
+// memory rate. The design keeps every intermediate on chip: a block
 // owns TILE consecutive columns, one thread per column; its (n, TILE)
 // attacked stack and (m, TILE) bucketed stack live in shared memory, so
 // neither the attacked nor the bucketed stack (nor, on the wire, the
@@ -112,7 +116,7 @@ __device__ __forceinline__ float masked_rule(float* col, const float* s_bv,
   return __fdiv_rn(row_sum(col, m, t, c - t), (float)max(c - 2 * t, 1));
 }
 
-template <bool SPARSE>
+template <int LOAD>
 __global__ void __launch_bounds__(TILE) robust_agg_kernel(
     Src a, const float* w_mat, int m, const float* bvalid, int rule,
     int trim, float* out) {
@@ -126,11 +130,11 @@ __global__ void __launch_bounds__(TILE) robust_agg_kernel(
   stage_consts(a, w_mat, m, s);
   if (bvalid)
     for (int q = tid; q < m; q += TILE) s_bv[q] = bvalid[q];
-  if (SPARSE) scatter_tile(a, blockIdx.x, s.valid, s.x);
+  if (LOAD == LOAD_SPARSE) scatter_tile(a, blockIdx.x, s.valid, s.x);
   __syncthreads();
   if (c >= a.d) return;   // no barrier below: the rest is per column
 
-  load_column<SPARSE>(a, c, s);
+  load_column<LOAD>(a, c, s);
   float* rows = s.x;
   if (bucketed) {
     bucket_column(s.w, s.x, a.n, m, s.b);
@@ -160,12 +164,26 @@ __global__ void __launch_bounds__(TILE) robust_agg_kernel(
   out[c] = r;
 }
 
+template <int LOAD>
+struct RobustAgg {
+  static int run(Src a, const float* w_mat, int m, const float* bvalid,
+                 int rule, int trim, float* out, size_t smem,
+                 cudaStream_t st) {
+    cudaError_t err = allow_smem(robust_agg_kernel<LOAD>, smem);
+    if (err) return (int)err;
+    robust_agg_kernel<LOAD><<<a.n_tiles, TILE, smem, st>>>(a, w_mat, m,
+                                                           bvalid, rule,
+                                                           trim, out);
+    return (int)cudaGetLastError();
+  }
+};
+
 extern "C" int robust_agg_tile() { return TILE; }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Dense when `vals` is null; sparse wire otherwise. `m` is W's row count
-// (ignored without W); `bvalid` the (m,) bucket validity of the masked
-// rule, or null for the plain rule.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), for
+// the source `load` (a LOAD_* code). `m` is W's row count (ignored without
+// W); `bvalid` the (m,) bucket validity of the masked rule, or null for the
+// plain rule.
 extern "C" int robust_agg_launch(SRC_PARAMS, const float* w_mat, int m,
                                  const float* bvalid, int rule, int trim,
                                  float* out, void* stream) {
@@ -173,18 +191,6 @@ extern "C" int robust_agg_launch(SRC_PARAMS, const float* w_mat, int m,
   if (!w_mat) m = n;
   const size_t smem =
       (prologue_words(n, m, w_mat != nullptr) + m) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (vals) {
-    if ((err = allow_smem(robust_agg_kernel<true>, smem))) return (int)err;
-    robust_agg_kernel<true><<<a.n_tiles, TILE, smem, st>>>(a, w_mat, m,
-                                                           bvalid, rule,
-                                                           trim, out);
-  } else {
-    if ((err = allow_smem(robust_agg_kernel<false>, smem))) return (int)err;
-    robust_agg_kernel<false><<<a.n_tiles, TILE, smem, st>>>(a, w_mat, m,
-                                                            bvalid, rule,
-                                                            trim, out);
-  }
-  return (int)cudaGetLastError();
+  return with_load<RobustAgg>(load, a, w_mat, m, bvalid, rule, trim, out,
+                              smem, (cudaStream_t)stream);
 }

@@ -2,9 +2,11 @@
 drivers (port of ``repro/kernels/norm_agg.py``), with the bucket operator
 and the attack/bucket prologue the coordinate kernel shares.
 
-Kernel entry points, each on a dense (n, d) float32 stack or a sparse
-``quantize.WireSrc``, with the optional fused attack (BF / ALIE / IPM from
-the byzantine mask and the good workers' mean / std):
+Kernel entry points, each on a dense (n, d) float32 or bfloat16 stack or
+a ``quantize.WireSrc`` of any wire format, with the optional fused attack
+(BF / ALIE / IPM from the byzantine mask and the good workers' mean /
+std; under a bfloat16 candidate dtype the forged rows round through
+bfloat16 before the select):
 
 * ``pair_gram``    — the (m, m) Gram of the attacked, bucketed stack
                      (Krum's pairwise distances);
@@ -88,11 +90,16 @@ def stack(x):
     return x.float()
 
 
+def cand_dtype(x):
+    """The candidates' dtype: the wire's ``cand_dtype``, or the stack's."""
+    return x.cand_dtype if isinstance(x, quantize.WireSrc) else x.dtype
+
+
 def prologue(x, w_mat=None, mask=None, good_mean=None, good_std=None,
-             attack=None, valid=None):
+             attack=None, valid=None, cand=torch.float32):
     """Plain form of the kernel prologue on a (n, d) float32 stack: the
-    fused attack replaces the masked rows (values round-trip through the
-    float32 candidate dtype, a no-op here), then the fault guard's
+    fused attack replaces the masked rows (the forged values round-trip
+    through the candidate dtype ``cand``), then the fault guard's
     ``valid`` select zeroes the invalid rows (a select, never a multiply:
     0·NaN = NaN; an attacked row that is invalid stays zero), then
     xb = W @ x."""
@@ -100,7 +107,7 @@ def prologue(x, w_mat=None, mask=None, good_mean=None, good_std=None,
         d = x.shape[1]
         mu = None if good_mean is None else good_mean.reshape(1, d).float()
         sd = None if good_std is None else good_std.reshape(1, d).float()
-        v = attack(x, mu, sd)
+        v = attack(x, mu, sd).to(cand).float()
         x = torch.where(mask.reshape(-1, 1) > 0, v, x)
     if valid is not None:
         x = torch.where(valid.reshape(-1, 1) > 0, x, 0.0)
@@ -130,7 +137,8 @@ def pair_gram_plain(x, w_mat=None, mask=None, good_mean=None, good_std=None,
     triangle, mirrored as the kernel mirrors it, so that G is symmetric
     bit for bit and Krum's tied scores (a mutual nearest pair) tie
     exactly."""
-    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack, valid)
+    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack, valid,
+                  cand_dtype(x))
     g = xb @ xb.T
     return torch.triu(g) + torch.triu(g, 1).T
 
@@ -139,7 +147,8 @@ def rfa_iter_plain(x, w, w_mat=None, mask=None, good_mean=None,
                    good_std=None, valid=None, *, attack=None):
     """(z (d,), sq (m,)): z = Σ_b w_b·xb_b in the kernel body's order
     (``kernel_row_sum``); sq_b = ‖xb_b − z‖²."""
-    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack, valid)
+    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack, valid,
+                  cand_dtype(x))
     z = kernel_row_sum(w, xb)
     diff = xb - z
     return z, (diff * diff).sum(1)
@@ -150,7 +159,8 @@ def weighted_sum_plain(x, w, mask=None, good_mean=None, good_std=None,
     """Σ_i w_i·sent_i over the attacked (and guarded) rows, as
     ``rfa_iter_plain``'s z."""
     return kernel_row_sum(w, prologue(stack(x), None, mask, good_mean,
-                                      good_std, attack, valid))
+                                      good_std, attack, valid,
+                                      cand_dtype(x)))
 
 
 # ---------------------------------------------------------------------------
@@ -196,10 +206,11 @@ def weighted_sum(x, w, mask=None, good_mean=None, good_std=None,
                                 attack)
 
 
-# calls: every call, plain or kernel; launches: kernel launches alone;
-# masked_launches: of those, the launches with a validity mask
+# calls: every call, plain or kernel; launches: kernel launches alone,
+# split per load (_launch.reset_counts)
 for _fn in (pair_gram, rfa_iter, weighted_sum):
-    _fn.calls = _fn.launches = _fn.masked_launches = 0
+    _fn.calls = 0
+    _launch.reset_counts(_fn)
 
 _KERNEL = {"pair_gram": 0, "rfa_iter": 1}    # norm_agg_blocks selector
 _RESIDENT: dict = {}
@@ -223,14 +234,13 @@ def _lib():
     return lib
 
 
-def _blocks(lib, who, x, n, m, bucketed, d):
+def _blocks(lib, who, load, device, n, m, bucketed, d):
     """Grid of a looping kernel: as many blocks as are resident on the
     card at once, and no more than there are tiles."""
-    key = (who, x.device.index, isinstance(x, quantize.WireSrc), n, m,
-           bucketed)
+    key = (who, device.index, load, n, m, bucketed)
     if key not in _RESIDENT:
-        got = lib.norm_agg_blocks(_KERNEL[who], int(key[2]), n, m,
-                                  int(bucketed))
+        got = lib.norm_agg_blocks(_KERNEL[who], _launch.LOADS.index(load),
+                                  n, m, int(bucketed))
         if got <= 0:
             raise RuntimeError(f"{who}: occupancy query failed: CUDA error "
                                f"{-got}")
@@ -242,19 +252,19 @@ def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, valid, attack):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
-    args, keep = _launch.src_args("pair_gram", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.norm_agg_tile(),
-                                  valid)
+    args, keep, load = _launch.src_args("pair_gram", x, n, d, mask,
+                                        good_mean, good_std, attack,
+                                        lib.norm_agg_tile(), valid)
     m, w_ptr = _launch.bucket_args("pair_gram", w_mat, n, dev)
-    blocks = _blocks(lib, "pair_gram", x, n, m, w_mat is not None, d)
+    blocks = _blocks(lib, "pair_gram", load, dev, n, m, w_mat is not None,
+                     d)
     part = torch.empty(blocks, m * (m + 1) // 2, dtype=torch.float32,
                        device=dev)
     out = torch.empty(m, m, dtype=torch.float32, device=dev)
     err = lib.pair_gram_launch(*args, w_ptr, m, blocks, part.data_ptr(),
                                out.data_ptr(), _launch.stream(dev))
     _launch.raise_on("pair_gram", err)
-    pair_gram.launches += 1
-    pair_gram.masked_launches += int(valid is not None)
+    _launch.count(pair_gram, load, valid is not None)
     return out
 
 
@@ -262,12 +272,13 @@ def _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid, attack):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
-    args, keep = _launch.src_args("rfa_iter", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.norm_agg_tile(),
-                                  valid)
+    args, keep, load = _launch.src_args("rfa_iter", x, n, d, mask,
+                                        good_mean, good_std, attack,
+                                        lib.norm_agg_tile(), valid)
     m, w_ptr = _launch.bucket_args("rfa_iter", w_mat, n, dev)
     wr = _launch.check("rfa_iter", "w", w, dev, torch.float32, (m,))
-    blocks = _blocks(lib, "rfa_iter", x, n, m, w_mat is not None, d)
+    blocks = _blocks(lib, "rfa_iter", load, dev, n, m, w_mat is not None,
+                     d)
     part = torch.empty(blocks, m, dtype=torch.float32, device=dev)
     z = torch.empty(d, dtype=torch.float32, device=dev)
     sq = torch.empty(m, dtype=torch.float32, device=dev)
@@ -275,8 +286,7 @@ def _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid, attack):
                               z.data_ptr(), sq.data_ptr(),
                               _launch.stream(dev))
     _launch.raise_on("rfa_iter", err)
-    rfa_iter.launches += 1
-    rfa_iter.masked_launches += int(valid is not None)
+    _launch.count(rfa_iter, load, valid is not None)
     return z, sq
 
 
@@ -284,16 +294,15 @@ def _launch_weighted_sum(x, w, mask, good_mean, good_std, valid, attack):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
-    args, keep = _launch.src_args("weighted_sum", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.norm_agg_tile(),
-                                  valid)
+    args, keep, load = _launch.src_args("weighted_sum", x, n, d, mask,
+                                        good_mean, good_std, attack,
+                                        lib.norm_agg_tile(), valid)
     wr = _launch.check("weighted_sum", "w", w, dev, torch.float32, (n,))
     out = torch.empty(d, dtype=torch.float32, device=dev)
     err = lib.weighted_sum_launch(*args, wr, out.data_ptr(),
                                   _launch.stream(dev))
     _launch.raise_on("weighted_sum", err)
-    weighted_sum.launches += 1
-    weighted_sum.masked_launches += int(valid is not None)
+    _launch.count(weighted_sum, load, valid is not None)
     return out
 
 

@@ -1,6 +1,7 @@
 """Public entry points of the kernels (port of ``repro/kernels/ops.py``).
 
-Each takes (n, d) stacked workers, or a ``quantize.WireSrc`` payload, and
+Each takes (n, d) stacked workers (float32, or bfloat16, which the kernels
+load as such), or a ``quantize.WireSrc`` payload of any wire format, and
 runs on the device its tensors lie on: CUDA tensors through the
 hand-written kernels, CPU tensors through their plain versions. The Alg. 2
 bucketing permutation is carried as the (nb, n) ``norm_agg.bucket_matrix``
@@ -43,6 +44,12 @@ def _bucket_first(x, key, bucket_size: int):
     return y.contiguous()
 
 
+def _stack(x):
+    """The (n, d) stack as the fused kernels load it: bfloat16 kept,
+    anything else as float32."""
+    return (x if x.dtype == torch.bfloat16 else x.float()).contiguous()
+
+
 def robust_agg(x, key=None, *, bucket_size: int = 1, rule: str = "median",
                trim: int = 1):
     """Full (δ,c)-ARAgg of (n, d) stacked workers: permutation, bucket means
@@ -59,7 +66,7 @@ def robust_agg(x, key=None, *, bucket_size: int = 1, rule: str = "median",
     w = None
     if bucket_size > 1:
         w = _perm_bucket_matrix(key, x.shape[0], bucket_size, x.device)
-    return _robust_agg(x.float().contiguous(), w, rule=rule, trim=trim)
+    return _robust_agg(_stack(x), w, rule=rule, trim=trim)
 
 
 def rfa_agg(x, key=None, *, bucket_size: int = 1, iters: int = 8,
@@ -74,7 +81,7 @@ def rfa_agg(x, key=None, *, bucket_size: int = 1, iters: int = 8,
     w = None
     if key is not None and bucket_size > 1:
         w = _perm_bucket_matrix(key, x.shape[0], bucket_size, x.device)
-    return norm_agg.rfa_segments([x.float().contiguous()], w_mat=w,
+    return norm_agg.rfa_segments([_stack(x)], w_mat=w,
                                  iters=iters, eps=eps)[0]
 
 
@@ -89,17 +96,18 @@ def krum_agg(x, key=None, *, bucket_size: int = 1, n_byz: int = 1):
     w = None
     if key is not None and bucket_size > 1:
         w = _perm_bucket_matrix(key, x.shape[0], bucket_size, x.device)
-    return norm_agg.krum_segments([x.float().contiguous()], w_mat=w,
+    return norm_agg.krum_segments([_stack(x)], w_mat=w,
                                   n_byz=n_byz)[0]
 
 
 def wire_agg(src, key=None, *, bucket_size: int = 1, rule: str = "median",
              trim: int = 1, n_byz: int = 1, iters: int = 8,
              eps: float = 1e-8):
-    """ARAgg over a worker-stacked sparse wire payload
-    (``quantize.WireSrc``): the kernels decode, add the base, bucket and
-    apply the rule tile by tile, so the dense (n, d) candidates never exist
-    in device memory. Any rule; bucketed only with a key."""
+    """ARAgg over a worker-stacked wire payload of any format
+    (``quantize.WireSrc``: sparse, int8, sign or bf16): the kernels decode,
+    round through the candidate dtype, add the base, bucket and apply the
+    rule tile by tile, so the dense (n, d) candidates never exist in device
+    memory. Any rule; bucketed only with a key."""
     w = None
     if key is not None and bucket_size > 1:
         w = _perm_bucket_matrix(key, src.n, bucket_size, src.device)

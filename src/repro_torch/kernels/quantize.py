@@ -1,12 +1,21 @@
 """Wire formats for the one-sweep compressed pipeline and the block
-quantizer (port of ``repro/kernels/quantize.py``, sparse format).
+quantizer (port of ``repro/kernels/quantize.py``).
 
-Sparse payload of one leaf: vals (n, k) float32 and idx (n, k) int32,
-ascending per worker row (RandK keeps the d/k scaling in vals, TopK sends
-them raw). The CUDA robust-aggregation kernel rebuilds each tile of the
-candidates from it, bounded by CSR row pointers (``wire_starts``), so the
-dense (n, d) candidate matrix never exists in device memory. ``decode`` is
-the plain reconstruction the CPU path and the tests use.
+Payload of one leaf, worker-stacked (every array (n, ...)):
+
+* ``sparse`` — vals (n, k) float32 and idx (n, k) int32, ascending per
+  worker row (RandK keeps the d/k scaling in vals, TopK sends them raw);
+* ``int8``   — lev (n, nb·256) int8 levels and norms (n, nb) float32, one
+  ℓ2 norm per block of ``INT8_BLOCK`` coordinates (the tail zero-padded);
+* ``sign``   — signs (n, d) int8 and scale (n, 1) float32;
+* ``bf16``   — vals (n, d) bfloat16.
+
+The CUDA aggregation kernels rebuild each tile of the candidates from it
+in their shared load (``csrc/agg_prologue.cuh``): the sparse wire through
+CSR row pointers (``wire_starts``), the other three elementwise, so the
+dense (n, d) candidate matrix never exists in device memory. ``decode``
+and ``recon`` are the plain reconstruction the CPU path and the tests
+use.
 
 Two kernels live here, each with its plain PyTorch version beside it
 (taken for CPU tensors only; a CUDA tensor launches the kernel or raises):
@@ -17,8 +26,6 @@ Two kernels live here, each with its plain PyTorch version beside it
                        stable select over the (T, cp) pool;
 * ``block_quantize`` — block-ℓ2 stochastic rounding with the dither
                        supplied (``csrc/block_quantize.cu``).
-
-Not ported yet (ROADMAP queue 2): the int8 / sign / bf16 wire loads.
 """
 from __future__ import annotations
 
@@ -30,7 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as R
-from repro_torch.core.aggregators import xla_sum_rows
+from repro_torch.core.attacks import fma_f32
+from repro_torch.core.compressors import (INT8_BLOCK, INT8_LEVELS,
+                                          _int8_encode, _rcp, block_norms,
+                                          int8_products, sign_scale)
 from repro_torch.kernels import _build, _launch
 
 WIRE_FORMATS = ("sparse", "int8", "sign", "bf16", "dense32")
@@ -44,7 +54,13 @@ class WireSrc:
     candidate matrix at a kernel call site. ``arrays`` is a tuple of
     (name, (n, ...) tensor); ``base`` is the reconstruction base added in
     the kernel: (n, d) per-worker state, (1, d) a shared server estimate
-    (MARINA's g^k), or None."""
+    (MARINA's g^k), or None; ``cand_dtype`` the candidates' dtype, which
+    the load rounds through (float32 or bfloat16).
+
+    The reference rounds an int8 tile up to whole 256-coordinate blocks
+    (``wire_tile``) so that a tile sees whole blocks. The CUDA load has
+    no such constraint: column c reads norms[i, c >> 8] directly, so the
+    kernels' 128-column tile needs no rounding."""
     fmt: str
     n: int
     d: int
@@ -73,6 +89,28 @@ def pack_sparse(key, x, ratio: float, *, topk: bool):
     idx = torch.sort(sel, dim=-1).values
     vals = (torch.gather(x, -1, idx) * (d / k)).to(x.dtype)
     return {"vals": vals, "idx": idx.to(torch.int32)}
+
+
+def pack_int8(key, x):
+    """{"lev": (..., nb·B) int8, "norms": (..., nb) float32} of a leaf
+    (``compressors._int8_encode``); key (..., 2) and x (..., d) share
+    leading axes."""
+    levels, norms = _int8_encode(key, x)
+    return {"lev": levels.flatten(-2), "norms": norms}
+
+
+def pack_sign(key, x):
+    """{"signs": (..., d) int8, "scale": (..., 1) float32 mean |x|}."""
+    return {"signs": torch.sign(x.float()).to(torch.int8),
+            "scale": sign_scale(x)}
+
+
+def pack_bf16(key, x):
+    """{"vals": (..., d) bfloat16}, rounded to nearest even."""
+    return {"vals": x.to(torch.bfloat16)}
+
+
+PACK = {"int8": pack_int8, "sign": pack_sign, "bf16": pack_bf16}
 
 
 # ---------------------------------------------------------------------------
@@ -178,16 +216,6 @@ def _launch_topk_pool(x, cp: int):
 # block quantizer
 # ---------------------------------------------------------------------------
 
-def block_norms(xb):
-    """(blocks, 256) float32 -> (blocks, 1) ℓ2 norms, as the reference's
-    compiled code takes them: the rounded squares summed over the lanes in
-    ``xla_sum_rows``'s order (eight windows of 32, each in order, then the
-    windows), then a correctly rounded square root (``torch.sqrt`` on the
-    CPU is not: the square root is taken in float64 and rounded once)."""
-    total = xla_sum_rows(list((xb * xb).unbind(1)))
-    return torch.sqrt(total.double()).float()[:, None]
-
-
 def block_quantize_plain(x, u, *, levels: int = 4):
     """Plain version of the block quantizer: x, u (d,) -> (d,) float32.
     Per block of ``QUANT_BLOCK`` coordinates (the tail zero-padded):
@@ -251,10 +279,18 @@ def _launch_block_quantize(x, u, levels: int):
 
 
 def decode(fmt: str, payload: dict, d: int):
-    """Payload (worker-stacked or one worker) -> dense (..., d) float32."""
+    """Payload (worker-stacked or one worker) -> dense (..., d) float32.
+    The int8 levels take XLA's compiled division by 127, a product with
+    the rounded reciprocal (``compressors._int8_decode``)."""
+    if fmt == "int8":
+        prod, rcp = int8_parts(payload, d)
+        return prod * rcp
+    if fmt == "sign":
+        return payload["signs"].float() * payload["scale"]
+    if fmt == "bf16":
+        return payload["vals"].float()
     if fmt != "sparse":
-        raise NotImplementedError(
-            f"wire format {fmt!r} is not ported yet (ROADMAP queue 2)")
+        raise ValueError(fmt)
     vals = payload["vals"].float()
     idx = payload["idx"].long()
     # the reference's scatter (mode="drop"): a negative index counts from
@@ -266,14 +302,37 @@ def decode(fmt: str, payload: dict, d: int):
     return out.scatter_(-1, idx, vals)[..., :d]
 
 
-def recon(src: WireSrc):
-    """Plain reconstruction of a WireSrc: decode, round-trip through the
-    candidate dtype, add the base, round-trip again -> (n, d) float32."""
-    q = decode(src.fmt, dict(src.arrays), src.d)
-    q = q.to(src.cand_dtype).float()
-    if src.base is None:
+def int8_parts(payload: dict, d: int):
+    """(norm·level (..., d), the rounded 1/127) of an int8 payload: its
+    decode is their product, which XLA fuses into a following add."""
+    norms = payload["norms"]
+    lev = payload["lev"]
+    lev = lev.reshape(lev.shape[:-1] + (norms.shape[-1], INT8_BLOCK))
+    return (int8_products(lev, norms)[..., :d],
+            _rcp(INT8_LEVELS).to(norms.device))
+
+
+def recon_rows(fmt: str, payload: dict, d: int, base, cand_dtype):
+    """Decode, round-trip through the candidate dtype, add the base of 0,
+    1 or n rows, round-trip again -> (n, d) float32 (``recon_block``).
+    On a float32 int8 payload with a base, XLA fuses the decode's last
+    product into the base add: norm·level·(1/127) + base is one fused
+    multiply-add."""
+    if (fmt == "int8" and base is not None
+            and cand_dtype == torch.float32):
+        prod, rcp = int8_parts(payload, d)
+        return fma_f32(prod, rcp, base.float())
+    q = decode(fmt, payload, d).to(cand_dtype).float()
+    if base is None:
         return q
-    return (q + src.base.float()).to(src.cand_dtype).float()
+    return (q + base.float()).to(cand_dtype).float()
+
+
+def recon(src: WireSrc):
+    """Plain reconstruction of a WireSrc (``recon_rows``) -> (n, d)
+    float32."""
+    return recon_rows(src.fmt, dict(src.arrays), src.d, src.base,
+                      src.cand_dtype)
 
 
 def wire_starts(idx, d: int, tile: int):

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from repro_torch.core.aggregators import (Aggregator, _tree_pair_sqdists,
                                           coord_median, coord_trimmed_mean,
                                           mean0)
-from repro_torch.kernels.quantize import block_norms
+from repro_torch.core.compressors import block_norms
 
 
 def robust_agg_ref(x, *, bucket_size: int = 1, rule: str = "median",
@@ -62,7 +62,7 @@ def block_quantize_ref(x, u, *, levels: int, block: int):
     q(x)_i = ||x_blk|| * sign(x_i) * floor(|x_i|/||x_blk|| * s + u_i) / s.
 
     x, u: (d,), zero-padded to a block multiple. The norms are the
-    kernel's (``quantize.block_norms``); the division by s is a true
+    kernel's (``compressors.block_norms``); the division by s is a true
     division, as the reference's oracle takes it op by op (its compiled
     kernel multiplies by the rounded 1/s instead, and so does
     ``quantize.block_quantize_plain``: the two differ where s is not a

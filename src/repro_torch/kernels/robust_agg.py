@@ -1,8 +1,9 @@
 """Fused attack + bucketing + coordinate-wise robust aggregation (port of
 ``repro/kernels/robust_agg.py``).
 
-``robust_agg`` takes a dense (n, d) float32 stack or a sparse
-``quantize.WireSrc``, applies the optional omniscient attack (BF / ALIE /
+``robust_agg`` takes a dense (n, d) float32 or bfloat16 stack or a
+``quantize.WireSrc`` of any wire format (sparse, int8, sign, bf16),
+applies the optional omniscient attack (BF / ALIE /
 IPM) from the byzantine mask and the good workers' mean / std, the (m, n)
 bucket operator W, and the rule (mean / median / trimmed), and returns
 the (d,) float32 aggregate. On a CUDA tensor it launches the hand-written
@@ -13,8 +14,11 @@ The masked twin (fault guard, partial participation): ``valid`` (n,)
 select-zeroes invalid worker rows in the load, after the attack and
 before W, and ``bvalid`` (m,) over the bucketed rows switches the rule to
 ``masked_coord_rule``, which fills invalid rows with +inf and picks its
-ranks from the valid count c taken on the device. Not ported yet (ROADMAP
-queue 2): the int8 / sign / bf16 wire loads and bf16 candidates.
+ranks from the valid count c taken on the device.
+
+Under a bfloat16 candidate dtype (a bf16 stack, or a wire whose
+``cand_dtype`` is bf16) the forged rows round through bfloat16 before the
+select, as the reference's ``_prologue`` rounds them.
 """
 from __future__ import annotations
 
@@ -26,8 +30,9 @@ from repro_torch.core.aggregators import (coord_median, coord_trimmed_mean,
                                           masked_coord_median,
                                           masked_coord_trimmed_mean,
                                           masked_mean, mean0)
-from repro_torch.kernels import _build, _launch, quantize
-from repro_torch.kernels.norm_agg import prologue, src_dims, stack
+from repro_torch.kernels import _build, _launch
+from repro_torch.kernels.norm_agg import (cand_dtype, prologue, src_dims,
+                                          stack)
 
 RULES = ("mean", "median", "trimmed")
 
@@ -68,7 +73,8 @@ def robust_agg_plain(x, w_mat=None, mask=None, good_mean=None,
     """Plain PyTorch version: decode (wire), round-trip, add the base,
     attack select, valid select, W @ x in float32, sort over the workers,
     pick (the masked rule under ``bvalid``)."""
-    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack, valid)
+    xb = prologue(stack(x), w_mat, mask, good_mean, good_std, attack, valid,
+                  cand_dtype(x))
     if bvalid is not None:
         return masked_coord_rule(xb, bvalid > 0, rule, trim)
     return coord_rule(xb, rule, trim)
@@ -88,10 +94,7 @@ def robust_agg(x, w_mat=None, mask=None, good_mean=None, good_std=None,
 
 
 robust_agg.calls = 0            # every call, plain or kernel
-robust_agg.launches = 0         # kernel launches since the last reset
-robust_agg.wire_launches = 0    # of which on a sparse wire payload
-robust_agg.masked_launches = 0  # of which with a validity mask
-robust_agg.masked_wire_launches = 0   # of which on the wire and masked
+_launch.reset_counts(robust_agg)    # kernel launches, split per load
 
 
 def _lib():
@@ -112,9 +115,9 @@ def _launch_kernel(x, w_mat, mask, good_mean, good_std, valid, bvalid, rule,
         raise ValueError(rule)
     n, d = src_dims(x)
     lib = _lib()
-    args, keep = _launch.src_args("robust_agg", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.robust_agg_tile(),
-                                  valid)
+    args, keep, load = _launch.src_args("robust_agg", x, n, d, mask,
+                                        good_mean, good_std, attack,
+                                        lib.robust_agg_tile(), valid)
     m, w_ptr = _launch.bucket_args("robust_agg", w_mat, n, x.device)
     bv_ptr = None
     if bvalid is not None:
@@ -126,10 +129,5 @@ def _launch_kernel(x, w_mat, mask, good_mean, good_std, valid, bvalid, rule,
                                 int(trim), out.data_ptr(),
                                 _launch.stream(x.device))
     _launch.raise_on("robust_agg", err)
-    wire = isinstance(x, quantize.WireSrc)
-    masked = valid is not None or bvalid is not None
-    robust_agg.launches += 1
-    robust_agg.wire_launches += int(wire)
-    robust_agg.masked_launches += int(masked)
-    robust_agg.masked_wire_launches += int(masked and wire)
+    _launch.count(robust_agg, load, valid is not None or bvalid is not None)
     return out

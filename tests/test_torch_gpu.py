@@ -13,6 +13,8 @@ version's order. The norm kernels must also repeat bit for bit: they take
 every sum in a fixed order. TopK's pool kernel and the block quantizer
 agree with their plain versions exactly: selection only compares, and
 the quantizer takes every rounding of the plain version."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -92,9 +94,9 @@ def test_sparse_wire(dev, d, base_rows):
     base = torch.randn(base_rows, d, device=dev) if base_rows else None
     src = quantize.WireSrc(fmt="sparse", n=n, d=d,
                            arrays=(("vals", vals), ("idx", idx)), base=base)
-    before = robust_agg.wire_launches
+    before = robust_agg.load_launches["sparse"]
     _agree((src, w, mask, mean, std), rule="median", attack=ALIE)
-    assert robust_agg.wire_launches == before + 1
+    assert robust_agg.load_launches["sparse"] == before + 1
 
 
 @pytest.mark.gpu
@@ -109,14 +111,80 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         robust_agg(torch.randn(65, 100, device=dev))
 
 
-def _wire(n, d, dev, base_rows):
-    k = max(int(0.1 * d), 1)
+def _wire(n, d, dev, base_rows, fmt="sparse", cand=torch.float32):
+    """A worker-stacked payload of ``fmt`` made on the card: RandK 0.1 for
+    the sparse wire, else the packer of the format over random rows."""
     keys = R.fold_in(R.PRNGKey(d, device=dev), torch.arange(n, device=dev))
-    idx = torch.sort(R.permutation(keys, d)[:, :k], dim=1).values.int()
-    vals = torch.randn(n, k, device=dev)
     base = torch.randn(base_rows, d, device=dev) if base_rows else None
-    return quantize.WireSrc(fmt="sparse", n=n, d=d,
-                            arrays=(("vals", vals), ("idx", idx)), base=base)
+    if fmt == "sparse":
+        k = max(int(0.1 * d), 1)
+        idx = torch.sort(R.permutation(keys, d)[:, :k], dim=1).values.int()
+        arrays = (("vals", torch.randn(n, k, device=dev)), ("idx", idx))
+    else:
+        x = torch.randn(n, d, device=dev) * torch.rand(n, d, device=dev)
+        arrays = tuple(quantize.PACK[fmt](keys, x).items())
+    return quantize.WireSrc(fmt=fmt, n=n, d=d, arrays=arrays, base=base,
+                            cand_dtype=cand)
+
+
+LOADS = ("dense", "wire", "dense_bf16", "int8", "sign", "bf16")
+
+
+def _load(load, x, dev, base_rows=1):
+    """The kernel input of ``load`` for the dense stack x (n, d): x itself,
+    x in bfloat16, or a wire payload with a base of ``base_rows``."""
+    n, d = x.shape
+    if load == "dense":
+        return x
+    if load == "dense_bf16":
+        return x.bfloat16()
+    return _wire(n, d, dev, base_rows, "sparse" if load == "wire" else load)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cand", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("base_rows", [0, 1, 8])
+@pytest.mark.parametrize("d", [1, 123, 5000, 70000])
+@pytest.mark.parametrize("fmt", ["sparse", "int8", "sign", "bf16"])
+def test_wire_loads(dev, fmt, d, base_rows, cand):
+    """Each wire load with its base and candidate dtype, ALIE fused, against
+    ``quantize.recon`` and the plain rule: equal without W (the load takes
+    every rounding of the plain reconstruction), to the tolerance with
+    it; and the four kernels through ``_norm_agree``."""
+    n = 8
+    _, w, mask, mean, std = _inputs(n, d, dev, 2)
+    src = _wire(n, d, dev, base_rows, fmt, cand)
+    before = robust_agg.load_launches[fmt]
+    got = robust_agg(src, None, mask, mean, std, rule="median", attack=ALIE)
+    want = robust_agg_plain(src, None, mask, mean, std, rule="median",
+                            attack=ALIE)
+    torch.cuda.synchronize()
+    assert robust_agg.load_launches[fmt] == before + 1
+    assert torch.equal(got, want)
+    _agree((src, w, mask, mean, std), rule="median", attack=ALIE)
+    _norm_agree(src, w, mask, mean, std)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [0, 2])
+@pytest.mark.parametrize("n", [1, 5, 64])
+def test_dense_bf16_stack(dev, n, s):
+    """A bfloat16 stack with ALIE on its byzantine rows: the forged value
+    rounds through bfloat16 before the select, in the kernel as in the
+    plain version."""
+    if s > n:
+        pytest.skip("bucket larger than the worker count")
+    x, w, mask, mean, std = _inputs(n, 5000, dev, s)
+    xb = x.bfloat16()
+    before = robust_agg.load_launches["dense_bf16"]
+    got = robust_agg(xb, None, mask, mean, std, rule="median", attack=ALIE)
+    want = robust_agg_plain(xb, None, mask, mean, std, rule="median",
+                            attack=ALIE)
+    torch.cuda.synchronize()
+    assert robust_agg.load_launches["dense_bf16"] == before + 1
+    assert torch.equal(got, want)
+    _agree((xb, w, mask, mean, std), rule="median", attack=ALIE)
+    _norm_agree(xb, w, mask, mean, std)
 
 
 def _near(got, want, scale):
@@ -351,22 +419,24 @@ def _masked(n, s, dev, invalid):
 
 
 def _poison(x, valid):
-    """NaN into the invalid rows of a dense stack: the load must zero them
-    with a select, so nothing of them reaches the result."""
+    """NaN into the invalid rows of a dense stack, or of every float array
+    of a wire payload (values, norms, scale): the load must zero them with
+    a select, so nothing of them reaches the result."""
     if isinstance(x, quantize.WireSrc):
-        vals = dict(x.arrays)["vals"].clone()
-        vals[~valid] = float("nan")
-        return quantize.WireSrc(fmt="sparse", n=x.n, d=x.d,
-                                arrays=(("vals", vals),
-                                        ("idx", dict(x.arrays)["idx"])),
-                                base=x.base)
+        arrays = []
+        for name, a in x.arrays:
+            if a.is_floating_point():
+                a = a.clone()
+                a[~valid] = float("nan")
+            arrays.append((name, a))
+        return dataclasses.replace(x, arrays=tuple(arrays))
     x = x.clone()
     x[~valid] = float("nan")
     return x
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("load", ["dense", "wire"])
+@pytest.mark.parametrize("load", LOADS)
 @pytest.mark.parametrize("s", [0, 2, 3])
 @pytest.mark.parametrize("rule", ["mean", "median", "trimmed"])
 @pytest.mark.parametrize("n", [5, 8, 64])
@@ -374,16 +444,18 @@ def test_masked_robust_agg(dev, n, rule, s, load):
     """The masked rule equals its plain version (``torch.equal``: the
     kernel and the plain version both read a rank as 0 + v)."""
     x, _, mask, mean, std = _inputs(n, 5000, dev, 0)
-    if load == "wire":
-        x = _wire(n, 5000, dev, 1)
+    x = _load(load, x, dev)
     valid, w, bvalid = _masked(n, s, dev, range(n - 2, n))
     x = _poison(x, valid)
     before = robust_agg.masked_launches
+    kind = load if load != "wire" else "sparse"
+    before_load = robust_agg.masked_load_launches[kind]
     args = (x, w, mask, mean, std, valid, bvalid)
     got = robust_agg(*args, rule=rule, attack=ALIE)
     want = robust_agg_plain(*args, rule=rule, attack=ALIE)
     torch.cuda.synchronize()
     assert robust_agg.masked_launches == before + 1
+    assert robust_agg.masked_load_launches[kind] == before_load + 1
     assert torch.isfinite(got).all()
     if s == 3:       # W x: the plain version's matmul sums in another order
         torch.testing.assert_close(got, want, rtol=0, atol=TOL * 4 * max(
@@ -395,14 +467,13 @@ def test_masked_robust_agg(dev, n, rule, s, load):
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [0, 2, 3])
 @pytest.mark.parametrize("n", [5, 8, 64])
-@pytest.mark.parametrize("load", ["dense", "wire"])
+@pytest.mark.parametrize("load", LOADS)
 def test_masked_norm_kernels(dev, load, n, s):
     """pair_gram / rfa_iter / weighted_sum with a validity mask against
     their plain versions, at the unmasked cases' tolerances, and bit for
     bit twice."""
     x, _, mask, mean, std = _inputs(n, 5000, dev, 0)
-    if load == "wire":
-        x = _wire(n, 5000, dev, 1)
+    x = _load(load, x, dev, 1 if load in ("wire", "int8") else n)
     valid, w, _ = _masked(n, s, dev, [n - 1])
     x = _poison(x, valid)
     m = n if w is None else w.shape[0]
@@ -421,7 +492,7 @@ def test_masked_norm_kernels(dev, load, n, s):
     assert torch.equal(gram[0], gram[1]) and torch.equal(ws[0], ws[1])
     assert all(torch.equal(a, b) for a, b in zip(rfa[0], rfa[1]))
     sent = norm_agg.prologue(norm_agg.stack(x), None, mask, mean, std, ALIE,
-                             valid)
+                             valid, norm_agg.cand_dtype(x))
     scale = float(sent.abs().max())
     want = norm_agg.pair_gram_plain(x, w, mask, mean, std, valid,
                                     attack=ALIE)

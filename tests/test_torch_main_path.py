@@ -190,13 +190,14 @@ def test_spec_json_is_shared():
 
 
 # the fault layer and partial participation are ported (their tests are
-# tests/test_torch_faults.py and tests/test_torch_participation.py); the
-# cases that named them now pair them with what is still unported
+# tests/test_torch_faults.py and tests/test_torch_participation.py), and
+# so are the int8, sign and bf16 compressors (tests/test_torch_wire_formats
+# .py); the cases that named them now name what is still unported
 @pytest.mark.parametrize("override", [
-    {"method": "sgd"}, {"compressor": "int8"}, {"compressor": "sign"},
+    {"method": "sgd"}, {"compressor": "dither"}, {"compressor": "natural"},
     {"attack": "RN"}, {"agg_mode": "all_to_all"},
     {"participation": 0.6, "method": "diana"},
-    {"fault_guard": True, "compressor": "bf16"}, {"trace": True},
+    {"fault_guard": True, "compressor": "dither"}, {"trace": True},
     {"optimizer": "adam"},
     {**GIANT, "participation": 0.5, "method": "mvr"},
 ])

@@ -13,9 +13,9 @@ Invalid rows hold NaN / inf, which the select must keep out of every sum.
 Tolerances, each of the largest entry: the coordinate rules bit for bit
 (equality, which counts -0.0 equal to +0.0: the reference's kernel gathers
 a rank by a where-sum, so a -0.0 comes out +0.0, where the gspmd oracle's
-``take`` keeps it); with s = 3 on a 1-D leaf of more than 32 rows, the
-reference's compiled matrix-vector product sums the bucket's three
-products in an order the port does not repeat, 1e-6; the norm kernels as
+``take`` keeps it), a 1-D leaf's buckets included, whose compiled
+matrix-vector product the port repeats (``aggregators.xla_gemv``); the
+norm kernels as
 their unmasked cases (``tests/test_torch_norm_agg.py``): bit for bit for
 the weighted sum, 1e-6 through W, 1e-5 for sums over d; 2e-5, the
 reference's pallas≡gspmd tolerance, for RFA and Krum aggregates, whose
@@ -104,7 +104,7 @@ def test_tree_masked(rule, s, n):
         if rule in ("rfa", "krum"):
             tol = AGG_TOL
         else:
-            tol = REL if (s == 3 and n > 32 and k == "b") else 0
+            tol = 0
         _close(got[k], ref[k], tol)
 
 

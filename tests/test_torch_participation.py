@@ -150,6 +150,19 @@ def test_ef21_participation_matches_reference():
     _same_run(spec, 8)
 
 
+@pytest.mark.parametrize("agg_mode", ["gspmd", "pallas"])
+def test_comm_bits_scale_with_participation(agg_mode):
+    """Only the sampled cohort uploads: each round is billed at n_active /
+    n_workers of its bits, as the reference's runner bills it."""
+    spec = JaxRunSpec(**{**CHAOS, "faults": {}, "fault_guard": False,
+                         "agg_mode": agg_mode, "steps": 8})
+    ref = jax_run(spec, log_every=1)
+    got = run(RunSpec.from_json(spec.to_json()), device="cpu", log_every=1)
+    assert got.comm_bits == ref.comm_bits
+    assert ([h["comm_bits"] for h in got.history]
+            == [h["comm_bits"] for h in ref.history])
+
+
 def test_spec_checks_the_sampled_cohort():
     """The reference's checks: participation needs a masked backend, and
     a cohort that can be majority-byzantine warns."""
