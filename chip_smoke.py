@@ -6,8 +6,12 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all at once), holds each against its plain
 PyTorch version on the card, checks that the norm, TopK and quantizer
 kernels repeat bit for bit, and times kernel, plain version and a library
-call. Then it drives the port's main path — Byz-VR-MARINA with RandK,
-ALIE and bucketing s = 2 on a9a-width logistic regression — through
+call: each kernel row has the event window around the call (its
+wrapper's host work included), the device time and device operations
+per call from torch.profiler, and ``robust_agg`` and ``weighted_sum``
+must issue one device operation a call. Then it drives the port's main
+path — Byz-VR-MARINA with RandK, ALIE and bucketing s = 2 on a9a-width
+logistic regression — through
 ``repro_torch.api.run`` three times at 5 workers, with coordinate-wise
 median, RFA and Krum, and twice at 256 workers (the giant-n tier on the
 blocked kernels), with RFA and Krum; Byz-EF21 with TopK on the sparse
@@ -26,7 +30,9 @@ the unmasked ones, and so is every load (dense float32 or bfloat16, the
 sparse, int8, sign and bf16 wires) in each fused kernel. It checks that
 every aggregation and selection went through the kernels (launch counts
 against each path's formula) and that the first rounds agree with the
-plain CPU path. Any failure raises and exits
+plain CPU path, profiles a few rounds of five paths (device busy time and
+operations a round), and holds the sparse wire's range search on the
+card to its plain twin. Any failure raises and exits
 non-zero. The last line is the device JSON; the line before it is the
 per-kernel JSON. Needs one CUDA card; exits non-zero without one.
 Imports nothing of JAX.
@@ -50,8 +56,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
 REPS = 21                        # timed runs per measurement (median taken)
-MAIN_STEPS = 300                 # rounds of each main path
-CPU_CHECK_STEPS = 30
+MAIN_STEPS = 100                 # rounds of each main path
+CPU_CHECK_STEPS = 12
 TRAJ_TOL = 2e-5
 # the paths of a compressor that rounds (int8 levels, signs, bf16): the
 # card's gradients and its sums over d take another order than the CPU's,
@@ -258,13 +264,57 @@ def cuda_ms(fn) -> float:
     return statistics.median(times)
 
 
+def device_profile(fn):
+    """(device ms, device operations, their names) per steady-state call
+    of ``fn``: torch.profiler's CUDA activity over REPS calls after a
+    warm-up, every kernel, memcpy and memset the calls issue, their device
+    time summed. (None, None, []) where the profiler records no device
+    activity (the time is then the event window's alone)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    # a waiting and a warm-up step first: the tracer misses a kernel of the
+    # first step it records
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=REPS)) as prof:
+        for _ in range(2 + REPS):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    evts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evts:
+        return None, None, []
+    us = sum(e.time_range.elapsed_us() for e in evts)
+    return (us / 1e3 / REPS, len(evts) / REPS,
+            sorted({e.name[:60] for e in evts}))
+
+
+def timing(fn) -> dict:
+    """The times of one kernel row: ``ms`` the event window around the
+    call (host work of the wrapper included), ``device_ms`` and
+    ``device_ops`` the profiler's device time and operations per call."""
+    ms = cuda_ms(fn)
+    dev_ms, ops, names = device_profile(fn)
+    return {"ms": ms, "device_ms": dev_ms, "device_ops": ops,
+            "device_op_names": names}
+
+
+def timing_text(t) -> str:
+    dev = ("device not measured (no profiler activity)"
+           if t["device_ms"] is None else
+           f"device {t['device_ms']:.4f} ms in {t['device_ops']:g} device "
+           f"ops/call")
+    return f"call {t['ms']:.4f} ms, {dev}"
+
+
 def make_inputs(n, d, k, base_rows, s, dev, kind=None):
     """(x, w, mask, mean, std) of one kernel call, made on the card from a
     fixed seed, and the bytes of x: the dense stack (float32, or bfloat16
     for ``kind="dense_bf16"``), or the wire payload (sparse when k is
     given, else of ``kind``: int8, sign or bf16, packed from random rows;
-    the int8 levels counted over d, their padding unread), its base and
-    the sparse row pointers."""
+    the int8 levels counted over d, their padding unread) and its base."""
     from repro_torch import random as R
     from repro_torch.kernels import norm_agg, quantize
     g = torch.Generator(device=dev).manual_seed(n * 7919 + d)
@@ -296,8 +346,7 @@ def make_inputs(n, d, k, base_rows, s, dev, kind=None):
         x = quantize.WireSrc(fmt="sparse", n=n, d=d,
                              arrays=(("vals", vals), ("idx", idx.int())),
                              base=base)
-        starts_bytes = n * (math.ceil(d / 128) + 1) * 4
-        in_bytes = 8 * n * k + base.numel() * 4 + starts_bytes
+        in_bytes = 8 * n * k + base.numel() * 4
     w = None
     if s > 1:
         perm = R.permutation(R.PRNGKey(n, device=dev), n)
@@ -386,7 +435,7 @@ def kernel_case(case, dev):
     if not (got.shape == (d,) and torch.isfinite(got).all() and ok):
         raise AssertionError(f"robust_agg {label}: max abs err {err:.3e} > "
                              f"limit {limit:.3e} (or non-finite output)")
-    ms = cuda_ms(lambda: robust_agg(*args, **kw))
+    t = timing(lambda: robust_agg(*args, **kw))
     plain_ms = cuda_ms(lambda: robust_agg_plain(*args, **kw))
     lib = None if invalid else library_call(args, kw)
     library_ms = None if lib is None else cuda_ms(lib)
@@ -394,14 +443,14 @@ def kernel_case(case, dev):
     row = {"kernel": "robust_agg", "kind": kind, "label": label, "n": n,
            "d": d, "k": k, "base_rows": base_rows, "s": s, "rule": rule,
            "invalid": list(invalid), "max_abs_err": err, "err_limit": limit,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
-           "bytes": bytes_moved, "ops": ops}
+           "bytes": bytes_moved, "ops": ops, **t}
     check = ("equal to the plain version" if invalid else
              f"max abs err {err:.3e} (limit {limit:.3e})")
     print(f"[kernel] {kind:11s} {label}: n={n} d={d} k={k} s={s} {rule}"
-          f"{' masked' if invalid else ''} | {check} | kernel {ms:.4f} ms"
-          f" plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+          f"{' masked' if invalid else ''} | {check} | kernel "
+          f"{timing_text(t)}; plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
           f"({row['bound_by']}) library(rule step alone) "
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}",
           flush=True)
@@ -490,7 +539,7 @@ def norm_case(case, dev):
             raise AssertionError(
                 f"{name} {label}: errors {errs} vs limits {limits}, "
                 f"finite {ok}, bitwise repeat {repeat}")
-        ms = cuda_ms(kern)
+        t = timing(kern)
         plain_ms = cuda_ms(plain)
         library_ms = None if lib is None else cuda_ms(lib)
         bound_ms, bound_by = bound_of(bytes_moved, ops)
@@ -498,15 +547,16 @@ def norm_case(case, dev):
                "k": k, "base_rows": base_rows, "s": s,
                "invalid": list(invalid),
                "max_abs_err": max(errs), "errs": errs, "err_limits": limits,
-               "bitwise_repeat": repeat, "ms": ms, "plain_ms": plain_ms,
+               "bitwise_repeat": repeat, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms, "bytes": bytes_moved, "ops": ops}
+               "library_ms": library_ms, "bytes": bytes_moved, "ops": ops,
+               **t}
         rows.append(row)
         lib_txt = ("n/a" if library_ms is None else f"{library_ms:.4f} ms")
         print(f"[kernel] {name:12s} {kind:11s} {label}: n={n} d={d} k={k} "
               f"s={s}{' masked' if invalid else ''} | errs {', '.join(f'{e:.3e}' for e in errs)} (limits "
               f"{', '.join(f'{v:.3e}' for v in limits)}) repeat bitwise | "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"kernel {timing_text(t)}; plain {plain_ms:.4f} ms bound "
               f"{bound_ms:.4f} ms ({bound_by}) library {lib_txt}",
               flush=True)
         del first, again, want
@@ -561,20 +611,21 @@ def blocked_case(case, dev, card):
             raise AssertionError(
                 f"{name} {label}: error {err} vs limit {limit}, finite {ok},"
                 f" bitwise repeat {repeat}, symmetric {symmetric}")
-        ms = cuda_ms(kern)
+        t = timing(kern)
         plain_ms = cuda_ms(plain)
         library_ms = cuda_ms(lib)
         bound_ms, bound_by = bound_of(bytes_moved, ops)
         rows.append({
             "kernel": name, "label": label, "m": m, "d": d,
             "max_abs_err": err, "err_limit": limit, "bitwise_repeat": repeat,
-            "symmetric": symmetric, "ms": ms, "plain_ms": plain_ms,
+            "symmetric": symmetric, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "bytes": bytes_moved, "ops": ops})
+            "library_ms": library_ms, "bytes": bytes_moved, "ops": ops, **t})
         print(f"[kernel] {name:20s} {label}: m={m} d={d} | err {err:.3e} "
               f"(limit {limit:.3e}) repeat bitwise"
               f"{', symmetric bitwise' if symmetric else ''} | kernel "
-              f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+              f"{timing_text(t)}; plain {plain_ms:.4f} ms bound "
+              f"{bound_ms:.4f} ms "
               f"({bound_by}) library {library_ms:.4f} ms [{card}]",
               flush=True)
         del first, again, want
@@ -610,7 +661,7 @@ def topk_case(case, dev, card):
             f"entries differ), bitwise repeat {repeat}, selection equal "
             f"{same_sel}")
     del first, again, want, sel, sel_plain
-    ms = cuda_ms(lambda: Q.topk_pool(x, cp))
+    t = timing(lambda: Q.topk_pool(x, cp))
     whole_ms = cuda_ms(lambda: Q.topk_select(x, k))
     plain_ms = cuda_ms(lambda: Q.topk_pool_plain(x, cp))
     plain_select_ms = cuda_ms(lambda: Q.topk_select_plain(x, k))
@@ -619,14 +670,15 @@ def topk_case(case, dev, card):
     bound_ms, bound_by = bound_of(bytes_moved, 0)
     row = {"kernel": "topk_select", "label": label, "rows": rows, "d": d,
            "k": k, "cp": cp, "tiles": tiles, "max_abs_err": 0.0,
-           "mismatched": mismatched, "bitwise_repeat": repeat, "ms": ms,
+           "mismatched": mismatched, "bitwise_repeat": repeat,
            "whole_ms": whole_ms, "plain_ms": plain_ms,
            "plain_select_ms": plain_select_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
-           "bytes": bytes_moved}
+           "bytes": bytes_moved, **t}
     print(f"[kernel] topk_select {label}: rows={rows} d={d} k={k} cp={cp} "
           f"tiles={tiles} | pools and selection exact, repeat bitwise | "
-          f"kernel {ms:.4f} ms, whole topk_select {whole_ms:.4f} ms, plain "
+          f"kernel {timing_text(t)}; whole topk_select {whole_ms:.4f} ms, "
+          f"plain "
           f"pools {plain_ms:.4f} ms, plain select {plain_select_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}), torch.topk "
           f"{library_ms:.4f} ms [{card}]", flush=True)
@@ -676,7 +728,7 @@ def ops_path(dev, card):
                 f"the plain version (max abs err {err}), bitwise repeat "
                 f"{repeat}")
         del want, again
-        ms = cuda_ms(lambda: Q.block_quantize(x, u, levels=QUANT_LEVELS))
+        t = timing(lambda: Q.block_quantize(x, u, levels=QUANT_LEVELS))
         entry_ms = cuda_ms(lambda: ops.block_quantize(x, key,
                                                       levels=QUANT_LEVELS))
         plain_ms = cuda_ms(lambda: Q.block_quantize_plain(
@@ -684,13 +736,13 @@ def ops_path(dev, card):
         bound_ms, bound_by = bound_of(12 * d, 0)
         rows.append({"kernel": "block_quantize", "label": label, "d": d,
                      "levels": QUANT_LEVELS, "max_abs_err": err,
-                     "flips": flips, "bitwise_repeat": repeat, "ms": ms,
+                     "flips": flips, "bitwise_repeat": repeat,
                      "entry_ms": entry_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None, "bytes": 12 * d})
+                     "library_ms": None, "bytes": 12 * d, **t})
         print(f"[kernel] block_quantize {label}: d={d} levels={QUANT_LEVELS}"
               f" | through ops.block_quantize, {flips} levels differ from "
-              f"the plain version, repeat bitwise | kernel {ms:.4f} ms, "
+              f"the plain version, repeat bitwise | kernel {timing_text(t)}; "
               f"ops entry (dither draw + kernel) {entry_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"library n/a [{card}]", flush=True)
@@ -892,6 +944,49 @@ def main_path(dev, card, tag, spec, want_counts, diverges=False,
             "cpu_loss_diff": diff, "diverges": diverges}
 
 
+PROFILE_STEPS = 20                 # rounds of each profiled path
+PROFILED_PATHS = ("cm", "rfa", "krum", "cm chaos", "byz_ef21 topk")
+
+
+def path_profile(dev, card, tag, spec):
+    """Where a path's round goes: PROFILE_STEPS rounds through ``api.run``
+    under torch.profiler's CUDA activity (the tracer's cost on the host
+    included in the wall time), after a warm-up run. Returns the host
+    clock's ms a round, the device's busy ms a round (the summed duration
+    of every kernel, copy and fill), the device operations a round, and
+    the device time by operation name, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import RunSpec, run
+    spec = {**spec, "steps": PROFILE_STEPS}
+    run(RunSpec(**{**spec, "steps": 3}), device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = run(RunSpec(**spec), device=dev, log_every=1)
+        torch.cuda.synchronize()
+    evts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in evts:
+        by_name[e.name[:50]] = (by_name.get(e.name[:50], 0.0)
+                                + e.time_range.elapsed_us() / 1e3)
+    steps = len(res.history)
+    wall_ms = res.wall_s / steps * 1e3
+    busy_ms = sum(by_name.values()) / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row = {"path": tag, "rounds": steps, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_ops": len(evts) / steps,
+           "idle_share": 1.0 - busy_ms / wall_ms,
+           "top_ms_per_round": {k: v / steps for k, v in top}}
+    print(f"[profile {tag}] {steps} rounds: {wall_ms:.3f} ms a round "
+          f"(host clock), device busy {busy_ms:.4f} ms a round in "
+          f"{len(evts) / steps:.1f} device ops; idle share "
+          f"{row['idle_share']:.3f}; top: "
+          + ", ".join(f"{k} {v / steps:.4f}" for k, v in top[:4])
+          + f" [{card}]", flush=True)
+    return row
+
+
 def ops_wire_path(dev, card):
     """The ``kernels.ops`` entry points on the dense wires and on a
     bfloat16 stack at gisette width (5 workers, bucketing s = 2), the
@@ -972,6 +1067,61 @@ def ops_wire_path(dev, card):
     return {"launches": counts, "max_abs_err": errs}
 
 
+# the sparse range search of the looping kernels, alone: (label, n, d, k,
+# blocks), the column groups of the sparse register load (TILE * 4)
+BOUNDS_GROUP = 512
+BOUNDS_CASES = [("main path: wire, leaf w", 5, 123, 12, 1),
+                ("Byz-EF21 wire, leaf w", 5, 5000, 500, 3),
+                ("qwen3-1.7b q_proj layer, RandK 0.1", 8, 4_194_304, 419_430,
+                 264)]
+
+
+def bounds_case(case, dev):
+    """``quantize.sparse_bounds`` (the warp search of the looping kernels)
+    on ascending RandK rows against its plain twin, and both against
+    ``torch.searchsorted``: exact."""
+    from repro_torch import random as R
+    from repro_torch.kernels import quantize as Q
+    label, n, d, k, blocks = case
+    keys = R.fold_in(R.PRNGKey(d, device=dev), torch.arange(n, device=dev))
+    idx = torch.sort(R.permutation(keys, d)[:, :k], dim=1).values.int()
+    got = Q.sparse_bounds(idx, d, BOUNDS_GROUP, blocks).cpu()
+    want = Q.sparse_bounds_plain(idx.cpu(), d, BOUNDS_GROUP, blocks)
+    groups = -(-d // BOUNDS_GROUP)
+    lo = torch.tensor([groups * b // blocks * BOUNDS_GROUP
+                       for b in range(blocks)], dtype=torch.int32)
+    ref = torch.searchsorted(idx.cpu(), lo.expand(n, blocks).contiguous(),
+                             out_int32=True).T
+    if not (torch.equal(got, want) and torch.equal(want, ref)):
+        raise AssertionError(f"sparse range search {label}: kernel, plain "
+                             "twin and searchsorted differ")
+    print(f"[kernel] sparse range search {label}: n={n} d={d} k={k} "
+          f"blocks={blocks} | kernel = plain twin = searchsorted", flush=True)
+    return {"label": label, "n": n, "d": d, "k": k, "blocks": blocks,
+            "equal": True}
+
+
+LEAN_KERNELS = ("robust_agg", "weighted_sum")
+
+
+def check_lean(cases):
+    """A steady-state call of ``robust_agg`` or ``weighted_sum`` issues
+    exactly one device operation, its kernel, on every load and shape
+    (no row pointers, no mask conversion, no copy or fill), where the
+    profiler recorded the calls: every operation it saw is the kernel,
+    one a call (the tracer loses or repeats an event in some windows of
+    REPS calls, so the count is rounded)."""
+    bad = [(r["kernel"], r["kind"], r["label"], r["device_ops"],
+            r["device_op_names"])
+           for rows in cases.values() for r in rows
+           if r.get("kernel") in LEAN_KERNELS and r["device_ops"] is not None
+           and (round(r["device_ops"]) != 1
+                or any(r["kernel"] not in name
+                       for name in r["device_op_names"]))]
+    if bad:
+        raise AssertionError(f"calls with more than one device op: {bad}")
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     """One entry of the kernels line, from the main-path cases' rows."""
     if launches < 1:
@@ -986,10 +1136,20 @@ def kernel_entry(name, source, replaces, launches, rows):
         "bound_ms": statistics.mean(r["bound_ms"] for r in rows),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                      else "operations"),
-        "library_ms": None if None in libs else statistics.mean(libs)}
+        "library_ms": None if None in libs else statistics.mean(libs),
+        "device_ms": (None if any(r["device_ms"] is None for r in rows)
+                      else statistics.mean(r["device_ms"] for r in rows)),
+        "device_ops": max((r["device_ops"] or 0) for r in rows)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", choices=("all", "kernels"), default="all",
+                    help="'kernels': the kernel phases alone (no paths, "
+                         "no kernels line), e.g. to time another tree's "
+                         "kernels with this script's measurements")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -1037,6 +1197,37 @@ def main() -> int:
                              for r in norm_case(c[:7] + c[8:], dev)]
     load_norm_masked_wide = [r for c in LOAD_MASKED_WIDE_CASES
                              for r in norm_case(c[:7] + c[8:], dev)]
+    cases = {"main_cases": main_rows, "wide_cases": wide_rows,
+             "norm_main_cases": norm_main, "norm_wide_cases": norm_wide,
+             "blocked_main_cases": blocked_main,
+             "blocked_wide_cases": blocked_wide,
+             "topk_main_cases": topk_main, "topk_wide_cases": topk_wide,
+             "masked_main_cases": masked_main,
+             "masked_wide_cases": masked_wide,
+             "norm_masked_main_cases": norm_masked_main,
+             "norm_masked_wide_cases": norm_masked_wide,
+             "load_main_cases": load_main, "load_wide_cases": load_wide,
+             "load_norm_main_cases": load_norm_main,
+             "load_norm_wide_cases": load_norm_wide,
+             "load_masked_main_cases": load_masked_main,
+             "load_masked_wide_cases": load_masked_wide,
+             "load_norm_masked_main_cases": load_norm_masked_main,
+             "load_norm_masked_wide_cases": load_norm_masked_wide}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    quant = ops_path(dev, card)
+    cases["block_quantize_cases"] = quant["cases"]
+    if args.phases == "kernels":
+        (out_dir / "chip_smoke_kernels.json").write_text(json.dumps(
+            {"card": card, "torch": torch.__version__,
+             "cuda": torch.version.cuda, **cases,
+             "wall_s": time.time() - t_start}, indent=1))
+        print(f"[done] kernel phases alone, {time.time() - t_start:.1f} s",
+              flush=True)
+        return 0
+    check_lean(cases)
+    cases["sparse_bounds_cases"] = [bounds_case(c, dev)
+                                    for c in BOUNDS_CASES]
     paths = {}
     for agg in ("cm", "rfa", "krum"):
         paths[agg] = main_path(
@@ -1050,7 +1241,6 @@ def main() -> int:
     paths["byz_ef21 topk"] = main_path(dev, card, "byz_ef21 topk",
                                        dict(EF21_SPEC),
                                        lambda f, v, r: ef21_counts(r))
-    quant = ops_path(dev, card)
     paths["ops.block_quantize"] = {"launches": quant["launches"]}
     for agg in ("cm", "rfa", "krum"):
         paths[f"{agg} chaos"] = main_path(
@@ -1090,6 +1280,12 @@ def main() -> int:
         lambda f, v, r: ef21_counts(r, fmt="bf16", aggregator="krum",
                                     guard=True), traj_tol=QUANT_TRAJ_TOL)
     paths["ops wire"] = ops_wire_path(dev, card)
+    path_specs = {"cm": MAIN_SPEC, "rfa": {**MAIN_SPEC, "aggregator": "rfa"},
+                  "krum": {**MAIN_SPEC, "aggregator": "krum"},
+                  "cm chaos": {**MAIN_SPEC, **CHAOS_SPEC},
+                  "byz_ef21 topk": EF21_SPEC}
+    profiles = [path_profile(dev, card, tag, path_specs[tag])
+                for tag in PROFILED_PATHS]
 
     def launches(*keys):
         return sum(p["launches"][k] for p in paths.values() for k in keys)
@@ -1148,27 +1344,11 @@ def main() -> int:
         "block_quantize", "src/repro_torch/kernels/csrc/block_quantize.cu",
         REPLACES["block_quantize"], launches("block_quantize"),
         quant["cases"]))
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "main_cases": main_rows, "wide_cases": wide_rows,
-         "norm_main_cases": norm_main, "norm_wide_cases": norm_wide,
-         "blocked_main_cases": blocked_main,
-         "blocked_wide_cases": blocked_wide,
-         "topk_main_cases": topk_main, "topk_wide_cases": topk_wide,
-         "masked_main_cases": masked_main, "masked_wide_cases": masked_wide,
-         "norm_masked_main_cases": norm_masked_main,
-         "norm_masked_wide_cases": norm_masked_wide,
-         "load_main_cases": load_main, "load_wide_cases": load_wide,
-         "load_norm_main_cases": load_norm_main,
-         "load_norm_wide_cases": load_norm_wide,
-         "load_masked_main_cases": load_masked_main,
-         "load_masked_wide_cases": load_masked_wide,
-         "load_norm_masked_main_cases": load_norm_masked_main,
-         "load_norm_masked_wide_cases": load_norm_masked_wide,
-         "block_quantize_cases": quant["cases"],
-         "main_paths": paths, "no_library": NO_LIBRARY, "kernels": kernels,
+         **cases,
+         "main_paths": paths, "path_profiles": profiles,
+         "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))
     print(f"[done] {time.time() - t_start:.1f} s in all", flush=True)
     print(gpu_line(), flush=True)

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as R
+from repro_torch import xla_math as X
+from repro_torch.core.attacks import fma_f32
 
 
 @dataclasses.dataclass
@@ -78,14 +80,123 @@ def make_logreg_data(key, *, n_samples=2000, dim=50, n_workers=5,
                       homogeneous=homogeneous)
 
 
+def xla_softplus(logits):
+    """``jax.nn.softplus`` as XLA compiles it on the CPU: logaddexp(l, 0)
+    = max(l, 0) + log1p(exp(−|l|)), NaN kept, in ``xla_math``'s exp and
+    log1p."""
+    return torch.where(torch.isnan(logits), logits,
+                       torch.clamp(logits, min=0.0)
+                       + X.log1p(X.exp(-logits.abs())))
+
+
+def xla_softplus_cotangent(logits, sp, y, cot):
+    """The logits' cotangent of Σ cot·(softplus(l) − y·l), as XLA fuses
+    logaddexp's derivative: cot·exp(l − softplus(l)) − cot·y in one
+    rounding (a subnormal flushed to zero), an infinite l or softplus read
+    as 0."""
+    inf = float("inf")
+    e = X.exp(torch.where(logits == inf, 0.0, logits)
+              - torch.where(sp == inf, 0.0, sp))
+    return X.ftz(fma_f32(e, cot, -(y * cot)))
+
+
+def _batched(info, in_dims, *args):
+    """The arguments of a vmapped call with the batch axis first (unbatched
+    ones expanded to it)."""
+    return [a.movedim(d, 0) if d is not None
+            else a.expand((info.batch_size,) + tuple(a.shape))
+            for a, d in zip(args, in_dims)]
+
+
+class _XlaLogisticCE(torch.autograd.Function):
+    """Mean logistic cross-entropy of a (..., B, d) batch and its gradient
+    in the reference's compiled order on the CPU (read from XLA's object
+    code for ``jax.jit(vmap(value_and_grad))``): softplus and its
+    derivative in XLA's exp and log1p; the mean a sum in XLA's windows
+    times the rounded 1/B; the bias' gradient a sum over the rows. The two
+    products are PyTorch's: the logits x·w, which XLA's loop fusion lets
+    LLVM reassociate into an order that depends on d and the host's vector
+    width (ROADMAP queue 3), and the weights' gradient, XLA's column-major
+    product (one fused multiply-add a row in row order,
+    ``aggregators.weighted_rows``), which a Python loop over the rows would
+    repeat at three times the cost of a CPU round while the logits already
+    part from XLA's by an ulp.
+
+    Under ``torch.func.vmap`` the forward and the backward
+    (``_XlaLogisticGrad``) run on the whole batch of workers at once: the
+    bit manipulations of ``xla_math`` have no batching rule in every
+    PyTorch release."""
+
+    @staticmethod
+    def forward(x, w, b, y):
+        from repro_torch.core.aggregators import xla_sum_lanes
+        logits = (x @ w[..., :, None])[..., 0] + b[..., None]
+        sp = xla_softplus(logits)
+        ce = xla_sum_lanes(sp - y * logits) * (1.0 / y.shape[-1])
+        return ce, logits, sp
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, _, _, y = inputs
+        _, logits, sp = output
+        ctx.save_for_backward(x, y, logits, sp)
+        ctx.mark_non_differentiable(logits, sp)
+
+    @staticmethod
+    def backward(ctx, g, _g_logits, _g_sp):
+        x, y, logits, sp = ctx.saved_tensors
+        g_w, g_b = _XlaLogisticGrad.apply(x, y, logits, sp, g)
+        return None, g_w, g_b, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, b, y):
+        return (_XlaLogisticCE.forward(*_batched(info, in_dims, x, w, b, y)),
+                (0, 0, 0))
+
+
+class _XlaLogisticGrad(torch.autograd.Function):
+    """The weights' and the bias' gradient of ``_XlaLogisticCE`` from the
+    saved logits and the upstream gradient g (...,)."""
+
+    @staticmethod
+    def forward(x, y, logits, sp, g):
+        from repro_torch.core.aggregators import xla_sum_lanes
+        g_logits = xla_softplus_cotangent(
+            logits, sp, y, (g * (1.0 / y.shape[-1]))[..., None])
+        return (g_logits[..., None, :] @ x)[..., 0, :], xla_sum_lanes(g_logits)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the logistic gradient has no gradient")
+
+    @staticmethod
+    def vmap(info, in_dims, x, y, logits, sp, g):
+        return (_XlaLogisticGrad.forward(
+            *_batched(info, in_dims, x, y, logits, sp, g)), (0, 0))
+
+
 def logreg_loss(lam: float = 0.01, nonconvex: bool = False):
     """ℓ2-regularized logistic loss; ``nonconvex=True`` takes the
-    regularizer λ Σ w²/(1+w²) instead."""
+    regularizer λ Σ w²/(1+w²) instead. On the CPU the value and its
+    gradient follow the reference's compiled code op for op but for the
+    logits' dot product (``_XlaLogisticCE``, the squares summed in XLA's
+    windows); on the card they are PyTorch's (``F.softplus``, cuBLAS)."""
 
     def loss_fn(params, batch, key=None):
         w = params["w"]
-        logits = batch["x"] @ w + params["b"]
         y = batch["y"]
+        if w.device.type == "cpu" and "w" not in batch:
+            from repro_torch.core.aggregators import xla_sum_lanes
+            ce = _XlaLogisticCE.apply(batch["x"], w, params["b"], y)[0]
+            sq = w * w
+            if nonconvex:
+                sq = sq / (1.0 + sq)
+            return ce + lam * xla_sum_lanes(sq)
+        logits = batch["x"] @ w + params["b"]
         per = F.softplus(logits) - y * logits
         if "w" in batch:                      # importance-sampling weights
             per = per * batch["w"]

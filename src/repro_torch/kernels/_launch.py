@@ -1,7 +1,10 @@
 """What every CUDA aggregation launch shares: argument checks, the
 worker-stack arguments that lead each fused entry point's C signature
 (``SRC_PARAMS`` in ``csrc/agg_prologue.cuh``), in that order, the
-launch counts per load, and the dense stack of the blocked kernels."""
+launch counts per load, and the dense stack of the blocked kernels.
+Nothing here launches a device operation: masks go as they are (bool as
+a uint8 view), and the sparse row pointers that two kernels read are
+built once per payload."""
 from __future__ import annotations
 
 import ctypes
@@ -14,7 +17,9 @@ from repro_torch.kernels import quantize
 
 _P, _I, _Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SRC_ARGTYPES = ([_P] * 4 + [_I, _P, _Q, _P, _I, _P, _I] + [_P] * 4
-                + [_I, ctypes.c_float, _I, _I, _I, _Q])
+                + [_I, ctypes.c_float, _I, _I, _I, _Q, _I])
+# u8_masks bits of SRC_PARAMS: which masks come as bool bytes
+MASK_U8, VALID_U8, BVALID_U8 = 1, 2, 4
 
 # the sources a fused kernel loads its worker stack from, in the order of
 # the LOAD_* codes of csrc/agg_prologue.cuh: the dense float32 / bfloat16
@@ -72,27 +77,32 @@ def check(who, name, t, device, dtype, shape) -> int:
     return t.data_ptr()
 
 
-def as_float_mask(m):
-    """A bool mask as the kernels read it, float32 (> 0 is set); other
-    dtypes pass through to ``check``, which refuses what is not float32."""
-    return m.float() if m.dtype == torch.bool else m
+def mask_arg(who, name, m, device, shape):
+    """(pointer, is_bytes) of a mask the kernels read: a bool mask as a
+    zero-copy uint8 view (bytes, nonzero set), a float32 one as it is
+    (> 0 set); no conversion is launched."""
+    if m.dtype == torch.bool:
+        return check(who, name, m.view(torch.uint8), device, torch.uint8,
+                     shape), True
+    return check(who, name, m, device, torch.float32, shape), False
 
 
 def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
-             valid=None):
-    """(args, keep, load): the ``SRC_PARAMS`` of a launch on the dense
-    (n, d) float32 or bfloat16 stack or the ``quantize.WireSrc`` ``x``,
-    the tensors made here that must stay alive until the launch is
-    enqueued, and the load's name. ``valid`` (fault guard) is the
-    optional (n,) row-validity mask, checked like ``mask``."""
+             valid=None, starts=False):
+    """(args, load): the ``SRC_PARAMS`` of a launch on the dense (n, d)
+    float32 or bfloat16 stack or the ``quantize.WireSrc`` ``x``, and the
+    load's name. ``valid`` (fault guard) is the optional (n,) row-validity
+    mask, taken like ``mask``. ``starts``: the sparse wire's row pointers
+    per ``tile``-column tile, built once per payload
+    (``quantize.WireSrc.starts``), for the kernels that read them; the
+    looping kernels find their bounds on the card and take none."""
     if not 1 <= n <= MAX_FUSED_WORKERS:
         raise ValueError(f"{who} kernel takes 1..{MAX_FUSED_WORKERS} "
                          f"workers, got {n}")
     device = x.device
     f32, i8 = torch.float32, torch.int8
-    x_ptr = vals = idx = starts = q8 = qs = base = None
+    x_ptr = vals = idx = starts_ptr = q8 = qs = base = None
     k = q8_ld = qs_ld = base_rows = 0
-    keep = []
     load = load_of(x)
     if isinstance(x, quantize.WireSrc):
         if x.cand_dtype not in (f32, torch.bfloat16):
@@ -103,9 +113,8 @@ def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
             k = arr["vals"].shape[1]
             vals = check(who, "vals", arr["vals"], device, f32, (n, k))
             idx = check(who, "idx", arr["idx"], device, torch.int32, (n, k))
-            st = quantize.wire_starts(arr["idx"], d, tile)
-            keep.append(st)
-            starts = st.data_ptr()
+            if starts:
+                starts_ptr = x.starts(tile).data_ptr()
         elif load == "int8":
             qs_ld = -(-d // quantize.INT8_BLOCK)
             q8_ld = qs_ld * quantize.INT8_BLOCK
@@ -130,27 +139,25 @@ def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
         x_ptr = check(who, "x", x, device,
                       torch.bfloat16 if cand_bf16 else f32, (n, d))
     code = attack_code(attack)
-    mask_ptr = mean_ptr = std_ptr = None
+    mask_ptr = mean_ptr = std_ptr = valid_ptr = None
+    u8 = 0
     if code:
         if mask is None:
             raise ValueError(f"{who}: an attack needs the byzantine mask")
-        mask = as_float_mask(mask)
-        keep.append(mask)
-        mask_ptr = check(who, "mask", mask, device, f32, (n,))
+        mask_ptr, is_u8 = mask_arg(who, "mask", mask, device, (n,))
+        u8 |= MASK_U8 if is_u8 else 0
         if attack.kind in ("ALIE", "IPM"):
             mean_ptr = check(who, "good_mean", good_mean, device, f32, (d,))
         if attack.kind == "ALIE":
             std_ptr = check(who, "good_std", good_std, device, f32, (d,))
-    valid_ptr = None
     if valid is not None:
-        valid = as_float_mask(valid)
-        keep.append(valid)
-        valid_ptr = check(who, "valid", valid, device, f32, (n,))
-    args = [x_ptr, vals, idx, starts, k, q8, q8_ld, qs, qs_ld, base,
+        valid_ptr, is_u8 = mask_arg(who, "valid", valid, device, (n,))
+        u8 |= VALID_U8 if is_u8 else 0
+    args = [x_ptr, vals, idx, starts_ptr, k, q8, q8_ld, qs, qs_ld, base,
             base_rows, mask_ptr, valid_ptr, mean_ptr, std_ptr, code,
             float(attack.param) if code else 0.0, LOADS.index(load),
-            int(cand_bf16), n, d]
-    return args, keep, load
+            int(cand_bf16), n, d, u8]
+    return args, load
 
 
 def dense_args(who, x):
@@ -171,6 +178,12 @@ def bucket_args(who, w_mat, n, device):
 
 
 def stream(device) -> int:
+    """The current CUDA stream of ``device`` as a raw handle (without
+    building a ``torch.cuda.Stream``, which costs microseconds a call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index if device.index is not None
+                   else torch.cuda.current_device())
     return torch.cuda.current_stream(device).cuda_stream
 
 

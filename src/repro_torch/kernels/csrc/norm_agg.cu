@@ -34,8 +34,11 @@
 //   rfa_iter: one thread per column computes z_c (in the reference's
 //     compiled order, weighted_col) and writes it, then adds (xb_bc - z_c)^2 into its own column of an (m, TILE)
 //     accumulator; at the end each row of it is summed by one warp.
-//   weighted_sum: one thread per column, one block per tile; no W and no
-//     reduction across blocks.
+//   weighted_sum: a looping grid with the register load of
+//     agg_prologue.cuh (several columns a thread, the rows streamed
+//     through registers, the sparse wire found on the card, as
+//     robust_agg.cu's register path); no W and no reduction across
+//     blocks.
 
 #include "agg_prologue.cuh"
 
@@ -163,21 +166,84 @@ __global__ void rows_finish(const float* part, int blocks, int m,
   sq[b] = acc;
 }
 
-template <int LOAD>
-__global__ void __launch_bounds__(TILE) weighted_sum_kernel(
-    Src a, const float* w, float* out) {
-  extern __shared__ float smem[];
-  const Smem s = carve(smem, a.n, a.n, false);
-  float* s_wr = s.rest;                     // (n,) row weights
+// Sum_i w_i sent_i over the n <= 64 attacked rows: a looping grid (a
+// contiguous range a block on the sparse wire, the grid strided on the
+// other loads), V columns a thread read with loads of up to 16 bytes, the
+// rows streamed through registers into the weighted_col order (one fused
+// multiply-add a row up to 32 rows; above, rounded products in XLA's two
+// windows). Shared memory: the sparse tile (n, TILE * V), then the
+// weights, the byzantine mask and the validity (n,) each, and the sparse
+// walk's positions (n,).
+template <int LOAD, int V>
+__global__ void __launch_bounds__(TILE, V <= 4 ? 8 : 1) weighted_sum_kernel(
+    Src a, const float* w, int aligned, float* out) {
+  constexpr int GROUP = TILE * V;
+  extern __shared__ float4 smem4[];
+  float* s_tile = reinterpret_cast<float*>(smem4);
+  float* s_wr = s_tile + (LOAD == LOAD_SPARSE ? a.n * GROUP : 0);
+  float* s_mask = s_wr + a.n;
+  float* s_valid = s_mask + a.n;
+  int* s_pos = reinterpret_cast<int*>(s_valid + a.n);
   const int tid = threadIdx.x;
-  const long long c = (long long)blockIdx.x * TILE + tid;
-  stage_consts(a, nullptr, a.n, s);
-  for (int q = tid; q < a.n; q += TILE) s_wr[q] = w[q];
-  if (LOAD == LOAD_SPARSE) scatter_tile(a, blockIdx.x, s.valid, s.x);
+  const long long groups = (a.d + GROUP - 1) / GROUP;
+  const long long g0 = groups * blockIdx.x / gridDim.x;
+  const long long g1 = groups * (blockIdx.x + 1) / gridDim.x;
+  for (int q = tid; q < a.n; q += TILE) {
+    s_wr[q] = w[q];
+    s_mask[q] = a.mask ? mask_at(a.mask, q, a.u8_masks & MASK_U8) : 0.f;
+    s_valid[q] = a.valid ? mask_at(a.valid, q, a.u8_masks & VALID_U8) : 1.f;
+  }
   __syncthreads();
-  if (c >= a.d) return;
-  load_column<LOAD>(a, c, s);
-  out[c] = weighted_col(s.x + tid, s_wr, a.n);
+  if (LOAD == LOAD_SPARSE) sparse_starts(a, g0 * GROUP, s_valid, s_pos);
+  const int cut = a.n <= XLA_WINDOW
+                      ? a.n : XLA_WINDOW - (2 * XLA_WINDOW - a.n) / 2;
+
+  // as in robust_agg_regs: a contiguous range for the sparse walk, the grid
+  // strided on the other loads
+  constexpr bool RANGE = LOAD == LOAD_SPARSE;
+  constexpr int UNROLL = V <= 4 ? 4 : 2;
+  const long long step = RANGE ? 1 : gridDim.x;
+  for (long long g = RANGE ? g0 : blockIdx.x; g < (RANGE ? g1 : groups);
+       g += step) {
+    const long long c0 = g * GROUP + (long long)tid * V;
+    const bool full = aligned && c0 + V <= a.d;
+    float mu[V], sd[V], f[V], base1[V], lo[V], hi[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) mu[v] = sd[v] = base1[v] = lo[v] = hi[v] = 0.f;
+    if (c0 < a.d) {        // issued before the walk, which hides them
+      forged_load<V>(a, c0, full, mu, sd);
+      if (a.base && a.base_rows == 1)
+        load_row<float, V>(a.base + c0, full, a.d - c0, base1);
+    }
+    if (LOAD == LOAD_SPARSE)
+      scatter_group(a, g * GROUP, GROUP, s_valid, s_pos, s_tile);
+    if (c0 < a.d) {
+      forged_finish<V>(a, mu, sd, f);
+#pragma unroll UNROLL
+      for (int j = 0; j < a.n; ++j) {
+        float q[V];
+        row_values<LOAD, V>(a, j, c0, full, s_tile, GROUP, tid * V, base1, q);
+        attack_row<V>(a, s_mask[j], s_valid[j], f, q);
+        const float wj = s_wr[j];
+        if (a.n <= XLA_WINDOW) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) lo[v] = __fmaf_rn(q[v], wj, lo[v]);
+        } else if (j < cut) {
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            lo[v] = __fadd_rn(lo[v], __fmul_rn(q[v], wj));
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            hi[v] = __fadd_rn(hi[v], __fmul_rn(q[v], wj));
+        }
+      }
+      if (a.n > XLA_WINDOW)
+#pragma unroll
+        for (int v = 0; v < V; ++v) lo[v] = __fadd_rn(lo[v], hi[v]);
+      store_row<V>(out + c0, full, a.d - c0, lo);
+    }
+  }
 }
 
 static size_t gram_smem(int n, int m, bool bucketed) {
@@ -192,17 +258,7 @@ static size_t rfa_smem(int n, int m, bool bucketed) {
 
 template <typename Kernel>
 static int resident_blocks(Kernel kernel, size_t smem) {
-  int dev, sms, per_sm;
-  cudaError_t err;
-  if ((err = allow_smem(kernel, smem))) return -(int)err;
-  if ((err = cudaGetDevice(&dev))) return -(int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)))
-    return -(int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                           TILE, smem)))
-    return -(int)err;
-  return per_sm > 0 ? per_sm * sms : -(int)cudaErrorInvalidConfiguration;
+  return resident_grid(kernel, TILE, smem);
 }
 
 template <int LOAD>
@@ -223,8 +279,9 @@ template <int LOAD>
 struct PairGram {
   static int run(Src a, const float* w_mat, int m, int lanes, int blocks,
                  float* part, float* out, size_t smem, cudaStream_t st) {
-    cudaError_t err = allow_smem(pair_gram_partial<LOAD>, smem);
-    if (err) return (int)err;
+    const int got = resident_grid(pair_gram_partial<LOAD>, TILE, smem);
+    if (got < 0) return -got;
+    cudaError_t err;
     pair_gram_partial<LOAD><<<blocks, TILE, smem, st>>>(a, w_mat, m, lanes,
                                                         part);
     if ((err = cudaGetLastError())) return (int)err;
@@ -239,8 +296,9 @@ struct RfaIter {
   static int run(Src a, const float* w_mat, int m, const float* w,
                  int blocks, float* part, float* z, float* sq, size_t smem,
                  cudaStream_t st) {
-    cudaError_t err = allow_smem(rfa_iter_partial<LOAD>, smem);
-    if (err) return (int)err;
+    const int got = resident_grid(rfa_iter_partial<LOAD>, TILE, smem);
+    if (got < 0) return -got;
+    cudaError_t err;
     rfa_iter_partial<LOAD><<<blocks, TILE, smem, st>>>(a, w_mat, m, w, z,
                                                        part);
     if ((err = cudaGetLastError())) return (int)err;
@@ -249,14 +307,29 @@ struct RfaIter {
   }
 };
 
+template <int LOAD, int V>
+static int launch_weighted_sum(const Src& a, const float* w, float* out,
+                               cudaStream_t st) {
+  const auto kernel = weighted_sum_kernel<LOAD, V>;
+  const size_t smem =
+      ((LOAD == LOAD_SPARSE ? (size_t)a.n * TILE * V : 0) +
+       4 * (size_t)a.n) * sizeof(float);
+  const int resident = resident_grid(kernel, TILE, smem);
+  if (resident < 0) return -resident;
+  const long long groups = (a.d + TILE * V - 1) / (TILE * V);
+  const int blocks = (int)(groups < resident ? groups : resident);
+  kernel<<<blocks, TILE, smem, st>>>(a, w, vec_aligned(a, V, out), out);
+  return (int)cudaGetLastError();
+}
+
 template <int LOAD>
 struct WeightedSum {
-  static int run(Src a, const float* w, float* out, size_t smem,
-                 cudaStream_t st) {
-    cudaError_t err = allow_smem(weighted_sum_kernel<LOAD>, smem);
-    if (err) return (int)err;
-    weighted_sum_kernel<LOAD><<<a.n_tiles, TILE, smem, st>>>(a, w, out);
-    return (int)cudaGetLastError();
+  static int run(Src a, const float* w, float* out, cudaStream_t st) {
+    // a sparse tile of more than 16 rows takes one column a thread, so
+    // that it stays within 32 KB of shared memory
+    if (LOAD == LOAD_SPARSE && a.n > 16)
+      return launch_weighted_sum<LOAD, 1>(a, w, out, st);
+    return launch_weighted_sum<LOAD, vec_width(LOAD, 4)>(a, w, out, st);
   }
 };
 
@@ -301,10 +374,9 @@ extern "C" int rfa_iter_launch(SRC_PARAMS, const float* w_mat, int m,
                             (cudaStream_t)stream);
 }
 
+// The sparse wire needs no row pointers here (`starts` is ignored).
 extern "C" int weighted_sum_launch(SRC_PARAMS, const float* w, float* out,
                                    void* stream) {
   const Src a = make_src(SRC_ARGS);
-  return with_load<WeightedSum>(
-      load, a, w, out, (prologue_words(n, n, false) + n) * sizeof(float),
-      (cudaStream_t)stream);
+  return with_load<WeightedSum>(load, a, w, out, (cudaStream_t)stream);
 }

@@ -252,9 +252,9 @@ def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, valid, attack):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
-    args, keep, load = _launch.src_args("pair_gram", x, n, d, mask,
-                                        good_mean, good_std, attack,
-                                        lib.norm_agg_tile(), valid)
+    args, load = _launch.src_args("pair_gram", x, n, d, mask, good_mean,
+                                  good_std, attack, lib.norm_agg_tile(),
+                                  valid, starts=True)
     m, w_ptr = _launch.bucket_args("pair_gram", w_mat, n, dev)
     blocks = _blocks(lib, "pair_gram", load, dev, n, m, w_mat is not None,
                      d)
@@ -272,9 +272,9 @@ def _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid, attack):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
-    args, keep, load = _launch.src_args("rfa_iter", x, n, d, mask,
-                                        good_mean, good_std, attack,
-                                        lib.norm_agg_tile(), valid)
+    args, load = _launch.src_args("rfa_iter", x, n, d, mask, good_mean,
+                                  good_std, attack, lib.norm_agg_tile(),
+                                  valid, starts=True)
     m, w_ptr = _launch.bucket_args("rfa_iter", w_mat, n, dev)
     wr = _launch.check("rfa_iter", "w", w, dev, torch.float32, (m,))
     blocks = _blocks(lib, "rfa_iter", load, dev, n, m, w_mat is not None,
@@ -294,9 +294,8 @@ def _launch_weighted_sum(x, w, mask, good_mean, good_std, valid, attack):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
-    args, keep, load = _launch.src_args("weighted_sum", x, n, d, mask,
-                                        good_mean, good_std, attack,
-                                        lib.norm_agg_tile(), valid)
+    args, load = _launch.src_args("weighted_sum", x, n, d, mask, good_mean,
+                                  good_std, attack, None, valid)
     wr = _launch.check("weighted_sum", "w", w, dev, torch.float32, (n,))
     out = torch.empty(d, dtype=torch.float32, device=dev)
     err = lib.weighted_sum_launch(*args, wr, out.data_ptr(),

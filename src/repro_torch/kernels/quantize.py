@@ -12,8 +12,11 @@ Payload of one leaf, worker-stacked (every array (n, ...)):
 
 The CUDA aggregation kernels rebuild each tile of the candidates from it
 in their shared load (``csrc/agg_prologue.cuh``): the sparse wire through
-CSR row pointers (``wire_starts``), the other three elementwise, so the
-dense (n, d) candidate matrix never exists in device memory. ``decode``
+a search of each worker's ascending idx row on the card
+(``sparse_range_start`` is its plain twin) or, for the Gram and RFA
+kernels, CSR row pointers built once per payload (``wire_starts``); the
+other three elementwise, so the dense (n, d) candidate matrix never
+exists in device memory. ``decode``
 and ``recon`` are the plain reconstruction the CPU path and the tests
 use.
 
@@ -67,10 +70,24 @@ class WireSrc:
     arrays: tuple
     base: Optional[torch.Tensor] = None
     cand_dtype: torch.dtype = torch.float32
+    _starts: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     @property
     def device(self):
         return self.arrays[0][1].device
+
+    def starts(self, tile: int):
+        """The sparse payload's row pointers per ``tile``-column tile
+        (``wire_starts``), built at the first call and kept for this
+        payload: RFA's passes over one payload share one build. Rebuilt
+        if idx was written in place since."""
+        idx = dict(self.arrays)["idx"]
+        key = (tile, idx.data_ptr(), idx._version)
+        if key not in self._starts:
+            self._starts.clear()
+            self._starts[key] = wire_starts(idx, self.d, tile)
+        return self._starts[key]
 
 
 def pack_sparse(key, x, ratio: float, *, topk: bool):
@@ -344,3 +361,61 @@ def wire_starts(idx, d: int, tile: int):
                           device=idx.device) * tile
     bounds = bounds.expand(idx.shape[0], n_tiles + 1).contiguous()
     return torch.searchsorted(idx, bounds, out_int32=True)
+
+
+def sparse_range_start(idx_row, target: int) -> int:
+    """First position p of an ascending int32 row with idx_row[p] >=
+    target, or its length: the plain twin of the looping kernels' warp
+    search (``warp_lower_bound2`` in ``csrc/agg_prologue.cuh``), step for
+    step: 32 probes at lo + ⌊span·(l+1)/33⌋ while the range is wider than
+    32, then the last ≤ 32 positions. ``idx_row``: a 1-D tensor or a
+    list."""
+    row = idx_row.tolist() if torch.is_tensor(idx_row) else idx_row
+    lo, hi = 0, len(row)
+    while hi - lo > 32:
+        span = hi - lo
+        c = sum(row[lo + span * (lane + 1) // 33] < target
+                for lane in range(32))
+        nlo = lo if c == 0 else lo + span * c // 33 + 1
+        if c < 32:
+            hi = lo + span * (c + 1) // 33
+        lo = nlo
+    return lo + sum(row[p] < target for p in range(lo, hi))
+
+
+def sparse_bounds_plain(idx, d: int, group: int, blocks: int):
+    """(blocks, n) int32: for each block of a looping kernel that splits
+    ⌈d / group⌉ column groups over ``blocks`` blocks, and each worker row,
+    where the block's range starts in that row (``sparse_range_start``)."""
+    groups = -(-d // group)
+    rows = idx.tolist()
+    out = [[sparse_range_start(row, groups * b // blocks * group)
+            for row in rows] for b in range(blocks)]
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def sparse_bounds(idx, d: int, group: int, blocks: int):
+    """The looping kernels' range search alone on the card
+    (``sparse_bounds_launch`` in ``csrc/robust_agg.cu``), to hold it
+    against ``sparse_bounds_plain``; a CPU tensor takes the plain
+    version."""
+    if _launch.on_cpu("sparse_bounds", idx.device):
+        return sparse_bounds_plain(idx, d, group, blocks)
+    n, k = idx.shape
+    ip = _launch.check("sparse_bounds", "idx", idx, idx.device, torch.int32,
+                       (n, k))
+    lib = _build.load("robust_agg")
+    if lib.sparse_bounds_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sparse_bounds_launch.argtypes = [p, i, i, ctypes.c_longlong, i,
+                                             i, p, p]
+        lib.sparse_bounds_launch.restype = ctypes.c_int
+    out = torch.empty(blocks, n, dtype=torch.int32, device=idx.device)
+    err = lib.sparse_bounds_launch(ip, n, k, d, group, blocks,
+                                   out.data_ptr(), _launch.stream(idx.device))
+    _launch.raise_on("sparse_bounds", err)
+    sparse_bounds.launches += 1
+    return out
+
+
+sparse_bounds.launches = 0

@@ -7,7 +7,8 @@ applies the optional omniscient attack (BF / ALIE /
 IPM) from the byzantine mask and the good workers' mean / std, the (m, n)
 bucket operator W, and the rule (mean / median / trimmed), and returns
 the (d,) float32 aggregate. On a CUDA tensor it launches the hand-written
-kernel ``csrc/robust_agg.cu`` (or raises); on a CPU tensor it runs
+kernel ``csrc/robust_agg.cu`` (or raises), one device operation a call
+(the output's allocation aside); on a CPU tensor it runs
 ``robust_agg_plain``, the step-by-step plain PyTorch version.
 
 The masked twin (fault guard, partial participation): ``valid`` (n,)
@@ -104,8 +105,6 @@ def _lib():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.robust_agg_launch.restype = ctypes.c_int
-        lib.robust_agg_tile.argtypes = []
-        lib.robust_agg_tile.restype = ctypes.c_int
     return lib
 
 
@@ -115,15 +114,14 @@ def _launch_kernel(x, w_mat, mask, good_mean, good_std, valid, bvalid, rule,
         raise ValueError(rule)
     n, d = src_dims(x)
     lib = _lib()
-    args, keep, load = _launch.src_args("robust_agg", x, n, d, mask,
-                                        good_mean, good_std, attack,
-                                        lib.robust_agg_tile(), valid)
+    args, load = _launch.src_args("robust_agg", x, n, d, mask, good_mean,
+                                  good_std, attack, None, valid)
     m, w_ptr = _launch.bucket_args("robust_agg", w_mat, n, x.device)
     bv_ptr = None
     if bvalid is not None:
-        bvalid = _launch.as_float_mask(bvalid)
-        bv_ptr = _launch.check("robust_agg", "bvalid", bvalid, x.device,
-                               torch.float32, (m,))
+        bv_ptr, is_u8 = _launch.mask_arg("robust_agg", "bvalid", bvalid,
+                                         x.device, (m,))
+        args[-1] |= _launch.BVALID_U8 if is_u8 else 0
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     err = lib.robust_agg_launch(*args, w_ptr, m, bv_ptr, RULES.index(rule),
                                 int(trim), out.data_ptr(),

@@ -22,7 +22,8 @@ Layout follows JAX 0.9.0 with ``jax_threefry_partitionable=True``:
 * ``permutation`` sorts by fresh 32-bit keys in
   ceil(3·ln(n)/ln(2³²−1)) stable rounds;
 * ``normal`` is sqrt(2)·erfinv(u) with XLA's single-precision erfinv
-  polynomial (Giles), kept here so generated data agrees to 1–2 ulp.
+  polynomial (Giles) and XLA's own ``log-plus-one`` (``xla_math``), so
+  the normals equal JAX's bit for bit.
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch import xla_math as X
+from repro_torch.core.attacks import fma_f32
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -177,21 +181,21 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
-    """float32 inverse error function by Giles' polynomial. The Horner
-    steps are fused multiply-adds, as XLA's CPU backend contracts them:
-    the float32 product is exact in float64, so one float64 add and one
-    rounding to float32 give the fused result."""
-    w = -torch.log1p(-x * x)
-    lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
-    coef = [torch.tensor(c, dtype=torch.float32, device=x.device).double()
+    """float32 inverse error function by Giles' polynomial, as XLA's CPU
+    backend compiles ``lax.erf_inv``: w = −log1p(−x²) in XLA's own
+    ``log-plus-one`` (``xla_math``), a correctly rounded root, and each
+    Horner step one fused multiply-add."""
+    lw = X.log1p(x * -x)                                  # −w
+    lt = lw > -5.0
+    w = torch.where(lt, -2.5 - lw, X.sqrt(-lw) + -3.0)
+    coef = [torch.tensor(c, dtype=torch.float32, device=x.device)
             for c in _ERFINV_LT5 + _ERFINV_GE5]
-    p = torch.where(lt, coef[0], coef[9]).float()
-    for a, b in zip(coef[1:9], coef[10:]):
-        p = (torch.where(lt, a, b) + p.double() * w).float()
-    out = p * x
-    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
-                       out)
+    p = fma_f32(w, torch.where(lt, coef[0], coef[9]),
+                torch.where(lt, coef[1], coef[10]))
+    for a, b in zip(coef[2:9], coef[11:]):
+        p = fma_f32(w, p, torch.where(lt, a, b))
+    inf = torch.tensor(float("inf"), device=x.device)
+    return x * torch.where(x.abs() == 1.0, inf, p)
 
 
 def normal(key, shape: Sequence[int] = ()) -> torch.Tensor:

@@ -527,3 +527,111 @@ def test_garbled_wire_rows_are_dropped(dev):
                             rule="median", attack=ALIE)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# The looping kernels (robust_agg and weighted_sum): every load, masked
+# and unmasked, every rule, across the register path's row bounds (m <= 4,
+# 8, 16) and the shared-memory path (m > 16, a sparse wire of n > 16 rows),
+# on ragged widths (vector loads of 4 to 16 columns fall back to scalar
+# loads at the edge; int8's norm index c >> 8 inside a vector).
+LOOP_N = [1, 5, 8, 17, 33, 64]
+RAGGED_D = [1, 123, 5000, (1 << 22) + 3]
+
+
+def _loop_case(load, n, d, s, masked, dev):
+    """(args, plain_equal): a kernel call's (x, W, mask, mean, std, valid,
+    bvalid), the last worker invalid and poisoned when ``masked`` (n > 1),
+    and whether the kernel must equal its plain version (no W, or the
+    masked operator's two members a bucket) rather than agree to TOL."""
+    x, w, mask, mean, std = _inputs(n, d, dev, s)
+    x = _load(load, x, dev, 1 if load in ("wire", "int8") else n)
+    if not masked:
+        return (x, w, mask, mean, std, None, None), w is None
+    valid, w, bvalid = _masked(n, s, dev, [n - 1] if n > 1 else [])
+    return (_poison(x, valid), w, mask, mean, std, valid, bvalid), True
+
+
+def _big(d, n, rule="median"):
+    return d > 1_000_000 and (rule != "median" or n not in (5, 17, 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("s", [0, 2])
+@pytest.mark.parametrize("n", LOOP_N)
+@pytest.mark.parametrize("rule", ["mean", "median", "trimmed"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("load", LOADS)
+def test_robust_agg_looping(dev, load, masked, rule, n, s, d):
+    """Equal to the plain version without W and at every masked shape;
+    within TOL through W; bit for bit run to run."""
+    if s > n:
+        pytest.skip("bucket larger than the worker count")
+    if _big(d, n, rule):
+        pytest.skip("the widest d runs the median at n = 5, 17, 64 only")
+    args, equal = _loop_case(load, n, d, s, masked, dev)
+    kind = "sparse" if load == "wire" else load
+    before = robust_agg.load_launches[kind]
+    got = robust_agg(*args, rule=rule, attack=ALIE)
+    again = robust_agg(*args, rule=rule, attack=ALIE)
+    want = robust_agg_plain(*args, rule=rule, attack=ALIE)
+    torch.cuda.synchronize()
+    assert robust_agg.load_launches[kind] == before + 2
+    assert got.shape == (d,) and torch.equal(got, again)
+    if equal:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=TOL * 4 * max(
+            1.0, float(want.abs().max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("n", LOOP_N)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("load", LOADS)
+def test_weighted_sum_looping(dev, load, masked, n, d):
+    """Within TOL of the plain version (weighted_col's order, one fused
+    multiply-add a row up to 32 rows, XLA's two windows above), bit for
+    bit run to run."""
+    if _big(d, n):
+        pytest.skip("the widest d runs at n = 5, 17, 64 only")
+    args, _ = _loop_case(load, n, d, 0, masked, dev)
+    x, _, mask, mean, std, valid, _ = args
+    wn = torch.rand(n, device=dev) + 0.1
+    kind = "sparse" if load == "wire" else load
+    before = norm_agg.weighted_sum.load_launches[kind]
+    got = norm_agg.weighted_sum(x, wn, mask, mean, std, valid, attack=ALIE)
+    again = norm_agg.weighted_sum(x, wn, mask, mean, std, valid, attack=ALIE)
+    want = norm_agg.weighted_sum_plain(x, wn, mask, mean, std, valid,
+                                       attack=ALIE)
+    torch.cuda.synchronize()
+    assert norm_agg.weighted_sum.load_launches[kind] == before + 2
+    assert torch.equal(got, again)
+    sent = norm_agg.prologue(norm_agg.stack(x), None, mask, mean, std, ALIE,
+                             valid, norm_agg.cand_dtype(x))
+    _near(got, want, float(sent.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["randk", "topk"])
+@pytest.mark.parametrize("d, k, blocks", [(1, 1, 1), (123, 12, 1),
+                                          (5000, 500, 3), (5000, 4999, 7),
+                                          (70000, 7000, 50),
+                                          (1 << 22, 419_430, 264)])
+def test_sparse_range_search(dev, kind, d, k, blocks):
+    """The looping kernels' warp search on the card equals its plain twin
+    (and torch.searchsorted), blocks starting mid-run of a row's entries
+    included."""
+    n = 8
+    if kind == "randk":
+        keys = R.fold_in(R.PRNGKey(d, device=dev), torch.arange(n,
+                                                               device=dev))
+        idx = torch.sort(R.permutation(keys, d)[:, :k], dim=1).values.int()
+    else:
+        g = torch.Generator(device=dev).manual_seed(d)
+        x = torch.randn(n, d, device=dev, generator=g)
+        idx = torch.sort(topk_select(x, k), dim=1).values.int()
+    got = quantize.sparse_bounds(idx, d, 512, blocks)
+    want = quantize.sparse_bounds_plain(idx.cpu(), d, 512, blocks)
+    assert torch.equal(got.cpu(), want)

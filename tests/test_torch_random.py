@@ -1,5 +1,6 @@
 """repro_torch.random against jax.random: integer draws bit for bit,
-normals within a stated ulp bound."""
+normals bit for bit (their erfinv in XLA's own log1p, ``xla_math``) and,
+as the first bound they were held to, within a stated ulp bound."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,6 +99,24 @@ def test_normal_within_ulp_bound():
                  - ref.view(np.int32).astype(np.int64))
     assert ulp.max() <= NORMAL_ULP
     assert (ulp == 0).mean() > 0.95
+
+
+@pytest.mark.parametrize("seed", [23, 0])
+def test_normal_bit_for_bit(seed):
+    jk, tk = _key(seed)
+    got = R.normal(tk, (20000,)).numpy()
+    ref = np.asarray(jax.random.normal(jk, (20000,)))
+    assert np.array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+def test_logreg_features_bit_for_bit_at_a9a_width():
+    """The synthetic data at the paper's a9a width (32561 x 123), features
+    and labels equal to the reference's."""
+    kw = dict(n_samples=32561, dim=123, n_workers=5)
+    ref = jax_make_logreg_data(jax.random.PRNGKey(0), **kw)
+    got = make_logreg_data(R.PRNGKey(0), **kw)
+    assert np.array_equal(got.features.numpy(), np.asarray(ref.features))
+    assert np.array_equal(got.labels.numpy(), np.asarray(ref.labels))
 
 
 def test_logreg_data_features_and_labels():
