@@ -8,14 +8,15 @@ PyTorch version on the card, checks that the norm, TopK and quantizer
 kernels repeat bit for bit, and times kernel, plain version and a library
 call: each kernel row has the event window around the call (its
 wrapper's host work included), the device time and device operations
-per call from torch.profiler, and ``robust_agg`` and ``weighted_sum``
-must issue one device operation a call. Then it drives the port's main
+per call from torch.profiler, and ``robust_agg``, ``weighted_sum`` and
+``pair_gram`` must issue one device operation a call. Then it drives the
+port's main
 path — Byz-VR-MARINA with RandK, ALIE and bucketing s = 2 on a9a-width
 logistic regression — through
 ``repro_torch.api.run`` three times at 5 workers, with coordinate-wise
 median, RFA and Krum, and twice at 256 workers (the giant-n tier on the
 blocked kernels), with RFA and Krum; Byz-EF21 with TopK on the sparse
-wire at gisette width (5000 features, where TopK's pool kernel runs);
+wire at gisette width (5000 features, where TopK's select kernel runs);
 the block quantizer through the ``repro_torch.kernels.ops`` entry point;
 the chaos paths (the fault guard on, NaN gradients and corrupted wire
 payloads on worker 4) with cm, RFA and Krum, which run the masked
@@ -88,7 +89,7 @@ GIANT_PART_SPEC = dict(GIANT_SPEC, participation=0.75)  # 192 of 256
 # Byz-EF21 with TopK on the sparse wire at the width of LIBSVM's
 # gisette_scale (6000 samples x 5000 features, NIPS 2003 feature
 # selection): leaf w is wider than two 2048-column tiles, so every round
-# launches TopK's pool kernel; the reference's loss falls at lr 0.5
+# launches TopK's select kernel; the reference's loss falls at lr 0.5
 EF21_SPEC = dict(
     task="logreg", method="byz_ef21", n_workers=5, n_byz=1, attack="ALIE",
     aggregator="cm", bucket_size=2, agg_mode="pallas", compressor="topk",
@@ -294,11 +295,22 @@ def device_profile(fn):
 def timing(fn) -> dict:
     """The times of one kernel row: ``ms`` the event window around the
     call (host work of the wrapper included), ``device_ms`` and
-    ``device_ops`` the profiler's device time and operations per call."""
+    ``device_ops`` the profiler's device time and operations per call. A
+    window where the tracer kept fewer events than there were calls, or
+    none (it loses some in some windows, at times several in a row), is
+    profiled again, up to five times (``profile_tries``), and the window
+    that kept the most events is reported."""
     ms = cuda_ms(fn)
-    dev_ms, ops, names = device_profile(fn)
+    best = (None, None, [])
+    for tries in range(1, 6):
+        got = device_profile(fn)
+        if got[1] is not None and (best[1] is None or got[1] > best[1]):
+            best = got
+        if best[1] is not None and best[1] >= 0.5:
+            break
+    dev_ms, ops, names = best
     return {"ms": ms, "device_ms": dev_ms, "device_ops": ops,
-            "device_op_names": names}
+            "device_op_names": names, "profile_tries": tries}
 
 
 def timing_text(t) -> str:
@@ -530,6 +542,8 @@ def norm_case(case, dev):
             ok = all(torch.isfinite(t).all() for t in first)
         else:
             repeat = torch.equal(first, again)
+            if name == "pair_gram":      # upper triangle, mirrored
+                repeat = repeat and torch.equal(first, first.T)
             errs = [float((first - want).abs().max())]
             limits = [sum_tol * max(1.0, float(want.abs().max()))
                       if name == "pair_gram" else KERNEL_TOL * scale]
@@ -538,7 +552,8 @@ def norm_case(case, dev):
                                                                   limits))):
             raise AssertionError(
                 f"{name} {label}: errors {errs} vs limits {limits}, "
-                f"finite {ok}, bitwise repeat {repeat}")
+                f"finite {ok}, bitwise repeat (and the Gram symmetric) "
+                f"{repeat}")
         t = timing(kern)
         plain_ms = cuda_ms(plain)
         library_ms = None if lib is None else cuda_ms(lib)
@@ -635,53 +650,64 @@ def blocked_case(case, dev, card):
 
 
 def topk_case(case, dev, card):
-    """TopK's pool kernel on one (rows, d) stack: against its plain version
-    exactly (the same values and indices), twice for bit-for-bit
-    repeatability, and ``topk_select`` against ``topk_select_plain``;
-    timed: the kernel alone, the whole selection, the plain pool version,
-    the plain selection and ``torch.topk(x.abs(), k)``."""
+    """TopK's select kernels on one (rows, d) stack, random and full of
+    ties: ``topk_support`` (the ascending indices and x at them) and
+    ``topk_select`` against their plain twins exactly, the support twice
+    for bit-for-bit repeatability. Timed: ``topk_support`` (its call, and
+    the select kernels alone: device ms and device ops per call), the whole
+    ``topk_select``, the plain twins and ``torch.topk(x.abs(), k)``; the
+    bound is x read once and the k indices written, with the per-tile pool
+    design's bound (its pools written too) beside it."""
     from repro_torch.kernels import quantize as Q
     label, rows, d, k = case
     g = torch.Generator(device=dev).manual_seed(rows * 7919 + d)
     x = torch.randn(rows, d, device=dev, generator=g)
-    cp = Q.topk_pool_width(k)
-    tiles = -(-d // Q.TOPK_TILE)
-    first, again = Q.topk_pool(x, cp), Q.topk_pool(x, cp)
-    want = Q.topk_pool_plain(x, cp)
-    sel = Q.topk_select(x, k)
-    sel_plain = Q.topk_select_plain(x, k)
-    torch.cuda.synchronize()
-    exact = all(torch.equal(a, b) for a, b in zip(first, want))
-    repeat = all(torch.equal(a, b) for a, b in zip(first, again))
-    same_sel = torch.equal(sel, sel_plain)
-    mismatched = int(sum(int((a != b).sum()) for a, b in zip(first, want)))
-    if not (exact and repeat and same_sel and sel.shape == (rows, k)):
-        raise AssertionError(
-            f"topk_select {label}: pools equal {exact} ({mismatched} "
-            f"entries differ), bitwise repeat {repeat}, selection equal "
-            f"{same_sel}")
-    del first, again, want, sel, sel_plain
-    t = timing(lambda: Q.topk_pool(x, cp))
-    whole_ms = cuda_ms(lambda: Q.topk_select(x, k))
-    plain_ms = cuda_ms(lambda: Q.topk_pool_plain(x, cp))
+    for kind in ("random", "ties"):
+        inp = (x if kind == "random" else
+               torch.randint(-3, 4, (rows, d), device=dev,
+                             generator=g).float())
+        first = Q.topk_support(inp, k)
+        again = Q.topk_support(inp, k)
+        sel = Q.topk_select(inp, k)
+        want = Q.topk_support_plain(inp, k)[0]
+        want_sel = Q.topk_select_plain(inp, k)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(first, again))
+        mismatched = (int((first[0] != want).sum())
+                      + int((sel != want_sel).sum()))
+        if not (repeat and mismatched == 0 and sel.shape == (rows, k)
+                and torch.equal(first[1], torch.gather(inp, 1,
+                                                       first[0].long()))):
+            raise AssertionError(
+                f"topk_select {label} ({kind}): {mismatched} indices differ "
+                f"from the plain twins, bitwise repeat {repeat}")
+        del inp, first, again, sel, want, want_sel
+    t = timing(lambda: Q.topk_support(x, k))
+    whole = timing(lambda: Q.topk_select(x, k))
+    plain_ms = cuda_ms(lambda: Q.topk_support_plain(x, k))
     plain_select_ms = cuda_ms(lambda: Q.topk_select_plain(x, k))
     library_ms = cuda_ms(lambda: torch.topk(x.abs(), k, dim=-1))
-    bytes_moved = 4 * rows * d + 8 * rows * tiles * cp
+    bytes_moved = 4 * rows * d + 4 * rows * k
     bound_ms, bound_by = bound_of(bytes_moved, 0)
+    cp = min(2048, max(128, -(-min(k, 2048) // 128) * 128))
+    pool_bound_ms = bound_of(4 * rows * d + 8 * rows * -(-d // 2048) * cp,
+                             0)[0]
     row = {"kernel": "topk_select", "label": label, "rows": rows, "d": d,
-           "k": k, "cp": cp, "tiles": tiles, "max_abs_err": 0.0,
-           "mismatched": mismatched, "bitwise_repeat": repeat,
-           "whole_ms": whole_ms, "plain_ms": plain_ms,
+           "k": k, "max_abs_err": 0.0, "mismatched": 0,
+           "bitwise_repeat": True, "whole_ms": whole["ms"],
+           "whole_device_ms": whole["device_ms"],
+           "whole_device_ops": whole["device_ops"], "plain_ms": plain_ms,
            "plain_select_ms": plain_select_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms,
-           "bytes": bytes_moved, **t}
-    print(f"[kernel] topk_select {label}: rows={rows} d={d} k={k} cp={cp} "
-          f"tiles={tiles} | pools and selection exact, repeat bitwise | "
-          f"kernel {timing_text(t)}; whole topk_select {whole_ms:.4f} ms, "
-          f"plain "
-          f"pools {plain_ms:.4f} ms, plain select {plain_select_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), torch.topk "
-          f"{library_ms:.4f} ms [{card}]", flush=True)
+           "bound_by": bound_by, "pool_bound_ms": pool_bound_ms,
+           "library_ms": library_ms, "bytes": bytes_moved, **t}
+    print(f"[kernel] topk_select {label}: rows={rows} d={d} k={k} | support "
+          f"and selection equal to the plain twins (random and ties), "
+          f"repeat bitwise | topk_support {timing_text(t)}; whole "
+          f"topk_select {timing_text(whole)}; plain support {plain_ms:.4f} "
+          f"ms, plain select {plain_select_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; the pool design's "
+          f"{pool_bound_ms:.4f}), torch.topk {library_ms:.4f} ms [{card}]",
+          flush=True)
     del x
     torch.cuda.empty_cache()
     return row
@@ -1101,11 +1127,12 @@ def bounds_case(case, dev):
             "equal": True}
 
 
-LEAN_KERNELS = ("robust_agg", "weighted_sum")
+LEAN_KERNELS = ("robust_agg", "weighted_sum", "pair_gram")
 
 
 def check_lean(cases):
-    """A steady-state call of ``robust_agg`` or ``weighted_sum`` issues
+    """A steady-state call of ``robust_agg``, ``weighted_sum`` or
+    ``pair_gram`` issues
     exactly one device operation, its kernel, on every load and shape
     (no row pointers, no mask conversion, no copy or fill), where the
     profiler recorded the calls: every operation it saw is the kernel,

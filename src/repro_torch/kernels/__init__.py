@@ -12,8 +12,9 @@
   any row count (``csrc/norm_agg_blocked.cu``) with their drivers.
 - quantize: the wire formats (sparse, int8, sign, bf16: packing, decode,
   the plain reconstruction ``recon``); TopK's selection ``topk_select``
-  (per-tile candidate pools, ``csrc/topk_select.cu``) and the block-ℓ2
-  quantizer ``block_quantize`` (``csrc/block_quantize.cu``).
+  and its support ``topk_support`` (an exact radix select of each row's
+  threshold and an ordered compaction, ``csrc/topk_select.cu``) and the
+  block-ℓ2 quantizer ``block_quantize`` (``csrc/block_quantize.cu``).
 - ops: the public entry points over stacked workers (``robust_agg``,
   ``rfa_agg``, ``krum_agg`` on float32 or bfloat16 stacks, ``wire_agg``
   on any wire, ``block_quantize``) and the oracles of ``ref``, the plain

@@ -3,7 +3,7 @@ worker-stack arguments that lead each fused entry point's C signature
 (``SRC_PARAMS`` in ``csrc/agg_prologue.cuh``), in that order, the
 launch counts per load, and the dense stack of the blocked kernels.
 Nothing here launches a device operation: masks go as they are (bool as
-a uint8 view), and the sparse row pointers that two kernels read are
+a uint8 view), and the sparse row pointers that the RFA kernel reads are
 built once per payload."""
 from __future__ import annotations
 
@@ -94,8 +94,8 @@ def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
     load's name. ``valid`` (fault guard) is the optional (n,) row-validity
     mask, taken like ``mask``. ``starts``: the sparse wire's row pointers
     per ``tile``-column tile, built once per payload
-    (``quantize.WireSrc.starts``), for the kernels that read them; the
-    looping kernels find their bounds on the card and take none."""
+    (``quantize.WireSrc.starts``), for ``rfa_iter``; the looping kernels
+    find their bounds on the card and take none."""
     if not 1 <= n <= MAX_FUSED_WORKERS:
         raise ValueError(f"{who} kernel takes 1..{MAX_FUSED_WORKERS} "
                          f"workers, got {n}")

@@ -295,7 +295,8 @@ __device__ __forceinline__ float weighted_col(const float* v, const float* w,
   return __fadd_rn(lo, hi);
 }
 
-// Tile `tile` into shared memory, for a block that loops over tiles:
+// Tile `tile` into shared memory, for a block that loops over tiles
+// (rfa_iter; the sparse wire through its row pointers, scatter_tile):
 // s.x the attacked rows and s.b = W s.x when bucketed; columns past d are
 // zeros, which add nothing to a Gram or a sum of squares. Returns the rows
 // the rule reads. Starts with a barrier (the previous tile's readers are
@@ -379,8 +380,8 @@ inline int resident_grid(Kernel kernel, int threads, size_t smem) {
 }
 
 // ---------------------------------------------------------------------------
-// The register load of the looping kernels (robust_agg.cu, weighted_sum in
-// norm_agg.cu). A block takes its column groups strided over the grid, or,
+// The register load of the looping kernels (robust_agg.cu, pair_gram and
+// weighted_sum in norm_agg.cu). A block takes its column groups strided over the grid, or,
 // on the sparse wire, as one contiguous range; a thread owns V consecutive
 // columns of a group of TILE * V, reads each worker row's
 // V values with one load of up to 16 bytes (neighbouring threads on

@@ -212,8 +212,9 @@ for _fn in (pair_gram, rfa_iter, weighted_sum):
     _fn.calls = 0
     _launch.reset_counts(_fn)
 
-_KERNEL = {"pair_gram": 0, "rfa_iter": 1}    # norm_agg_blocks selector
+_KERNEL = {"pair_gram": 0, "rfa_iter": 1}    # norm_agg_grid selector
 _RESIDENT: dict = {}
+_TICKETS: dict = {}
 
 
 def _lib():
@@ -221,31 +222,46 @@ def _lib():
     if lib.pair_gram_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.norm_agg_tile.argtypes = []
-        lib.norm_agg_blocks.argtypes = [i] * 5
+        lib.norm_agg_grid.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        lib.pair_gram_tickets.argtypes = []
         lib.pair_gram_launch.argtypes = _launch.SRC_ARGTYPES + [
-            p, i, i, p, p, p]
+            p, i, i, p, p, p, p]
         lib.rfa_iter_launch.argtypes = _launch.SRC_ARGTYPES + [
             p, i, p, i, p, p, p, p]
         lib.weighted_sum_launch.argtypes = _launch.SRC_ARGTYPES + [p, p, p]
-        for fn in (lib.norm_agg_tile, lib.norm_agg_blocks,
-                   lib.pair_gram_launch, lib.rfa_iter_launch,
-                   lib.weighted_sum_launch):
+        for fn in (lib.norm_agg_tile, lib.norm_agg_grid,
+                   lib.pair_gram_tickets, lib.pair_gram_launch,
+                   lib.rfa_iter_launch, lib.weighted_sum_launch):
             fn.restype = ctypes.c_int
     return lib
 
 
 def _blocks(lib, who, load, device, n, m, bucketed, d):
     """Grid of a looping kernel: as many blocks as are resident on the
-    card at once, and no more than there are tiles."""
+    card at once, and no more than there are column groups (a 128-column
+    tile for ``rfa_iter``; ``pair_gram``'s path by m sets its group)."""
     key = (who, device.index, load, n, m, bucketed)
     if key not in _RESIDENT:
-        got = lib.norm_agg_blocks(_KERNEL[who], _launch.LOADS.index(load),
-                                  n, m, int(bucketed))
+        group = ctypes.c_int(0)
+        got = lib.norm_agg_grid(_KERNEL[who], _launch.LOADS.index(load), n,
+                                m, int(bucketed), ctypes.byref(group))
         if got <= 0:
             raise RuntimeError(f"{who}: occupancy query failed: CUDA error "
                                f"{-got}")
-        _RESIDENT[key] = got
-    return min(_RESIDENT[key], -(-d // lib.norm_agg_tile()))
+        _RESIDENT[key] = got, group.value
+    got, group = _RESIDENT[key]
+    return min(got, -(-d // group))
+
+
+def _tickets(lib, device, stream) -> int:
+    """The one-launch finish's tickets for ``stream``: a uint32 buffer
+    zeroed once, when it is made, and left at zero by every launch, so
+    that launches on two streams never count into one buffer."""
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(lib.pair_gram_tickets(),
+                                    dtype=torch.int32, device=device)
+    return _TICKETS[key].data_ptr()
 
 
 def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, valid, attack):
@@ -253,16 +269,17 @@ def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, valid, attack):
     lib = _lib()
     dev = x.device
     args, load = _launch.src_args("pair_gram", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.norm_agg_tile(),
-                                  valid, starts=True)
+                                  good_std, attack, None, valid)
     m, w_ptr = _launch.bucket_args("pair_gram", w_mat, n, dev)
     blocks = _blocks(lib, "pair_gram", load, dev, n, m, w_mat is not None,
                      d)
-    part = torch.empty(blocks, m * (m + 1) // 2, dtype=torch.float32,
-                       device=dev)
+    # the blocks' partial Grams, then their groups' of 16 (csrc/norm_agg.cu)
+    part = torch.empty(blocks + -(-blocks // 16), m * (m + 1) // 2,
+                       dtype=torch.float32, device=dev)
     out = torch.empty(m, m, dtype=torch.float32, device=dev)
+    st = _launch.stream(dev)
     err = lib.pair_gram_launch(*args, w_ptr, m, blocks, part.data_ptr(),
-                               out.data_ptr(), _launch.stream(dev))
+                               out.data_ptr(), _tickets(lib, dev, st), st)
     _launch.raise_on("pair_gram", err)
     _launch.count(pair_gram, load, valid is not None)
     return out

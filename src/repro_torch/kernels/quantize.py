@@ -13,8 +13,8 @@ Payload of one leaf, worker-stacked (every array (n, ...)):
 The CUDA aggregation kernels rebuild each tile of the candidates from it
 in their shared load (``csrc/agg_prologue.cuh``): the sparse wire through
 a search of each worker's ascending idx row on the card
-(``sparse_range_start`` is its plain twin) or, for the Gram and RFA
-kernels, CSR row pointers built once per payload (``wire_starts``); the
+(``sparse_range_start`` is its plain twin) or, for the RFA kernel, CSR
+row pointers built once per payload (``wire_starts``); the
 other three elementwise, so the dense (n, d) candidate matrix never
 exists in device memory. ``decode``
 and ``recon`` are the plain reconstruction the CPU path and the tests
@@ -23,10 +23,13 @@ use.
 Two kernels live here, each with its plain PyTorch version beside it
 (taken for CPU tensors only; a CUDA tensor launches the kernel or raises):
 
-* ``topk_select``    — TopK's selection, batched over workers: per 2048-
-                       column tile the top cp of |x| with their global
-                       indices (``csrc/topk_select.cu``), then an exact
-                       stable select over the (T, cp) pool;
+* ``topk_select``    — TopK's selection, batched over workers: an exact
+                       radix select of each row's threshold and an
+                       ordered compaction of its support
+                       (``csrc/topk_select.cu``; ``topk_support``, the
+                       sparse wire's ascending indices), ordered by
+                       descending |x| for ``topk_select`` (a stable sort
+                       of the k values);
 * ``block_quantize`` — block-ℓ2 stochastic rounding with the dither
                        supplied (``csrc/block_quantize.cu``).
 """
@@ -79,8 +82,9 @@ class WireSrc:
 
     def starts(self, tile: int):
         """The sparse payload's row pointers per ``tile``-column tile
-        (``wire_starts``), built at the first call and kept for this
-        payload: RFA's passes over one payload share one build. Rebuilt
+        (``wire_starts``) for the RFA kernel, built at the first call and
+        kept for this payload: RFA's passes over one payload share one
+        build. Rebuilt
         if idx was written in place since."""
         idx = dict(self.arrays)["idx"]
         key = (tile, idx.data_ptr(), idx._version)
@@ -94,14 +98,13 @@ def pack_sparse(key, x, ratio: float, *, topk: bool):
     """Sparse payload of a leaf: {"vals": (..., k), "idx": (..., k) int32
     ascending}. ``key`` (..., 2) and ``x`` (..., d) share leading axes, so
     one call packs every worker. RandK selects the permutation ``rand_k``
-    draws and scales by d/k; TopK selects ``topk_select``'s indices (the
-    dense compressor's) and sends the values raw."""
+    draws and scales by d/k; TopK sends ``topk_support``'s indices (the
+    dense compressor's, in ascending order) and the values raw."""
     d = x.shape[-1]
     k = max(int(ratio * d), 1)
     if topk:
-        idx = torch.sort(topk_select(x, k), dim=-1).values.long()
-        vals = torch.gather(x.float(), -1, idx).to(x.dtype)
-        return {"vals": vals, "idx": idx.to(torch.int32)}
+        idx, vals = topk_support(x, k)
+        return {"vals": vals.to(x.dtype), "idx": idx}
     sel = R.permutation(key, d)[..., :k]
     idx = torch.sort(sel, dim=-1).values
     vals = (torch.gather(x, -1, idx) * (d / k)).to(x.dtype)
@@ -133,11 +136,22 @@ PACK = {"int8": pack_int8, "sign": pack_sign, "bf16": pack_bf16}
 # ---------------------------------------------------------------------------
 # TopK selection
 # ---------------------------------------------------------------------------
+#
+# An exact radix select over each row (``csrc/topk_select.cu``): the key of
+# |x| is its float bits with the sign cleared, every NaN one key (above
+# +inf); three digits of 11, 10 and 10 bits, from the top, find the k-th
+# largest key T and ``need``, how many keys equal to T are kept (the first
+# in index order); an ordered compaction keeps every key > T and those, in
+# ascending index order: the support of ``lax.top_k(|x|, k)[1]``. Each
+# phase has a plain twin here that repeats it step for step.
 
-def topk_pool_width(k: int) -> int:
-    """cp, the candidates each tile keeps: min(k, tile) rounded up to 128
-    lanes, at least 128, at most the tile."""
-    return min(TOPK_TILE, max(128, -(-min(k, TOPK_TILE) // 128) * 128))
+# (shift, bits) of the three digits, from the top
+TOPK_DIGITS = ((20, 11), (10, 10), (0, 10))
+
+
+def _check_k(d: int, k: int):
+    if not 1 <= k <= d:
+        raise ValueError(f"topk_select: k={k} outside [1, {d}]")
 
 
 def _stable_top(a, k: int):
@@ -146,87 +160,174 @@ def _stable_top(a, k: int):
     return torch.sort(a, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def topk_pool_plain(x, cp: int):
-    """Plain version of the pool kernel: (rows, d) -> per tile of
-    ``TOPK_TILE`` columns the cp largest |x| (pad columns read −1.0) and
-    their global column indices, (rows, T, cp) float32 and int32."""
+def topk_keys(x):
+    """The select's int32 keys of |x|: the bits of the float32 |x| (its
+    sign cleared), an order-preserving integer, with every NaN one key
+    (0x7FC00000, above +inf's), so that NaNs tie as the stable sort ties
+    them."""
+    u = x.float().contiguous().view(torch.int32) & 0x7FFFFFFF
+    return torch.where(u > 0x7F800000, 0x7FC00000, u)
+
+
+def topk_threshold_plain(x, k: int):
+    """The radix select's threshold per row of x (rows, d), the kernels'
+    digit passes step for step: at each digit a histogram over the keys
+    that share the digits found so far, then the digit where the count
+    from the top reaches ``need`` (k at first). Returns (T, G, need):
+    the k-th largest key (int64), the keys above it and k − G, the keys
+    equal to T that the selection keeps."""
+    keys = topk_keys(x).long()
+    rows = keys.shape[0]
+    prefix = torch.zeros(rows, dtype=torch.int64, device=x.device)
+    need = torch.full((rows,), k, dtype=torch.int64, device=x.device)
+    for shift, bits in TOPK_DIGITS:
+        hi = shift + bits
+        inside = (keys >> hi) == (prefix >> hi)[:, None]
+        digit = (keys >> shift) & ((1 << bits) - 1)
+        hist = torch.zeros(rows, 1 << bits, dtype=torch.int64,
+                           device=x.device).scatter_add_(1, digit,
+                                                         inside.long())
+        above = hist.flip(1).cumsum(1).flip(1) - hist     # digits above b
+        hit = (above < need[:, None]) & (above + hist >= need[:, None])
+        b = hit.long().argmax(1)
+        need = need - above.gather(1, b[:, None])[:, 0]
+        prefix = prefix | (b << shift)
+    return prefix, k - need, need
+
+
+def topk_compact_plain(x, k: int):
+    """The ordered compaction's twin on x (rows, d): every key > T and the
+    first ``need`` keys == T, in ascending index order -> (idx (rows, k)
+    int32, x at idx (rows, k) float32)."""
     rows, d = x.shape
-    tiles = -(-d // TOPK_TILE)
-    a = F.pad(x.float().abs(), (0, tiles * TOPK_TILE - d), value=-1.0)
-    v, i = torch.sort(a.reshape(rows, tiles, TOPK_TILE), dim=-1,
-                      descending=True, stable=True)
-    first = torch.arange(tiles, device=x.device)[:, None] * TOPK_TILE
-    return v[..., :cp].contiguous(), (i[..., :cp] + first).int()
+    _check_k(d, k)
+    t, _, need = topk_threshold_plain(x, k)
+    keys = topk_keys(x).long()
+    eq = keys == t[:, None]
+    keep = (keys > t[:, None]) | (eq & (eq.long().cumsum(1) <= need[:, None]))
+    idx = keep.nonzero()[:, 1].reshape(rows, k)
+    return idx.int(), torch.gather(x.float(), 1, idx)
 
 
-def topk_pool(x, cp: int):
-    """(rows, d) float32 -> the per-tile pools of ``topk_pool_plain``. CPU
-    tensors take the plain version; CUDA tensors the kernel."""
-    if _launch.on_cpu("topk_select", x.device):
-        return topk_pool_plain(x, cp)
-    return _launch_topk_pool(x, cp)
+def _rows(x, k: int):
+    """x (..., d) as contiguous float32 rows (rows, d), after checking k."""
+    d = x.shape[-1]
+    _check_k(d, k)
+    return x.reshape(-1, d).float().contiguous()
 
 
-def _select(x, k: int, pool_fn):
-    """Indices (..., k) int32 of the k largest |x| along the last axis,
-    largest first, ties to the lower index (``lax.top_k(|x|, k)[1]``).
-    Up to two tiles wide the plain sort runs alone, as in the reference;
-    wider, ``pool_fn`` keeps each tile's top cp ≥ min(k, tile), so the
-    pool holds the answer, and a stable sort of the (T·cp) pool selects
-    it: equal values sit in pool order, which is global index order."""
+def _support(x, k: int, plain: bool):
+    """(idx (..., k) int32 ascending, x at idx float32) of the k largest
+    |x| along the last axis. Up to two tiles wide the plain sort runs
+    alone, as in the reference; wider rows take the radix select: the
+    kernels on a CUDA tensor (unless ``plain``), the twins on a CPU one."""
     lead, d = x.shape[:-1], x.shape[-1]
+    rows = _rows(x, k)
     if d <= 2 * TOPK_TILE:
-        return _stable_top(x.float().abs(), k).int()
-    rows = x.reshape(-1, d).float().contiguous()
-    pv, pi = pool_fn(rows, topk_pool_width(k))
-    sel = _stable_top(pv.flatten(1), k)
-    return torch.gather(pi.flatten(1), 1, sel).reshape(lead + (k,))
+        idx = torch.sort(_stable_top(rows.abs(), k), dim=-1).values
+        idx, vals = idx.int(), torch.gather(rows, -1, idx)
+    elif plain or _launch.on_cpu("topk_select", x.device):
+        idx, vals = topk_compact_plain(rows, k)
+    else:
+        idx, vals = _launch_topk(rows, k)
+    return idx.reshape(lead + (k,)), vals.reshape(lead + (k,))
+
+
+def _descending(idx, vals, k: int):
+    """The support reordered as ``lax.top_k`` orders it: a stable
+    descending sort of the k |values| (equal values keep their ascending
+    index order)."""
+    return torch.gather(idx, -1, _stable_top(vals.abs(), k))
+
+
+def _select(x, k: int, plain: bool):
+    """``lax.top_k(|x|, k)[1]`` along the last axis: the plain sort up to
+    two tiles wide; wider, the support in descending order."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    rows = _rows(x, k)
+    if d <= 2 * TOPK_TILE:
+        idx = _stable_top(rows.abs(), k).int()
+    elif plain or _launch.on_cpu("topk_select", x.device):
+        idx = _descending(*topk_compact_plain(rows, k), k)
+    else:
+        idx = _descending(*_launch_topk(rows, k), k)
+    return idx.reshape(lead + (k,))
+
+
+def topk_support(x, k: int):
+    """TopK's support: (..., d) -> (idx, vals), the (..., k) int32
+    indices of the k largest |x|, ascending (the sparse wire's order),
+    equal to ``torch.sort(topk_select_plain(x, k)).values``, and x at
+    them as float32. On CUDA tensors wider than two tiles the select
+    kernels run, one pipeline for all rows; CPU tensors take the twins."""
+    topk_select.calls += 1
+    return _support(x, k, plain=False)
+
+
+def topk_support_plain(x, k: int):
+    """``topk_support`` on the plain twins, on any device."""
+    return _support(x, k, plain=True)
 
 
 def topk_select(x, k: int):
-    """TopK's indices: (..., d) -> (..., k) int32 (``_select``). On CUDA
-    tensors wider than two tiles the pools come from the kernel, one
-    launch for all rows; CPU tensors take the plain version."""
+    """TopK's indices: (..., d) -> (..., k) int32 of the k largest |x|,
+    largest first, ties to the lower index (``lax.top_k(|x|, k)[1]``):
+    ``topk_support`` in descending order, the counterpart of the
+    reference's ``lax.top_k`` over its pool (``_select``). CPU tensors
+    take the plain version."""
     topk_select.calls += 1
-    return _select(x, k, topk_pool)
+    return _select(x, k, plain=False)
 
 
 def topk_select_plain(x, k: int):
-    """``topk_select`` on the plain pool version, on any device."""
-    return _select(x, k, topk_pool_plain)
+    """``topk_select`` on the plain twins, on any device."""
+    return _select(x, k, plain=True)
 
 
-# calls: every call, plain or kernel; launches: pool kernel launches alone
+# calls: every TopK selection, through topk_select or topk_support, plain
+# or kernel; launches: select pipelines run on the card (one kernel up to
+# topk_small_d() columns, a memset and seven kernels above)
 topk_select.calls = topk_select.launches = 0
 
 
 def _lib_topk():
     lib = _build.load("topk_select")
-    if lib.topk_pool_launch.argtypes is None:
+    if lib.topk_support_launch.argtypes is None:
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.topk_pool_launch.argtypes = [p, q, q, i, i, p, p, p]
-        lib.topk_pool_launch.restype = ctypes.c_int
+        lib.topk_small_d.argtypes = []
+        lib.topk_small_d.restype = i
+        lib.topk_workspace_bytes.argtypes = [q, q]
+        lib.topk_workspace_bytes.restype = q
+        lib.topk_support_launch.argtypes = [p, q, q, i, p, p, p, p]
+        lib.topk_support_launch.restype = i
     return lib
 
 
-def _launch_topk_pool(x, cp: int):
+def _launch_topk(x, k: int):
+    """The select kernels on x (rows, d) float32 -> (idx, vals), the
+    support ascending."""
     if x.dim() != 2 or x.shape[1] <= 2 * TOPK_TILE:
         raise ValueError("topk_select kernel: x must be (rows, d) with d > "
                          f"{2 * TOPK_TILE}, got shape {tuple(x.shape)}")
-    if not 128 <= cp <= TOPK_TILE or cp % 128:
-        raise ValueError(f"topk_select kernel: pool width {cp}")
     rows, d = x.shape
+    if d >= 1 << 31:
+        raise ValueError(f"topk_select kernel: d={d} needs int64 indices")
     xp = _launch.check("topk_select", "x", x, x.device, torch.float32,
                        (rows, d))
-    tiles = -(-d // TOPK_TILE)
-    pv = torch.empty(rows, tiles, cp, dtype=torch.float32, device=x.device)
-    pi = torch.empty(rows, tiles, cp, dtype=torch.int32, device=x.device)
-    err = _lib_topk().topk_pool_launch(xp, rows, d, tiles, cp, pv.data_ptr(),
-                                       pi.data_ptr(),
-                                       _launch.stream(x.device))
+    lib = _lib_topk()
+    work = None
+    if d > lib.topk_small_d():
+        work = torch.empty(lib.topk_workspace_bytes(rows, d),
+                           dtype=torch.uint8, device=x.device)
+    idx = torch.empty(rows, k, dtype=torch.int32, device=x.device)
+    vals = torch.empty(rows, k, dtype=torch.float32, device=x.device)
+    err = lib.topk_support_launch(xp, rows, d, k,
+                                  None if work is None else work.data_ptr(),
+                                  idx.data_ptr(), vals.data_ptr(),
+                                  _launch.stream(x.device))
     _launch.raise_on("topk_select", err)
     topk_select.launches += 1
-    return pv, pi
+    return idx, vals
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,7 @@ sums of W·x over at most 64 workers); 1e-5 of the largest entry for the
 Gram and the squared distances, sums over d taken in another order; bit
 for bit for the blocked weighted sum, whose kernel takes the plain
 version's order. The norm kernels must also repeat bit for bit: they take
-every sum in a fixed order. TopK's pool kernel and the block quantizer
+every sum in a fixed order. TopK's select kernels and the block quantizer
 agree with their plain versions exactly: selection only compares, and
 the quantizer takes every rounding of the plain version."""
 import dataclasses
@@ -23,9 +23,9 @@ from repro_torch.core.attacks import CoordAttack
 from repro_torch.kernels import norm_agg, quantize
 from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
 from repro_torch.kernels.quantize import (block_quantize,
-                                          block_quantize_plain, topk_pool,
-                                          topk_pool_plain, topk_pool_width,
-                                          topk_select, topk_select_plain)
+                                          block_quantize_plain, topk_select,
+                                          topk_select_plain, topk_support,
+                                          topk_support_plain)
 
 NORM = {"pair_gram": norm_agg.pair_gram, "rfa_iter": norm_agg.rfa_iter,
         "weighted_sum": norm_agg.weighted_sum}
@@ -331,24 +331,55 @@ def _topk_input(rows, d, dev, ties):
 @pytest.mark.gpu
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("rows, d, k", [(5, 5000, 500), (5, 4097, 1),
+                                        (3, 12289, 4097), (2, 16384, 16384),
                                         (3, 70000, 7000),
                                         (2, (1 << 16) + 3, 3000),
-                                        (1, 1 << 20, 104857)])
+                                        (1, 1 << 20, 104857),
+                                        (1, 1 << 22, 1),
+                                        (1, 1 << 22, (1 << 22) - 1)])
 def test_topk_select(dev, rows, d, k, ties):
-    """The pool kernel equals the plain pools exactly, repeats bit for bit,
-    and ``topk_select`` selects the plain version's indices in order."""
+    """The select kernels equal their plain twins exactly and repeat bit
+    for bit: ``topk_support`` (ascending indices, and the values at them)
+    and ``topk_select`` (the plain version's indices in order; the whole
+    row kept at 2 x 16384)."""
     x = _topk_input(rows, d, dev, ties)
-    cp = topk_pool_width(k)
     before = topk_select.launches
-    pools = [topk_pool(x, cp) for _ in range(2)]
+    sup = [topk_support(x, k) for _ in range(2)]
     got = topk_select(x, k)
     torch.cuda.synchronize()
     assert topk_select.launches == before + 3
-    want = topk_pool_plain(x, cp)
-    for a, b in zip(pools[0], want):
-        assert torch.equal(a, b)
-    assert all(torch.equal(a, b) for a, b in zip(pools[0], pools[1]))
+    idx, vals = sup[0]
+    assert idx.dtype == torch.int32 and idx.shape == (rows, k)
+    assert torch.equal(idx, sup[1][0]) and torch.equal(vals, sup[1][1])
+    assert torch.equal(idx, topk_support_plain(x, k)[0])
+    assert torch.equal(vals, torch.gather(x, 1, idx.long()))
     assert torch.equal(got, topk_select_plain(x, k))
+    assert torch.equal(idx, torch.sort(got, dim=1).values)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [5000, 70000])
+def test_topk_select_orders_nan_and_signed_zeros(dev, d):
+    """NaN of any sign or payload above +inf, ties among NaNs and between
+    +0 and -0 to the lower index, runs of equal keys across the digits'
+    boundaries."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn(3, d, device=dev, generator=g)
+    x[0, torch.randint(0, d, (50,), device=dev, generator=g)] = float("nan")
+    x[0, 7] = float("inf")
+    x[0, 11] = -float("nan")
+    x[1] = torch.where(torch.rand(d, device=dev, generator=g) < 0.5, 0.0,
+                       -0.0)
+    x[1, :40] = 1.0
+    bits = torch.full((d,), 0x3FC00000, dtype=torch.int32, device=dev)
+    bits += torch.randint(-1100, 1100, (d,), device=dev, generator=g,
+                          dtype=torch.int32)
+    x[2] = bits.view(torch.float32) * torch.where(
+        torch.rand(d, device=dev, generator=g) < 0.5, -1.0, 1.0)
+    for k in (1, 45, d // 10, d // 2, d - 1, d):
+        assert torch.equal(topk_select(x, k), topk_select_plain(x, k))
+        assert torch.equal(topk_support(x, k)[0],
+                           topk_support_plain(x, k)[0])
 
 
 @pytest.mark.gpu
@@ -361,16 +392,17 @@ def test_topk_select_takes_no_kernel_up_to_two_tiles(dev):
 
 
 @pytest.mark.gpu
-def test_topk_pool_rejects_what_the_kernel_does_not_take(dev):
+def test_topk_select_rejects_what_the_kernel_does_not_take(dev):
     x = _topk_input(2, 5000, dev, False)
-    with pytest.raises(TypeError):
-        topk_pool(x.double(), 512)
-    with pytest.raises(ValueError, match="contiguous"):
-        topk_pool(_topk_input(5000, 2, dev, False).T, 512)
+    for k in (0, 5001):
+        with pytest.raises(ValueError, match="outside"):
+            topk_select(x, k)
+        with pytest.raises(ValueError, match="outside"):
+            topk_support(x, k)
     with pytest.raises(ValueError, match="d >"):
-        topk_pool(x[:, :4096].contiguous(), 512)
-    with pytest.raises(ValueError, match="pool width"):
-        topk_pool(x, 100)
+        quantize._launch_topk(x[:, :4096].contiguous(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize._launch_topk(_topk_input(5000, 2, dev, False).T, 5)
 
 
 @pytest.mark.gpu
@@ -611,6 +643,89 @@ def test_weighted_sum_looping(dev, load, masked, n, d):
     sent = norm_agg.prologue(norm_agg.stack(x), None, mask, mean, std, ALIE,
                              valid, norm_agg.cand_dtype(x))
     _near(got, want, float(sent.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("s", [0, 2, 3])
+@pytest.mark.parametrize("n", LOOP_N)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("load", LOADS)
+def test_pair_gram_one_launch(dev, load, masked, n, s, d):
+    """One launch a call on every load, masked and unmasked, on every path
+    by m (pair products in registers up to 8 bucketed rows, 8 x 8 tiles
+    above): symmetric and repeated bit for bit, within tolerance of the
+    plain version, and no row pointers built for the sparse wire."""
+    if s > n:
+        pytest.skip("bucket larger than the worker count")
+    if _big(d, n):
+        pytest.skip("the widest d runs at n = 5, 17, 64 only")
+    args, _ = _loop_case(load, n, d, s, masked, dev)
+    x, w, mask, mean, std, valid, _ = args
+    kind = "sparse" if load == "wire" else load
+    before = norm_agg.pair_gram.load_launches[kind]
+    got = norm_agg.pair_gram(x, w, mask, mean, std, valid, attack=ALIE)
+    again = norm_agg.pair_gram(x, w, mask, mean, std, valid, attack=ALIE)
+    want = norm_agg.pair_gram_plain(x, w, mask, mean, std, valid,
+                                    attack=ALIE)
+    torch.cuda.synchronize()
+    assert norm_agg.pair_gram.load_launches[kind] == before + 2
+    m = n if w is None else w.shape[0]
+    assert got.shape == (m, m) and torch.equal(got, again)
+    assert torch.equal(got, got.T)
+    # sums over d in another order: 1e-5 of the largest entry, 1e-4 past
+    # a million columns (chip_smoke.py's SUM_TOL and WIDE_SUM_TOL)
+    tol = 1e-4 if d > 1_000_000 else TOL
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=tol * max(1.0, float(want.abs().max())))
+    if isinstance(x, quantize.WireSrc):
+        assert not x._starts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, s", [(8, 2), (17, 2), (64, 2), (64, 3)])
+def test_pair_gram_takes_every_worker_where_a_column_is_not_finite(dev, n,
+                                                                   s):
+    """W x skips the workers of zero weight only where a column is
+    finite: a column holding inf or NaN takes every worker, so 0 * inf
+    spreads NaN to every bucket as ``w_mat @ x`` spreads it."""
+    x, w, mask, mean, std = _inputs(n, 5000, dev, s)
+    x[3, 100] = float("inf")
+    x[n - 1, 200] = float("nan")
+    got = norm_agg.pair_gram(x, w, mask, mean, std, attack=ALIE)
+    want = norm_agg.pair_gram_plain(x, w, mask, mean, std, attack=ALIE)
+    torch.cuda.synchronize()
+    assert torch.isnan(got).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    if fin.any():
+        torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=TOL * max(
+            1.0, float(want[fin].abs().max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, s", [(8, 2), (64, 2)])
+def test_pair_gram_on_two_streams(dev, n, s):
+    """Launches in flight on two streams at once keep their own tickets
+    (a buffer for each stream), so each Gram of a grid of many blocks
+    equals the one-stream call bit for bit, and so does a later call on
+    the first stream."""
+    x, w, mask, mean, std = _inputs(n, 1 << 21, dev, s)
+    want = norm_agg.pair_gram(x, w, mask, mean, std, attack=ALIE)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    got = []
+    for _ in range(6):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append(norm_agg.pair_gram(x, w, mask, mean, std,
+                                              attack=ALIE))
+    torch.cuda.synchronize()
+    for g in got:
+        assert torch.equal(g, want)
+    assert torch.equal(norm_agg.pair_gram(x, w, mask, mean, std,
+                                          attack=ALIE), want)
 
 
 @pytest.mark.gpu

@@ -2,7 +2,7 @@
 (``quantize.sparse_range_start``, step for step the warp's 32-ary search of
 ``csrc/agg_prologue.cuh``), against ``torch.searchsorted`` and the row
 pointers ``wire_starts`` builds; the row pointers cached once per payload
-for the Gram and RFA kernels; and the masks handed to the kernels without
+for the RFA kernel; and the masks handed to the kernels without
 a conversion. The kernel itself is held to the twin on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
 import dataclasses

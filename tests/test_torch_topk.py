@@ -1,13 +1,19 @@
-"""The port's TopK against the reference: ``topk_select`` (per-tile pools,
-then an exact select), the TopK sparse wire and the dense compressor.
+"""The port's TopK against the reference: ``topk_select`` and
+``topk_support`` (an exact radix select of each row's threshold, an
+ordered compaction of the support), the TopK sparse wire and the dense
+compressor.
 
-``topk_select_plain`` and the entry point ``topk_select`` on CPU tensors
-are held to ``repro.kernels.quantize.topk_select`` run in interpret mode
-(its Pallas pool kernel takes every input wider than 4096), on the same
-numpy inputs: the same indices in the same order, with no tolerance,
-also on inputs full of exact |x| ties (small integers with random signs),
-where the order is descending |x| and ties go to the lower index. The
-CUDA pool kernel is held to the plain version on the card by
+``topk_select_plain``, the entry points ``topk_select`` and
+``topk_support`` on CPU tensors, and the radix select's plain twins
+(``topk_threshold_plain``, ``topk_compact_plain``) are held to
+``repro.kernels.quantize.topk_select`` run in interpret mode (its Pallas
+pool kernel takes every input wider than 4096), on the same numpy
+inputs: the same indices in the same order (or, for the support, the
+same set in ascending order), with no tolerance, also on inputs full of
+exact |x| ties (small integers with random signs), where the order is
+descending |x| and ties go to the lower index. NaN, ±0 and runs of equal
+keys across the digits' boundaries are held to a full stable sort. The
+CUDA select kernels are held to the twins on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 import jax
@@ -70,25 +76,119 @@ def test_topk_select_without_the_pool_kernel(d):
         np.testing.assert_array_equal(got[row].numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("k, cp", [(1, 128), (128, 128), (129, 256),
-                                   (500, 512), (2048, 2048), (419430, 2048)])
-def test_topk_pool_width(k, cp):
-    assert quantize.topk_pool_width(k) == cp
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("ratio", [0.1, None])
+@pytest.mark.parametrize("d", [4097, (1 << 16) + 3])
+def test_topk_support_matches_reference(d, ratio, ties):
+    """The support (ascending indices, and x at them) is the reference's
+    selection sorted; the plain twin and the entry point agree."""
+    x = _x((2, d), ties, d + 1)
+    k = _k(d, ratio)
+    before = quantize.topk_select.calls
+    idx, vals = quantize.topk_support(torch.as_tensor(x), k)
+    assert quantize.topk_select.calls == before + 1
+    assert idx.dtype == torch.int32 and idx.shape == (2, k)
+    np.testing.assert_array_equal(
+        idx.numpy(), quantize.topk_support_plain(torch.as_tensor(x), k)[0])
+    for row in range(2):
+        ref = np.sort(np.asarray(jq.topk_select(jnp.asarray(x[row]), k,
+                                                interpret=True)))
+        np.testing.assert_array_equal(idx[row].numpy(), ref)
+        np.testing.assert_array_equal(vals[row].numpy(), x[row, ref])
 
 
-def test_topk_pool_plain_keeps_each_tiles_top_and_pads_below():
+def _stable_order(x):
+    """Columns of each row by descending |x|, NaN first, ties to the lower
+    index (a stable lexicographic sort: NaN or not, then -|x|)."""
+    a = np.abs(x.astype(np.float32))
+    nan = np.isnan(a)
+    return np.stack([np.lexsort((-np.where(n, 0, r), ~n))
+                     for r, n in zip(a, nan)])
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("d", [4097, 5000])
+def test_topk_threshold_plain_is_the_kth_key(d, ties):
+    """T is the k-th largest key, G the keys above it, need = k − G, and
+    1 <= need <= the keys equal to T, at every k tried."""
+    x = _x((3, d), ties, d + 2)
+    t = torch.as_tensor(x)
+    keys = quantize.topk_keys(t).numpy().astype(np.int64)
+    order = _stable_order(x)
+    for k in (1, 2, d // 10, d // 2, d - 1, d):
+        T, G, need = (v.numpy() for v in quantize.topk_threshold_plain(t, k))
+        for row in range(3):
+            kth = keys[row, order[row, k - 1]]
+            assert T[row] == kth
+            assert G[row] == (keys[row] > kth).sum()
+            assert need[row] == k - G[row]
+            assert 1 <= need[row] <= (keys[row] == kth).sum()
+
+
+def _odd_rows(d, seed):
+    """Rows of NaN (both signs) and +inf, of ±0 with a few ones, and of
+    keys spread over ±1100 ulps of 1.5 (runs of equal keys that cross the
+    10-bit digits' boundaries), with random signs."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((3, d)).astype(np.float32)
+    x[0, rng.integers(0, d, 60)] = np.nan
+    x[0, 7] = np.inf
+    x[0, 11] = -np.nan
+    x[1] = np.where(rng.random(d) < 0.5, 0.0, -0.0)
+    x[1, :40] = 1.0
+    bits = np.uint32(0x3FC00000) + rng.integers(-1100, 1100, d)
+    x[2] = bits.astype(np.uint32).view(np.float32) * np.where(
+        rng.random(d) < 0.5, -1, 1)
+    return x
+
+
+K_OF = {"one": lambda d: 1, "45": lambda d: 45, "tenth": lambda d: d // 10,
+        "all_but_one": lambda d: d - 1}
+
+
+@pytest.mark.parametrize("k_of", sorted(K_OF))
+@pytest.mark.parametrize("d", [4097, 20001])
+def test_topk_select_orders_nan_zeros_and_runs(d, k_of):
+    """NaN above +inf and NaNs tied to the lower index, +0 and -0 tied, and
+    runs of equal keys across digit boundaries: ``topk_select`` (and
+    ``topk_select_plain``) equal a full stable sort, ``topk_support`` its
+    first k sorted."""
+    x = _odd_rows(d, d)
+    k = K_OF[k_of](d)
+    want = _stable_order(x)[:, :k]
+    t = torch.as_tensor(x)
+    np.testing.assert_array_equal(quantize.topk_select(t, k).numpy(), want)
+    np.testing.assert_array_equal(quantize.topk_select_plain(t, k).numpy(),
+                                  want)
+    np.testing.assert_array_equal(quantize.topk_support(t, k)[0].numpy(),
+                                  np.sort(want, axis=-1))
+
+
+def test_topk_compact_plain_keeps_the_first_ties_in_index_order():
+    """With T tied many times, the compaction keeps every key above T and
+    the first ``need`` keys equal to T, in ascending index order."""
     d = 2 * quantize.TOPK_TILE + 5
-    x = torch.as_tensor(_x((1, d), True, 1))
-    pv, pi = quantize.topk_pool_plain(x, 128)
-    assert pv.shape == pi.shape == (1, 3, 128)
-    assert pi.dtype == torch.int32
-    real = pi < d
-    want = torch.where(real, x.abs()[0, torch.where(real, pi, 0).long()],
-                       torch.tensor(-1.0))
-    np.testing.assert_array_equal(pv.numpy(), want.numpy())
-    last = pv[0, 2]
-    assert (last[:5] >= 0).all() and (last[5:] == -1.0).all()
-    assert (pi[0, 2, 5:] == torch.arange(d, d + 123)).all()
+    x = np.zeros((1, d), np.float32)
+    x[0, ::3] = 2.0                      # 1367 keys equal to T = 2.0
+    x[0, 100] = 5.0
+    k = 11
+    idx, vals = quantize.topk_compact_plain(torch.as_tensor(x), k)
+    assert idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx[0].numpy(),
+                                  [0, 3, 6, 9, 12, 15, 18, 21, 24, 27, 100])
+    np.testing.assert_array_equal(vals[0].numpy(), [2.0] * 10 + [5.0])
+    T, G, need = quantize.topk_threshold_plain(torch.as_tensor(x), k)
+    assert int(G[0]) == 1 and int(need[0]) == 10
+    assert int(T[0]) == int(np.float32(2.0).view(np.int32))
+
+
+@pytest.mark.parametrize("k", [0, 4098])
+def test_topk_select_refuses_k_outside_the_row(k):
+    x = torch.as_tensor(_x((2, 4097), False, 3))
+    for fn in (quantize.topk_select, quantize.topk_support,
+               quantize.topk_select_plain):
+        with pytest.raises(ValueError, match="outside"):
+            fn(x, k)
 
 
 @pytest.mark.parametrize("ties", [False, True])
