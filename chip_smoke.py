@@ -8,9 +8,10 @@ PyTorch version on the card, checks that the norm, TopK and quantizer
 kernels repeat bit for bit, and times kernel, plain version and a library
 call: each kernel row has the event window around the call (its
 wrapper's host work included), the device time and device operations
-per call from torch.profiler, and ``robust_agg``, ``weighted_sum`` and
-``pair_gram`` must issue one device operation a call. Then it drives the
-port's main
+per call from torch.profiler, and ``robust_agg``, ``weighted_sum``,
+``pair_gram``, ``rfa_iter`` (its public call and the drivers' sq-alone
+call) and ``weighted_sum_blocked`` must issue one device operation a
+call. Then it drives the port's main
 path — Byz-VR-MARINA with RandK, ALIE and bucketing s = 2 on a9a-width
 logistic regression — through
 ``repro_torch.api.run`` three times at 5 workers, with coordinate-wise
@@ -515,7 +516,7 @@ def norm_case(case, dev):
                                       attack=alie),
             lambda: torch.matmul(xb, xb.T),
             base_bytes + m * m * 4, d * (w_ops + m * (m + 1))),
-        "rfa_iter": (
+        "rfa_iter": (      # sq alone (RFA's driver) below: no z written
             lambda: N.rfa_iter(x, wr, w, mask, mean, std, valid,
                                attack=alie),
             lambda: N.rfa_iter_plain(x, wr, w, mask, mean, std, valid,
@@ -566,13 +567,28 @@ def norm_case(case, dev):
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "bytes": bytes_moved, "ops": ops,
                **t}
+        sq_txt = ""
+        # the drivers' call: sq alone, no z (a tree from before it, timed
+        # with this script under --phases kernels, has none)
+        if name == "rfa_iter" and hasattr(N, "_rfa_sq"):
+            sq = N._rfa_sq(x, wr, w, mask, mean, std, valid, attack=alie)
+            if not torch.equal(sq, first[1]):
+                raise AssertionError(f"rfa_iter {label}: sq alone differs "
+                                     "from the public call's sq")
+            row["sq_alone"] = {
+                **timing(lambda: N._rfa_sq(x, wr, w, mask, mean, std, valid,
+                                           attack=alie)),
+                "bound_ms": bound_of(bytes_moved - d * 4, ops)[0]}
+            sq_txt = (f"; sq alone (the driver's call) "
+                      f"{timing_text(row['sq_alone'])}, bound "
+                      f"{row['sq_alone']['bound_ms']:.4f} ms")
         rows.append(row)
         lib_txt = ("n/a" if library_ms is None else f"{library_ms:.4f} ms")
         print(f"[kernel] {name:12s} {kind:11s} {label}: n={n} d={d} k={k} "
               f"s={s}{' masked' if invalid else ''} | errs {', '.join(f'{e:.3e}' for e in errs)} (limits "
               f"{', '.join(f'{v:.3e}' for v in limits)}) repeat bitwise | "
               f"kernel {timing_text(t)}; plain {plain_ms:.4f} ms bound "
-              f"{bound_ms:.4f} ms ({bound_by}) library {lib_txt}",
+              f"{bound_ms:.4f} ms ({bound_by}) library {lib_txt}{sq_txt}",
               flush=True)
         del first, again, want
     del x, w, mean, std, sent, xb, spec
@@ -618,10 +634,12 @@ def blocked_case(case, dev, card):
         symmetric = (bool(torch.equal(first, first.T))
                      if name == "pair_gram_blocked" else None)
         err = float((first - want).abs().max())
-        limit = (KERNEL_TOL * max(1.0, float(x.abs().max()))
-                 if name == "weighted_sum_blocked"
+        # the blocked weighted sum takes the plain version's order: equal
+        limit = (0.0 if name == "weighted_sum_blocked"
                  else SUM_TOL * max(1.0, float(want.abs().max())))
         ok = bool(torch.isfinite(first).all())
+        if name == "weighted_sum_blocked":
+            ok = ok and torch.equal(first, want)
         if not (ok and repeat and symmetric is not False and err <= limit):
             raise AssertionError(
                 f"{name} {label}: error {err} vs limit {limit}, finite {ok},"
@@ -1127,24 +1145,27 @@ def bounds_case(case, dev):
             "equal": True}
 
 
-LEAN_KERNELS = ("robust_agg", "weighted_sum", "pair_gram")
+LEAN_KERNELS = ("robust_agg", "weighted_sum", "pair_gram", "rfa_iter",
+                "weighted_sum_blocked")
 
 
 def check_lean(cases):
-    """A steady-state call of ``robust_agg``, ``weighted_sum`` or
-    ``pair_gram`` issues
-    exactly one device operation, its kernel, on every load and shape
-    (no row pointers, no mask conversion, no copy or fill), where the
+    """A steady-state call of a kernel of LEAN_KERNELS (``rfa_iter``'s
+    public call and its sq-alone call) issues exactly one device
+    operation, its kernel, on every load and shape (no row pointers, no
+    mask conversion, no second launch, no copy or fill), where the
     profiler recorded the calls: every operation it saw is the kernel,
     one a call (the tracer loses or repeats an event in some windows of
     REPS calls, so the count is rounded)."""
-    bad = [(r["kernel"], r["kind"], r["label"], r["device_ops"],
-            r["device_op_names"])
-           for rows in cases.values() for r in rows
-           if r.get("kernel") in LEAN_KERNELS and r["device_ops"] is not None
-           and (round(r["device_ops"]) != 1
-                or any(r["kernel"] not in name
-                       for name in r["device_op_names"]))]
+    timed = [(r["kernel"], r.get("kind"), r["label"], t)
+             for rows in cases.values() for r in rows
+             if r.get("kernel") in LEAN_KERNELS
+             for t in (r, r.get("sq_alone")) if t is not None]
+    bad = [(name, kind, label, t["device_ops"], t["device_op_names"])
+           for name, kind, label, t in timed
+           if t["device_ops"] is not None
+           and (round(t["device_ops"]) != 1
+                or any(name not in op for op in t["device_op_names"]))]
     if bad:
         raise AssertionError(f"calls with more than one device op: {bad}")
 

@@ -3,8 +3,8 @@ worker-stack arguments that lead each fused entry point's C signature
 (``SRC_PARAMS`` in ``csrc/agg_prologue.cuh``), in that order, the
 launch counts per load, and the dense stack of the blocked kernels.
 Nothing here launches a device operation: masks go as they are (bool as
-a uint8 view), and the sparse row pointers that the RFA kernel reads are
-built once per payload."""
+a uint8 view), and the sparse wire goes without row pointers (each kernel
+finds its bounds on the card)."""
 from __future__ import annotations
 
 import ctypes
@@ -16,7 +16,7 @@ from repro_torch.core.attacks import attack_code
 from repro_torch.kernels import quantize
 
 _P, _I, _Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-SRC_ARGTYPES = ([_P] * 4 + [_I, _P, _Q, _P, _I, _P, _I] + [_P] * 4
+SRC_ARGTYPES = ([_P] * 3 + [_I, _P, _Q, _P, _I, _P, _I] + [_P] * 4
                 + [_I, ctypes.c_float, _I, _I, _I, _Q, _I])
 # u8_masks bits of SRC_PARAMS: which masks come as bool bytes
 MASK_U8, VALID_U8, BVALID_U8 = 1, 2, 4
@@ -87,21 +87,17 @@ def mask_arg(who, name, m, device, shape):
     return check(who, name, m, device, torch.float32, shape), False
 
 
-def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
-             valid=None, starts=False):
+def src_args(who, x, n, d, mask, good_mean, good_std, attack, valid=None):
     """(args, load): the ``SRC_PARAMS`` of a launch on the dense (n, d)
     float32 or bfloat16 stack or the ``quantize.WireSrc`` ``x``, and the
     load's name. ``valid`` (fault guard) is the optional (n,) row-validity
-    mask, taken like ``mask``. ``starts``: the sparse wire's row pointers
-    per ``tile``-column tile, built once per payload
-    (``quantize.WireSrc.starts``), for ``rfa_iter``; the looping kernels
-    find their bounds on the card and take none."""
+    mask, taken like ``mask``."""
     if not 1 <= n <= MAX_FUSED_WORKERS:
         raise ValueError(f"{who} kernel takes 1..{MAX_FUSED_WORKERS} "
                          f"workers, got {n}")
     device = x.device
     f32, i8 = torch.float32, torch.int8
-    x_ptr = vals = idx = starts_ptr = q8 = qs = base = None
+    x_ptr = vals = idx = q8 = qs = base = None
     k = q8_ld = qs_ld = base_rows = 0
     load = load_of(x)
     if isinstance(x, quantize.WireSrc):
@@ -113,8 +109,6 @@ def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
             k = arr["vals"].shape[1]
             vals = check(who, "vals", arr["vals"], device, f32, (n, k))
             idx = check(who, "idx", arr["idx"], device, torch.int32, (n, k))
-            if starts:
-                starts_ptr = x.starts(tile).data_ptr()
         elif load == "int8":
             qs_ld = -(-d // quantize.INT8_BLOCK)
             q8_ld = qs_ld * quantize.INT8_BLOCK
@@ -153,7 +147,7 @@ def src_args(who, x, n, d, mask, good_mean, good_std, attack, tile,
     if valid is not None:
         valid_ptr, is_u8 = mask_arg(who, "valid", valid, device, (n,))
         u8 |= VALID_U8 if is_u8 else 0
-    args = [x_ptr, vals, idx, starts_ptr, k, q8, q8_ld, qs, qs_ld, base,
+    args = [x_ptr, vals, idx, k, q8, q8_ld, qs, qs_ld, base,
             base_rows, mask_ptr, valid_ptr, mean_ptr, std_ptr, code,
             float(attack.param) if code else 0.0, LOADS.index(load),
             int(cand_bf16), n, d, u8]

@@ -51,7 +51,7 @@ enum { ATTACK_NONE = 0, ATTACK_BF = 1, ATTACK_ALIE = 2, ATTACK_IPM = 3 };
 enum {
   LOAD_DENSE_F32 = 0,   // x: (n, d) float32
   LOAD_DENSE_BF16 = 1,  // x: (n, d) bfloat16, candidates in bfloat16
-  LOAD_SPARSE = 2,      // vals / idx (n, k), starts (n, n_tiles + 1)
+  LOAD_SPARSE = 2,      // vals / idx (n, k), each idx row ascending
   LOAD_INT8 = 3,        // q8: (n, q8_ld) levels, qs: (n, qs_ld) norms
   LOAD_SIGN = 4,        // q8: (n, d) signs, qs: (n, 1) scale
   LOAD_BF16_WIRE = 5,   // x: (n, d) bfloat16 values
@@ -65,7 +65,6 @@ struct Src {
   const void* x;          // dense (n, d) float32 / bfloat16, bf16 wire
   const float* vals;      // sparse (n, k)
   const int* idx;         // sparse (n, k), ascending within each row
-  const int* starts;      // sparse (n, n_tiles + 1) row pointers per tile
   const signed char* q8;  // int8 levels or signs, rows q8_ld apart
   const float* qs;        // int8 norms or sign scale, rows qs_ld apart
   const float* base;      // (base_rows, d) or null
@@ -91,20 +90,20 @@ __device__ __forceinline__ float mask_at(const void* p, int q, bool u8) {
 // The leading parameters of every launch entry point, and make_src(SRC_ARGS)
 // to gather them: the Python wrappers pass them in this order.
 #define SRC_PARAMS                                                           \
-  const void *x, const float *vals, const int *idx, const int *starts,       \
-      int k, const signed char *q8, long long q8_ld, const float *qs,        \
+  const void *x, const float *vals, const int *idx, int k,                  \
+      const signed char *q8, long long q8_ld, const float *qs,               \
       int qs_ld, const float *base, int base_rows, const void *mask,         \
       const void *valid, const float *mean, const float *stdv, int attack,   \
       float attack_param, int load, int cand_bf16, int n, long long d,       \
       int u8_masks
 #define SRC_ARGS                                                            \
-  x, vals, idx, starts, k, q8, q8_ld, qs, qs_ld, base, base_rows, mask,     \
+  x, vals, idx, k, q8, q8_ld, qs, qs_ld, base, base_rows, mask,             \
       valid, mean, stdv, attack, attack_param, load, cand_bf16, n, d,       \
       u8_masks
 
 inline Src make_src(SRC_PARAMS) {
   Src a;
-  a.x = x; a.vals = vals; a.idx = idx; a.starts = starts; a.q8 = q8;
+  a.x = x; a.vals = vals; a.idx = idx; a.q8 = q8;
   a.qs = qs; a.base = base; a.mask = mask; a.valid = valid; a.mean = mean;
   a.stdv = stdv; a.d = d; a.q8_ld = q8_ld; a.n = n; a.k = k;
   a.n_tiles = (int)((d + TILE - 1) / TILE); a.qs_ld = qs_ld;
@@ -164,34 +163,6 @@ __device__ __forceinline__ void stage_consts(const Src& a,
   for (int q = tid; q < a.n; q += TILE) {
     s.mask[q] = a.mask ? mask_at(a.mask, q, a.u8_masks & MASK_U8) : 0.f;
     s.valid[q] = a.valid ? mask_at(a.valid, q, a.u8_masks & VALID_U8) : 1.f;
-  }
-}
-
-// Sparse wire: zero-fill the (n, TILE) tile `tile`, then scatter its
-// payload into it, one warp per worker row (RandK indices of a worker are
-// distinct, so no atomics). Invalid rows are skipped (the load zeroes
-// them): a garbled payload's indices are neither ascending nor in range,
-// and an index outside the tile is dropped all the same, as the reference's
-// sentinel guard drops it. Reads s_valid, so staged constants must be
-// visible. Ends without a barrier.
-__device__ __forceinline__ void scatter_tile(const Src& a, int tile,
-                                             const float* s_valid,
-                                             float* s_x) {
-  const int tid = threadIdx.x;
-  const long long lo = (long long)tile * TILE;
-  for (int i = 0; i < a.n; ++i) s_x[i * TILE + tid] = 0.f;
-  __syncthreads();
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int i = warp; i < a.n; i += TILE / 32) {
-    if (!(s_valid[i] > 0.f)) continue;
-    const int* st = a.starts + (long long)i * (a.n_tiles + 1) + tile;
-    const int s = st[0], e = st[1];
-    const float* v = a.vals + (long long)i * a.k;
-    const int* ix = a.idx + (long long)i * a.k;
-    for (int p = s + lane; p < e; p += 32) {
-      const long long col = (long long)ix[p] - lo;
-      if (col >= 0 && col < TILE) s_x[i * TILE + (int)col] = v[p];
-    }
   }
 }
 
@@ -276,53 +247,24 @@ __device__ __forceinline__ void bucket_column(const float* s_w,
 // of this many rows (aggregators.xla_sum_rows).
 constexpr int XLA_WINDOW = 32;
 
-// sum_i w[i] v[i * TILE] over `cnt` <= 64 rows of one column, as the
+// sum_i w[i] v[i * stride] over `cnt` <= 64 rows of one column, as the
 // reference's compiled kernel body takes sum(x * w, axis=0) on the CPU: up
 // to 32 rows one fused multiply-add per row in row order; above, the rounded
 // products summed in two windows cut at 32 - (64 - cnt) / 2, each in order,
 // then the two window sums added.
-__device__ __forceinline__ float weighted_col(const float* v, const float* w,
-                                              int cnt) {
+__device__ __forceinline__ float weighted_col(const float* v, int stride,
+                                              const float* w, int cnt) {
   float lo = 0.f, hi = 0.f;
   if (cnt <= XLA_WINDOW) {
-    for (int i = 0; i < cnt; ++i) lo = __fmaf_rn(v[i * TILE], w[i], lo);
+    for (int i = 0; i < cnt; ++i) lo = __fmaf_rn(v[i * stride], w[i], lo);
     return lo;
   }
   const int cut = XLA_WINDOW - (2 * XLA_WINDOW - cnt) / 2;
-  for (int i = 0; i < cut; ++i) lo = __fadd_rn(lo, __fmul_rn(v[i * TILE], w[i]));
+  for (int i = 0; i < cut; ++i)
+    lo = __fadd_rn(lo, __fmul_rn(v[i * stride], w[i]));
   for (int i = cut; i < cnt; ++i)
-    hi = __fadd_rn(hi, __fmul_rn(v[i * TILE], w[i]));
+    hi = __fadd_rn(hi, __fmul_rn(v[i * stride], w[i]));
   return __fadd_rn(lo, hi);
-}
-
-// Tile `tile` into shared memory, for a block that loops over tiles
-// (rfa_iter; the sparse wire through its row pointers, scatter_tile):
-// s.x the attacked rows and s.b = W s.x when bucketed; columns past d are
-// zeros, which add nothing to a Gram or a sum of squares. Returns the rows
-// the rule reads. Starts with a barrier (the previous tile's readers are
-// done, the staged constants are visible) and ends without one: a thread
-// may read its own column at once, other columns after a __syncthreads().
-template <int LOAD>
-__device__ __forceinline__ const float* load_tile(const Src& a,
-                                                  const Smem& s,
-                                                  bool bucketed, int m,
-                                                  int tile) {
-  const int tid = threadIdx.x;
-  const long long c = (long long)tile * TILE + tid;
-  __syncthreads();
-  if (LOAD == LOAD_SPARSE) {
-    scatter_tile(a, tile, s.valid, s.x);
-    __syncthreads();
-  }
-  if (c < a.d) {
-    load_column<LOAD>(a, c, s);
-    if (bucketed) bucket_column(s.w, s.x, a.n, m, s.b);
-  } else {
-    for (int i = 0; i < a.n; ++i) s.x[i * TILE + tid] = 0.f;
-    if (bucketed)
-      for (int b = 0; b < m; ++b) s.b[b * TILE + tid] = 0.f;
-  }
-  return bucketed ? s.b : s.x;
 }
 
 // Host: dynamic shared memory above 48 KB needs the attribute set first.
@@ -380,12 +322,13 @@ inline int resident_grid(Kernel kernel, int threads, size_t smem) {
 }
 
 // ---------------------------------------------------------------------------
-// The register load of the looping kernels (robust_agg.cu, pair_gram and
-// weighted_sum in norm_agg.cu). A block takes its column groups strided over the grid, or,
-// on the sparse wire, as one contiguous range; a thread owns V consecutive
-// columns of a group of TILE * V, reads each worker row's
-// V values with one load of up to 16 bytes (neighbouring threads on
-// neighbouring addresses), and keeps the rows of its columns in registers.
+// The register load of the looping kernels (robust_agg.cu; pair_gram,
+// rfa_iter and weighted_sum in norm_agg.cu). A block takes its column
+// groups strided over the grid, or, on the sparse wire, as one contiguous
+// range; a thread owns V consecutive columns of a group of TILE * V, reads
+// each worker row's V values with one load of up to 16 bytes (neighbouring
+// threads on neighbouring addresses), and keeps the rows of its columns in
+// registers.
 // The sparse wire has no row pointers: each block finds where its range
 // starts in every worker's ascending idx row with one warp-wide 32-ary
 // search, then walks forward group by group.

@@ -12,9 +12,10 @@
 // Offsets are 64-bit: at m = 1024, d = 2^20 the stack holds 2^30 elements.
 //
 // On the TPU each kernel accumulates into a revisited output block along a
-// sequential grid axis. Blocks on the card run in any order, so every sum
-// across blocks goes to a workspace and a second launch adds the partials
-// in a fixed order. No floating-point atomics: a call repeats bit for bit.
+// sequential grid axis. Blocks on the card run in any order, so a sum
+// across blocks goes to a workspace, added in a fixed order by a second
+// launch (the Gram, the distances), or stays in one block (the weighted
+// sum). No floating-point atomics: a call repeats bit for bit.
 //
 // pair_gram_blocked. Bound: float32 operations, m(m+1) d for the upper
 //   triangle (2 m^2 d for the full product). A register-tiled SIMT product,
@@ -34,12 +35,19 @@
 // sqdist_to_blocked. Bound: bytes (the stack read once). One warp per row
 //   and chunk of columns, float4 loads where d allows, a fixed lane order
 //   and a fixed shuffle tree; (chunks, m) partials, summed in chunk order.
-// weighted_sum_blocked. Bound: bytes. One thread per column and worker
-//   tile of 64 rows (the reference's; the last tile short), rows in order,
-//   coalesced across the threads; (tiles, d) partials summed in tile order.
-//   Each tile's sum is taken as the reference's compiled float32 code takes
-//   it on the CPU: two windows of 32 rows, each a sequential sum of rounded
-//   products, then the two windows added.
+// weighted_sum_blocked. Bound: bytes (the stack read once). Each column is
+//   the reference's order bit for bit: a worker tile of 64 rows (the last
+//   one short) summed as its compiled float32 code sums it on the CPU (the
+//   rounded products of two windows of 32 rows, each in order, then the two
+//   window sums added), the tiles added in tile order from 0. One launch, a
+//   block for each group of 128 columns (32 where d or the alignment does
+//   not allow 16-byte loads), a lane 4 columns (or 1) read with one 16-byte
+//   load a row, eight (or 32) rows' loads issued before their first add.
+//   The eight warps of a block sum eight consecutive worker tiles of the
+//   group at once (with fewer tiles, a block takes two to four groups and
+//   their tiles at once), so that a narrow stack or one of many rows still
+//   fills the card, and a thread a column adds their sums in tile order
+//   from shared memory: no workspace in device memory, no second pass.
 
 #include <cuda_runtime.h>
 
@@ -52,7 +60,8 @@ constexpr int GK = 32;        // columns staged per step
 constexpr int GLD = GK + 4;   // staged row stride: 16-byte rows, no conflicts
 constexpr int GTHREADS = 64;  // 8 x 8 threads, 8 x 8 outputs each
 constexpr int SQ_WARPS = 8;   // rows per sqdist block, one warp each
-constexpr int WS_THREADS = 256;
+constexpr int WS_WARPS = 8;   // worker tiles of the weighted sum at once
+constexpr int WS_THREADS = WS_WARPS * 32;
 constexpr int WS_TILE = 64;   // worker tile of the weighted sum
 constexpr int WS_WINDOW = 32; // rows summed in order within a tile
 constexpr int FINISH_THREADS = 256;
@@ -268,23 +277,119 @@ __global__ void sum_partials(const float* __restrict__ part, int p,
   out[i] = acc;
 }
 
-__global__ void __launch_bounds__(WS_THREADS) wsum_blocked_tiles(
+// The V values of a thread at p (V = 4: one 16-byte load, p 16-byte
+// aligned); x is read once (evict first).
+template <int V>
+__device__ __forceinline__ void ws_load(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 u = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+
+// Rows [a, b) of a window of a worker tile, added in order into acc: the
+// rounded products x_rc w_r of a thread's V columns (p: row a's). Rows go
+// in batches of 32 / V, every load of a batch issued before its first add.
+template <int V>
+__device__ __forceinline__ void window_sum(const float* __restrict__ p,
+                                           const float* __restrict__ w,
+                                           long long d, long long a,
+                                           long long b, float (&acc)[V]) {
+  constexpr int B = 32 / V;
+  long long r = a;
+  for (; r + B <= b; r += B, p += B * d) {
+    float v[B][V];
+#pragma unroll
+    for (int j = 0; j < B; ++j) ws_load<V>(p + j * d, v[j]);
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      const float wr = __ldg(w + r + j);
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        acc[k] = __fadd_rn(acc[k], __fmul_rn(v[j][k], wr));
+    }
+  }
+  for (; r < b; ++r, p += d) {
+    float v[V];
+    ws_load<V>(p, v);
+    const float wr = __ldg(w + r);
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      acc[k] = __fadd_rn(acc[k], __fmul_rn(v[k], wr));
+  }
+}
+
+// Warps of a block that take a column group's worker tiles at once: the
+// least power of two not below the tiles, at most WS_WARPS; the block takes
+// WS_WARPS / that many column groups.
+__host__ __device__ inline int ws_tile_warps(long long tiles) {
+  int tw = WS_WARPS;
+  while (tw > 1 && tw / 2 >= tiles) tw /= 2;
+  return tw;
+}
+
+// A block takes cg = WS_WARPS / tw groups of 32 V columns: a lane owns V
+// consecutive columns (4 where x is 16-byte aligned and d a multiple of 4,
+// else 1), and the tw warps of a group take its
+// worker tiles in batches, warp j tile t0 + j of the batch at t0: its sum
+// as the reference's compiled float32 code takes it (the rounded products
+// of rows [r0, r0 + 32) added in order, those of the rest of the tile in
+// order, then the two window sums added; the zero-padded rows of its last
+// tile add +0 to sums that start at +0), into shared memory. Then a thread
+// a column adds the batch's sums in tile order onto its running sum, from
+// 0 (a block of one group, tw = WS_WARPS, which may take many batches), or
+// sums every tile at once (several groups: their tiles are one batch).
+// Every sum in the reference's order; no workspace.
+template <int V>
+__global__ void __launch_bounds__(WS_THREADS) weighted_sum_blocked_kernel(
     const float* __restrict__ x, const float* __restrict__ w, long long m,
-    long long d, float* __restrict__ part) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
-  const long long r0 = (long long)blockIdx.y * WS_TILE;
-  const long long r1 = r0 + WS_TILE < m ? r0 + WS_TILE : m;
-  const long long cut = r0 + WS_WINDOW < r1 ? r0 + WS_WINDOW : r1;
-  const float* xc = x + c;
-  float lo = 0.f, hi = 0.f;
-#pragma unroll 8
-  for (long long r = r0; r < cut; ++r)
-    lo = __fadd_rn(lo, __fmul_rn(xc[r * d], w[r]));
-#pragma unroll 8
-  for (long long r = cut; r < r1; ++r)
-    hi = __fadd_rn(hi, __fmul_rn(xc[r * d], w[r]));
-  part[(long long)blockIdx.y * d + c] = __fadd_rn(lo, hi);
+    long long d, float* __restrict__ out) {
+  constexpr int GROUP = 32 * V;
+  __shared__ __align__(16) float s_ts[WS_WARPS][GROUP];
+  const long long tiles = (m + WS_TILE - 1) / WS_TILE;
+  const int tw = ws_tile_warps(tiles), cg = WS_WARPS / tw;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long g0 = (long long)blockIdx.x * cg;      // the first group
+  const long long c0 = (g0 + warp / tw) * GROUP + (long long)lane * V;
+  const long long col = g0 * GROUP + tid;    // cg == 1: tid < GROUP adds
+  float acc = 0.f;
+  for (long long t0 = 0; t0 < tiles; t0 += tw) {
+    const long long t = t0 + warp % tw;
+    if (c0 < d && t < tiles) {
+      const long long r0 = t * WS_TILE;
+      const long long r1 = r0 + WS_TILE < m ? r0 + WS_TILE : m;
+      const long long cut = r0 + WS_WINDOW < r1 ? r0 + WS_WINDOW : r1;
+      float lo[V], hi[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) lo[k] = hi[k] = 0.f;
+      window_sum<V>(x + r0 * d + c0, w, d, r0, cut, lo);
+      window_sum<V>(x + cut * d + c0, w, d, cut, r1, hi);
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        s_ts[warp][lane * V + k] = __fadd_rn(lo[k], hi[k]);
+    }
+    __syncthreads();
+    if (cg == 1) {
+      if (tid < GROUP && col < d)
+        for (int j = 0; j < tw && t0 + j < tiles; ++j)
+          acc = __fadd_rn(acc, s_ts[j][tid]);
+    } else {
+      for (int cc = tid; cc < cg * GROUP; cc += WS_THREADS) {
+        const int q = cc / GROUP, i = cc % GROUP;
+        if (g0 * GROUP + cc >= d) break;
+        float a = 0.f;
+        for (int j = 0; j < tiles; ++j) a = __fadd_rn(a, s_ts[q * tw + j][i]);
+        out[g0 * GROUP + cc] = a;
+      }
+    }
+    __syncthreads();
+  }
+  if (cg == 1 && tid < GROUP && col < d) out[col] = acc;
 }
 
 unsigned grid_for(long long items, int threads) {
@@ -296,7 +401,7 @@ unsigned grid_for(long long items, int threads) {
 // The launch entry points enqueue on `stream` and return cudaGetLastError()
 // (0 on success). The wrappers size the workspaces `part`: (chunks, pairs,
 // 64, 64) for the Gram with pairs = nt (nt + 1) / 2, nt = ceil(m / 64);
-// (chunks, m) for the distances; (ceil(m / 64), d) for the weighted sum.
+// (chunks, m) for the distances.
 
 extern "C" int pair_gram_blocked_launch(const float* x, long long m,
                                         long long d, int chunks,
@@ -339,17 +444,19 @@ extern "C" int sqdist_to_blocked_launch(const float* x, const float* z,
   return (int)cudaGetLastError();
 }
 
+// One launch over the groups of 128 columns where x is 16-byte aligned and
+// d a multiple of 4, else of 32; a block takes one or several groups
+// (ws_tile_warps).
 extern "C" int weighted_sum_blocked_launch(const float* x, const float* w,
                                            long long m, long long d,
-                                           float* part, float* out,
-                                           void* stream) {
+                                           float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (int)((m + WS_TILE - 1) / WS_TILE);
-  wsum_blocked_tiles<<<dim3(grid_for(d, WS_THREADS), tiles), WS_THREADS, 0,
-                       st>>>(x, w, m, d, part);
-  cudaError_t err;
-  if ((err = cudaGetLastError())) return (int)err;
-  sum_partials<<<grid_for(d, FINISH_THREADS), FINISH_THREADS, 0, st>>>(
-      part, tiles, d, out);
+  const int cg = WS_WARPS / ws_tile_warps((m + WS_TILE - 1) / WS_TILE);
+  if ((uintptr_t)x % 16 == 0 && d % 4 == 0)
+    weighted_sum_blocked_kernel<4>
+        <<<grid_for(d, 128 * cg), WS_THREADS, 0, st>>>(x, w, m, d, out);
+  else
+    weighted_sum_blocked_kernel<1>
+        <<<grid_for(d, 32 * cg), WS_THREADS, 0, st>>>(x, w, m, d, out);
   return (int)cudaGetLastError();
 }

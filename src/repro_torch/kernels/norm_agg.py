@@ -16,9 +16,11 @@ bfloat16 before the select):
                      rides in the weights.
 
 On a CUDA tensor each launches its hand-written kernel in
-``csrc/norm_agg.cu`` (or raises); on a CPU tensor it runs its ``*_plain``
-version. ``rfa_segments`` and ``krum_segments`` drive them over a list of
-segments with global distances, staying on the device between launches.
+``csrc/norm_agg.cu``, one device operation a call (or raises); on a CPU
+tensor it runs its ``*_plain`` version. ``rfa_segments`` and
+``krum_segments`` drive them over a list of segments with global
+distances, staying on the device between launches; ``rfa_segments`` reads
+sq alone, so its kernel writes no z.
 
 The blocked kernels serve the giant-n tier (more than
 ``MAX_FUSED_WORKERS`` bucketed rows), on a dense (m, d) float32 stack
@@ -28,8 +30,9 @@ whose attack and bucketing are already applied:
 * ``sqdist_to_blocked``    — (m,) squared distances of the rows to z;
 * ``weighted_sum_blocked`` — Σ_i w_i·x_i.
 
-Their kernels are in ``csrc/norm_agg_blocked.cu``; ``rfa_segments_blocked``
-and ``krum_segments_blocked`` drive them.
+Their kernels are in ``csrc/norm_agg_blocked.cu`` (``weighted_sum_blocked``
+in one launch, the other two in two); ``rfa_segments_blocked`` and
+``krum_segments_blocked`` drive them.
 
 Under the fault guard or partial participation the fused kernels take a
 (n,) ``valid`` mask, which their load applies after the attack and before
@@ -185,12 +188,26 @@ def rfa_iter(x, w, w_mat=None, mask=None, good_mean=None, good_std=None,
     """(n, d) stack or WireSrc, weights w (m,) -> (z (d,), sq (m,))
     float32, as ``rfa_iter_plain``. CPU tensors take the plain version;
     CUDA tensors the kernel."""
+    return _rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid, attack,
+                     True)
+
+
+def _rfa_sq(x, w, w_mat=None, mask=None, good_mean=None, good_std=None,
+            valid=None, *, attack=None):
+    """``rfa_iter``'s sq alone, for the drivers: the kernel writes no z.
+    Counted as an ``rfa_iter`` call."""
+    return _rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid, attack,
+                     False)[1]
+
+
+def _rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid, attack,
+              with_z):
     rfa_iter.calls += 1
     if _launch.on_cpu("rfa_iter", x.device):
         return rfa_iter_plain(x, w, w_mat, mask, good_mean, good_std, valid,
                               attack=attack)
     return _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid,
-                            attack)
+                            attack, with_z)
 
 
 def weighted_sum(x, w, mask=None, good_mean=None, good_std=None,
@@ -221,25 +238,24 @@ def _lib():
     lib = _build.load("norm_agg")
     if lib.pair_gram_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.norm_agg_tile.argtypes = []
         lib.norm_agg_grid.argtypes = [i] * 5 + [ctypes.POINTER(i)]
-        lib.pair_gram_tickets.argtypes = []
+        lib.norm_agg_tickets.argtypes = []
         lib.pair_gram_launch.argtypes = _launch.SRC_ARGTYPES + [
             p, i, i, p, p, p, p]
         lib.rfa_iter_launch.argtypes = _launch.SRC_ARGTYPES + [
-            p, i, p, i, p, p, p, p]
+            p, i, p, i, p, p, p, p, p]
         lib.weighted_sum_launch.argtypes = _launch.SRC_ARGTYPES + [p, p, p]
-        for fn in (lib.norm_agg_tile, lib.norm_agg_grid,
-                   lib.pair_gram_tickets, lib.pair_gram_launch,
-                   lib.rfa_iter_launch, lib.weighted_sum_launch):
+        for fn in (lib.norm_agg_grid, lib.norm_agg_tickets,
+                   lib.pair_gram_launch, lib.rfa_iter_launch,
+                   lib.weighted_sum_launch):
             fn.restype = ctypes.c_int
     return lib
 
 
 def _blocks(lib, who, load, device, n, m, bucketed, d):
-    """Grid of a looping kernel: as many blocks as are resident on the
-    card at once, and no more than there are column groups (a 128-column
-    tile for ``rfa_iter``; ``pair_gram``'s path by m sets its group)."""
+    """Grid of a one-launch kernel: as many blocks as are resident on the
+    card at once, and no more than there are column groups (the path by m
+    sets the group)."""
     key = (who, device.index, load, n, m, bucketed)
     if key not in _RESIDENT:
         group = ctypes.c_int(0)
@@ -259,9 +275,16 @@ def _tickets(lib, device, stream) -> int:
     that launches on two streams never count into one buffer."""
     key = (device.index, stream)
     if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(lib.pair_gram_tickets(),
+        _TICKETS[key] = torch.zeros(lib.norm_agg_tickets(),
                                     dtype=torch.int32, device=device)
     return _TICKETS[key].data_ptr()
+
+
+def _finish_part(blocks, entries, device):
+    """The one-launch finish's workspace: the blocks' partial sums, then
+    their groups' of 16 (``blocks_finish`` in csrc/norm_agg.cu)."""
+    return torch.empty(blocks + -(-blocks // 16), entries,
+                       dtype=torch.float32, device=device)
 
 
 def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, valid, attack):
@@ -269,13 +292,11 @@ def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, valid, attack):
     lib = _lib()
     dev = x.device
     args, load = _launch.src_args("pair_gram", x, n, d, mask, good_mean,
-                                  good_std, attack, None, valid)
+                                  good_std, attack, valid)
     m, w_ptr = _launch.bucket_args("pair_gram", w_mat, n, dev)
     blocks = _blocks(lib, "pair_gram", load, dev, n, m, w_mat is not None,
                      d)
-    # the blocks' partial Grams, then their groups' of 16 (csrc/norm_agg.cu)
-    part = torch.empty(blocks + -(-blocks // 16), m * (m + 1) // 2,
-                       dtype=torch.float32, device=dev)
+    part = _finish_part(blocks, m * (m + 1) // 2, dev)
     out = torch.empty(m, m, dtype=torch.float32, device=dev)
     st = _launch.stream(dev)
     err = lib.pair_gram_launch(*args, w_ptr, m, blocks, part.data_ptr(),
@@ -285,23 +306,24 @@ def _launch_pair_gram(x, w_mat, mask, good_mean, good_std, valid, attack):
     return out
 
 
-def _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid, attack):
+def _launch_rfa_iter(x, w, w_mat, mask, good_mean, good_std, valid, attack,
+                     with_z):
     n, d = src_dims(x)
     lib = _lib()
     dev = x.device
     args, load = _launch.src_args("rfa_iter", x, n, d, mask, good_mean,
-                                  good_std, attack, lib.norm_agg_tile(),
-                                  valid, starts=True)
+                                  good_std, attack, valid)
     m, w_ptr = _launch.bucket_args("rfa_iter", w_mat, n, dev)
     wr = _launch.check("rfa_iter", "w", w, dev, torch.float32, (m,))
     blocks = _blocks(lib, "rfa_iter", load, dev, n, m, w_mat is not None,
                      d)
-    part = torch.empty(blocks, m, dtype=torch.float32, device=dev)
-    z = torch.empty(d, dtype=torch.float32, device=dev)
+    part = _finish_part(blocks, m, dev)
+    z = torch.empty(d, dtype=torch.float32, device=dev) if with_z else None
     sq = torch.empty(m, dtype=torch.float32, device=dev)
+    st = _launch.stream(dev)
     err = lib.rfa_iter_launch(*args, w_ptr, m, wr, blocks, part.data_ptr(),
-                              z.data_ptr(), sq.data_ptr(),
-                              _launch.stream(dev))
+                              None if z is None else z.data_ptr(),
+                              sq.data_ptr(), _tickets(lib, dev, st), st)
     _launch.raise_on("rfa_iter", err)
     _launch.count(rfa_iter, load, valid is not None)
     return z, sq
@@ -312,7 +334,7 @@ def _launch_weighted_sum(x, w, mask, good_mean, good_std, valid, attack):
     lib = _lib()
     dev = x.device
     args, load = _launch.src_args("weighted_sum", x, n, d, mask, good_mean,
-                                  good_std, attack, None, valid)
+                                  good_std, attack, valid)
     wr = _launch.check("weighted_sum", "w", w, dev, torch.float32, (n,))
     out = torch.empty(d, dtype=torch.float32, device=dev)
     err = lib.weighted_sum_launch(*args, wr, out.data_ptr(),
@@ -355,8 +377,9 @@ def rfa_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
     """Smoothed Weiszfeld (Pillutla et al. 2022) with global distances
     across segments, ``Aggregator._rfa_tree``'s semantics: uniform w_0
     makes the first pass's z the (bucketed) mean, each ``rfa_iter`` pass
-    gives the distances to z_t, and a final ``weighted_sum`` with w_eff =
-    w_T @ W realizes z_T. Returns the per-segment (d_j,) aggregates.
+    gives the distances to z_t (sq alone: the kernel writes no z), and a
+    final ``weighted_sum`` with w_eff = w_T @ W realizes z_T. Returns the
+    per-segment (d_j,) aggregates.
 
     ``valid`` / ``bvalid`` (fault guard, partial participation): the
     kernels select-zero the invalid worker rows in their load, and the
@@ -368,7 +391,7 @@ def rfa_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
     stds = stds if stds is not None else [None] * len(segs)
     w = _start_weights(m, bvalid, segs[0].device)
     for _ in range(iters):
-        sq = sum(rfa_iter(xs, w, w_mat, mask, mu, sd, valid, attack=attack)[1]
+        sq = sum(_rfa_sq(xs, w, w_mat, mask, mu, sd, valid, attack=attack)
                  for xs, mu, sd in zip(segs, means, stds))
         w = _next_weights(sq, eps, bvalid)
     w_eff = w if w_mat is None else w @ w_mat
@@ -563,7 +586,7 @@ def _lib_blocked():
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.pair_gram_blocked_launch.argtypes = [p, q, q, i, q, q, p, p, p]
         lib.sqdist_to_blocked_launch.argtypes = [p, p, q, q, i, q, p, p, p]
-        lib.weighted_sum_blocked_launch.argtypes = [p, p, q, q, p, p, p]
+        lib.weighted_sum_blocked_launch.argtypes = [p, p, q, q, p, p]
         for fn in (lib.pair_gram_blocked_launch,
                    lib.sqdist_to_blocked_launch,
                    lib.weighted_sum_blocked_launch):
@@ -609,11 +632,8 @@ def _launch_weighted_sum_blocked(x, w):
     wp = _launch.check("weighted_sum_blocked", "w", w, x.device,
                        torch.float32, (m,))
     lib = _lib_blocked()
-    part = torch.empty(_cdiv(m, DEFAULT_TILE_N), d, dtype=torch.float32,
-                       device=x.device)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
-    err = lib.weighted_sum_blocked_launch(xp, wp, m, d, part.data_ptr(),
-                                          out.data_ptr(),
+    err = lib.weighted_sum_blocked_launch(xp, wp, m, d, out.data_ptr(),
                                           _launch.stream(x.device))
     _launch.raise_on("weighted_sum_blocked", err)
     weighted_sum_blocked.launches += 1

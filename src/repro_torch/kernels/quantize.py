@@ -13,10 +13,10 @@ Payload of one leaf, worker-stacked (every array (n, ...)):
 The CUDA aggregation kernels rebuild each tile of the candidates from it
 in their shared load (``csrc/agg_prologue.cuh``): the sparse wire through
 a search of each worker's ascending idx row on the card
-(``sparse_range_start`` is its plain twin) or, for the RFA kernel, CSR
-row pointers built once per payload (``wire_starts``); the
-other three elementwise, so the dense (n, d) candidate matrix never
-exists in device memory. ``decode``
+(``sparse_range_start`` is its plain twin; ``wire_starts``, the CSR row
+pointers, is the oracle its tests hold it to), the other three
+elementwise, so the dense (n, d) candidate matrix never exists in device
+memory. ``decode``
 and ``recon`` are the plain reconstruction the CPU path and the tests
 use.
 
@@ -73,25 +73,10 @@ class WireSrc:
     arrays: tuple
     base: Optional[torch.Tensor] = None
     cand_dtype: torch.dtype = torch.float32
-    _starts: dict = dataclasses.field(default_factory=dict, init=False,
-                                      repr=False, compare=False)
 
     @property
     def device(self):
         return self.arrays[0][1].device
-
-    def starts(self, tile: int):
-        """The sparse payload's row pointers per ``tile``-column tile
-        (``wire_starts``) for the RFA kernel, built at the first call and
-        kept for this payload: RFA's passes over one payload share one
-        build. Rebuilt
-        if idx was written in place since."""
-        idx = dict(self.arrays)["idx"]
-        key = (tile, idx.data_ptr(), idx._version)
-        if key not in self._starts:
-            self._starts.clear()
-            self._starts[key] = wire_starts(idx, self.d, tile)
-        return self._starts[key]
 
 
 def pack_sparse(key, x, ratio: float, *, topk: bool):

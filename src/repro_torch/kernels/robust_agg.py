@@ -115,7 +115,7 @@ def _launch_kernel(x, w_mat, mask, good_mean, good_std, valid, bvalid, rule,
     n, d = src_dims(x)
     lib = _lib()
     args, load = _launch.src_args("robust_agg", x, n, d, mask, good_mean,
-                                  good_std, attack, None, valid)
+                                  good_std, attack, valid)
     m, w_ptr = _launch.bucket_args("robust_agg", w_mat, n, x.device)
     bv_ptr = None
     if bvalid is not None:

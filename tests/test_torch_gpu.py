@@ -655,7 +655,7 @@ def test_pair_gram_one_launch(dev, load, masked, n, s, d):
     """One launch a call on every load, masked and unmasked, on every path
     by m (pair products in registers up to 8 bucketed rows, 8 x 8 tiles
     above): symmetric and repeated bit for bit, within tolerance of the
-    plain version, and no row pointers built for the sparse wire."""
+    plain version."""
     if s > n:
         pytest.skip("bucket larger than the worker count")
     if _big(d, n):
@@ -678,8 +678,6 @@ def test_pair_gram_one_launch(dev, load, masked, n, s, d):
     tol = 1e-4 if d > 1_000_000 else TOL
     torch.testing.assert_close(got, want, rtol=0,
                                atol=tol * max(1.0, float(want.abs().max())))
-    if isinstance(x, quantize.WireSrc):
-        assert not x._starts
 
 
 @pytest.mark.gpu
@@ -726,6 +724,119 @@ def test_pair_gram_on_two_streams(dev, n, s):
         assert torch.equal(g, want)
     assert torch.equal(norm_agg.pair_gram(x, w, mask, mean, std,
                                           attack=ALIE), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("s", [0, 2, 3])
+@pytest.mark.parametrize("n", LOOP_N)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("load", LOADS)
+def test_rfa_iter_one_launch(dev, load, masked, n, s, d):
+    """One launch a call on every load, masked and unmasked, on every path
+    by m (z and the distances in registers up to 8 bucketed rows, from the
+    staged rows above): z and sq repeated bit for bit and within tolerance
+    of the plain version (z: TOL of the largest attacked value; sq: TOL of
+    the largest distance, 1e-4 past a million columns, chip_smoke.py's
+    SUM_TOL and WIDE_SUM_TOL), and the drivers' sq-alone call (no z
+    written) equal to the public call's sq."""
+    if s > n:
+        pytest.skip("bucket larger than the worker count")
+    if _big(d, n):
+        pytest.skip("the widest d runs at n = 5, 17, 64 only")
+    args, _ = _loop_case(load, n, d, s, masked, dev)
+    x, w, mask, mean, std, valid, _ = args
+    m = n if w is None else w.shape[0]
+    wr = torch.rand(m, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(m)) + 0.1
+    wr = wr / wr.sum()
+    kind = "sparse" if load == "wire" else load
+    before = norm_agg.rfa_iter.load_launches[kind]
+    got = norm_agg.rfa_iter(x, wr, w, mask, mean, std, valid, attack=ALIE)
+    again = norm_agg.rfa_iter(x, wr, w, mask, mean, std, valid, attack=ALIE)
+    sq_alone = norm_agg._rfa_sq(x, wr, w, mask, mean, std, valid,
+                                attack=ALIE)
+    z, sq = norm_agg.rfa_iter_plain(x, wr, w, mask, mean, std, valid,
+                                    attack=ALIE)
+    torch.cuda.synchronize()
+    assert norm_agg.rfa_iter.load_launches[kind] == before + 3
+    assert got[0].shape == (d,) and got[1].shape == (m,)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(sq_alone, got[1])
+    sent = norm_agg.prologue(norm_agg.stack(x), None, mask, mean, std, ALIE,
+                             valid, norm_agg.cand_dtype(x))
+    _near(got[0], z, float(sent.abs().max()))
+    tol = 1e-4 if d > 1_000_000 else TOL
+    assert torch.isfinite(got[1]).all()
+    torch.testing.assert_close(got[1], sq, rtol=0,
+                               atol=tol * max(1.0, float(sq.max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, s", [(8, 2), (17, 2), (64, 2), (64, 3)])
+def test_rfa_iter_takes_every_worker_where_a_column_is_not_finite(dev, n, s):
+    """As the Gram's: W x skips the workers of zero weight only where a
+    column is finite, so NaN reaches z and sq where ``w_mat @ x`` spreads
+    it."""
+    x, w, mask, mean, std = _inputs(n, 5000, dev, s)
+    x[3, 100] = float("inf")
+    x[n - 1, 200] = float("nan")
+    wr = torch.full((w.shape[0],), 1.0 / w.shape[0], device=dev)
+    got = norm_agg.rfa_iter(x, wr, w, mask, mean, std, attack=ALIE)
+    want = norm_agg.rfa_iter_plain(x, wr, w, mask, mean, std, attack=ALIE)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.isinf(a), torch.isinf(b))
+    fin = torch.isfinite(want[0])
+    _near(got[0][fin], want[0][fin], float(want[0][fin].abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, s", [(8, 2), (64, 2)])
+def test_rfa_iter_on_two_streams(dev, n, s):
+    """Launches in flight on two streams at once keep their own tickets, so
+    each call of a grid of many blocks equals the one-stream call bit for
+    bit, and so does a later call on the first stream."""
+    x, w, mask, mean, std = _inputs(n, 1 << 21, dev, s)
+    wr = torch.full((w.shape[0],), 1.0 / w.shape[0], device=dev)
+    want = norm_agg.rfa_iter(x, wr, w, mask, mean, std, attack=ALIE)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    got = []
+    for _ in range(6):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append(norm_agg.rfa_iter(x, wr, w, mask, mean, std,
+                                             attack=ALIE))
+    torch.cuda.synchronize()
+    for g in got + [norm_agg.rfa_iter(x, wr, w, mask, mean, std,
+                                      attack=ALIE)]:
+        assert all(torch.equal(a, b) for a, b in zip(g, want))
+
+
+# the blocked weighted sum's shapes: one column a lane (d not a multiple
+# of 4: 65 x 1, 128 x 123, 1024 x 4097) or four (130 x 2100, 4096 x 256,
+# 128 x 2^20); fewer worker tiles than warps (65 x 1 to 130 x 2100), many
+# batches of tiles (4096 x 256: 64 tiles), and more column groups than
+# blocks (128 x 2^20)
+WSUM_SHAPES = [(65, 1), (128, 123), (130, 2100), (4096, 256), (1024, 4097),
+               (128, 1 << 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, d", WSUM_SHAPES)
+def test_weighted_sum_blocked_one_launch(dev, m, d):
+    """One launch a call, equal to the plain version (``torch.equal``: each
+    column in the reference's order) and repeated bit for bit."""
+    x, _, w = _blocked_inputs(m, d, dev)
+    before = norm_agg.weighted_sum_blocked.launches
+    got = norm_agg.weighted_sum_blocked(x, w)
+    again = norm_agg.weighted_sum_blocked(x, w)
+    torch.cuda.synchronize()
+    assert norm_agg.weighted_sum_blocked.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, norm_agg.weighted_sum_blocked_plain(x, w))
 
 
 @pytest.mark.gpu

@@ -197,6 +197,35 @@ def test_rfa_segments(kind, s):
 
 @pytest.mark.parametrize("s", [0, 2])
 @pytest.mark.parametrize("kind", ["dense", "wire"])
+def test_rfa_segments_reads_sq_alone(kind, s, monkeypatch):
+    """Every Weiszfeld pass of the driver goes through the private
+    ``_rfa_sq`` (the kernel then writes no z), counted as an ``rfa_iter``
+    call, its sq that of the public ``rfa_iter``; the aggregate holds to
+    the reference's ``rfa_segments`` (interpret mode) at 2e-5."""
+    jsegs, tsegs, jkw, tkw = _driver_inputs(kind, 8, s)
+    seen = []
+    real = norm_agg._rfa_sq
+
+    def spy(*args, **kw):
+        sq = real(*args, **kw)
+        _, want = norm_agg.rfa_iter(*args, **kw)
+        assert torch.equal(sq, want)
+        seen.append(sq.shape)
+        return sq
+
+    monkeypatch.setattr(norm_agg, "_rfa_sq", spy)
+    calls = norm_agg.rfa_iter.calls
+    got = norm_agg.rfa_segments(tsegs, iters=3, **tkw)
+    ref = jnorm.rfa_segments(jsegs, iters=3, **jkw)
+    assert seen == [(8 if s == 0 else 4,)] * (3 * len(tsegs))
+    assert norm_agg.rfa_iter.calls == calls + 2 * len(seen)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RFA_TOL,
+                                   atol=RFA_TOL)
+
+
+@pytest.mark.parametrize("s", [0, 2])
+@pytest.mark.parametrize("kind", ["dense", "wire"])
 def test_krum_segments(kind, s):
     jsegs, tsegs, jkw, tkw = _driver_inputs(kind, 12, s)
     ref, info = jnorm.krum_segments(jsegs, n_byz=1, return_info=True, **jkw)

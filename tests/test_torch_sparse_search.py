@@ -1,12 +1,9 @@
 """The looping kernels' sparse range search, in its plain twin
 (``quantize.sparse_range_start``, step for step the warp's 32-ary search of
 ``csrc/agg_prologue.cuh``), against ``torch.searchsorted`` and the row
-pointers ``wire_starts`` builds; the row pointers cached once per payload
-for the RFA kernel; and the masks handed to the kernels without
-a conversion. The kernel itself is held to the twin on the card
+pointers ``wire_starts`` builds; and the masks handed to the kernels
+without a conversion. The kernel itself is held to the twin on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
-import dataclasses
-
 import pytest
 import torch
 
@@ -77,25 +74,6 @@ def test_search_of_a_long_row_takes_few_steps():
     while span > 32:
         span, steps = span // 33 + 1, steps + 1
     assert steps + 1 == 4
-
-
-def _payload(n=5, d=123):
-    idx = _rows("randk", n, d)
-    return quantize.WireSrc(fmt="sparse", n=n, d=d, arrays=(
-        ("vals", torch.randn(n, idx.shape[1])), ("idx", idx)))
-
-
-def test_row_pointers_built_once_per_payload():
-    src = _payload()
-    first = src.starts(128)
-    assert torch.equal(first, wire_starts(dict(src.arrays)["idx"], 123, 128))
-    assert src.starts(128) is first                   # cached
-    assert dataclasses.replace(src).starts(128) is not first
-    idx = dict(src.arrays)["idx"]
-    idx[:, 0] = 1                                     # written in place
-    rebuilt = src.starts(128)
-    assert rebuilt is not first
-    assert torch.equal(rebuilt, wire_starts(idx, 123, 128))
 
 
 def test_masks_go_to_the_kernels_unconverted():
