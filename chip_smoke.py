@@ -10,10 +10,10 @@ call: each kernel row has the event window around the call (its
 wrapper's host work included), the device time and device operations
 per call from torch.profiler, and ``robust_agg``, ``weighted_sum``,
 ``pair_gram``, ``rfa_iter`` (its public call and the drivers' sq-alone
-call) and ``weighted_sum_blocked`` must issue one device operation a
-call. Then it drives the port's main
-path — Byz-VR-MARINA with RandK, ALIE and bucketing s = 2 on a9a-width
-logistic regression — through
+call), ``weighted_sum_blocked``, ``pair_gram_blocked`` and
+``sqdist_to_blocked`` must issue one device operation a call. Then it
+drives the port's main path — Byz-VR-MARINA with RandK, ALIE and
+bucketing s = 2 on a9a-width logistic regression — through
 ``repro_torch.api.run`` three times at 5 workers, with coordinate-wise
 median, RFA and Krum, and twice at 256 workers (the giant-n tier on the
 blocked kernels), with RFA and Krum; Byz-EF21 with TopK on the sparse
@@ -57,7 +57,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
+TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 rate of the tensor cores
 REPS = 21                        # timed runs per measurement (median taken)
+# idle time on each side of a profiled window: the tracer stamps device
+# activity on a clock that sits up to milliseconds off the host's (3.6 ms
+# early seen on the H100) and drops what falls outside its window, which
+# lost most of the events of a few-microsecond kernel's 21 calls
+PROFILE_PAD_S = 0.05
 MAIN_STEPS = 100                 # rounds of each main path
 CPU_CHECK_STEPS = 12
 TRAJ_TOL = 2e-5
@@ -272,18 +278,16 @@ def device_profile(fn):
     warm-up, every kernel, memcpy and memset the calls issue, their device
     time summed. (None, None, []) where the profiler records no device
     activity (the time is then the event window's alone)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    # a waiting and a warm-up step first: the tracer misses a kernel of the
-    # first step it records
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=1, active=REPS)) as prof:
-        for _ in range(2 + REPS):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(REPS):
             fn()
             torch.cuda.synchronize()
-            prof.step()
+        time.sleep(PROFILE_PAD_S)
     evts = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not evts:
@@ -293,21 +297,73 @@ def device_profile(fn):
             sorted({e.name[:60] for e in evts}))
 
 
+def tracer_probe(dev, card) -> dict:
+    """Why PROFILE_PAD_S: the events the tracer keeps of REPS calls of a
+    one-kernel function (a few µs), 20 windows each, scheduled as before
+    the pad (a waiting and a warm-up step, no idle time) and padded
+    (``device_profile``), and the offset of the tracer's device clock
+    against the host's in 5 windows: each kernel's start less its
+    launch's (µs; below 0, device activity is stamped early)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    x = torch.ones(1024, device=dev)
+
+    def fn():
+        x.mul_(1.0)
+
+    def scheduled():
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=1, warmup=1, active=REPS)) as p:
+            for _ in range(2 + REPS):
+                fn()
+                torch.cuda.synchronize()
+                p.step()
+        return sum(e.device_type == torch.autograd.DeviceType.CUDA
+                   for e in p.events())
+
+    def offsets():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(REPS):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        launch, start = {}, {}
+        for e in p.profiler.kineto_results.events():
+            if e.name() in ("cudaLaunchKernel", "cuLaunchKernel"):
+                launch[e.correlation_id()] = e.start_ns()
+            elif e.device_type() == torch.autograd.DeviceType.CUDA:
+                start[e.correlation_id()] = e.start_ns()
+        gaps = sorted((start[c] - launch[c]) / 1e3
+                      for c in start if c in launch)
+        return [gaps[0], gaps[len(gaps) // 2]] if gaps else None
+
+    out = {"calls": REPS,
+           "scheduled": [scheduled() for _ in range(20)],
+           "padded": [round(device_profile(fn)[1] * REPS)
+                      for _ in range(20)],
+           "offset_us_min_median": [offsets() for _ in range(5)]}
+    print(f"[tracer] events kept of {REPS} calls, offsets: "
+          f"{json.dumps(out)} [{card}]", flush=True)
+    return out
+
+
 def timing(fn) -> dict:
     """The times of one kernel row: ``ms`` the event window around the
     call (host work of the wrapper included), ``device_ms`` and
     ``device_ops`` the profiler's device time and operations per call. A
     window where the tracer kept fewer events than there were calls, or
-    none (it loses some in some windows, at times several in a row), is
-    profiled again, up to five times (``profile_tries``), and the window
-    that kept the most events is reported."""
+    none (before its window was padded, PROFILE_PAD_S, it lost some in
+    some windows, at times several in a row), is profiled again, up to
+    five times (``profile_tries``), and the window that kept the most
+    events is reported."""
     ms = cuda_ms(fn)
     best = (None, None, [])
     for tries in range(1, 6):
         got = device_profile(fn)
         if got[1] is not None and (best[1] is None or got[1] > best[1]):
             best = got
-        if best[1] is not None and best[1] >= 0.5:
+        if best[1] is not None and best[1] >= 1:
             break
     dev_ms, ops, names = best
     return {"ms": ms, "device_ms": dev_ms, "device_ops": ops,
@@ -472,11 +528,12 @@ def kernel_case(case, dev):
     return row
 
 
-def bound_of(bytes_moved, ops):
+def bound_of(bytes_moved, ops, rate=FP32_OPS_PER_S):
     """(ms, what bounds it): the least time for these bytes and operations
-    on the card."""
+    (at ``rate`` operations a second: float32 outside the tensor cores
+    unless named) on the card."""
     by_bytes = bytes_moved / HBM_BYTES_PER_S
-    by_ops = ops / FP32_OPS_PER_S
+    by_ops = ops / rate
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -609,12 +666,15 @@ def blocked_case(case, dev, card):
     w = torch.rand(m, device=dev, generator=g)
     w = w / w.sum()
     stack_bytes = m * d * 4
-    spec = {   # kernel, plain, library, bytes, operations (Gram: i <= j)
+    # kernel, plain, library, bytes, operations (Gram: i <= j, in split
+    # float32 on the tensor cores: three TF32 products a term, so its bound
+    # is at the TF32 rate; the float32 bound of one product is kept beside)
+    spec = {
         "pair_gram_blocked": (
             lambda: N.pair_gram_blocked(x),
             lambda: N.pair_gram_blocked_plain(x),
             lambda: torch.matmul(x, x.T),
-            stack_bytes + m * m * 4, m * (m + 1) * d),
+            stack_bytes + m * m * 4, 3 * m * (m + 1) * d),
         "sqdist_to_blocked": (
             lambda: N.sqdist_to_blocked(x, z),
             lambda: N.sqdist_to_blocked_plain(x, z),
@@ -647,19 +707,25 @@ def blocked_case(case, dev, card):
         t = timing(kern)
         plain_ms = cuda_ms(plain)
         library_ms = cuda_ms(lib)
-        bound_ms, bound_by = bound_of(bytes_moved, ops)
+        gram = name == "pair_gram_blocked"
+        bound_ms, bound_by = bound_of(
+            bytes_moved, ops, TF32_OPS_PER_S if gram else FP32_OPS_PER_S)
+        fp32_ms = bound_of(bytes_moved, ops // 3)[0] if gram else None
         rows.append({
             "kernel": name, "label": label, "m": m, "d": d,
             "max_abs_err": err, "err_limit": limit, "bitwise_repeat": repeat,
             "symmetric": symmetric, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "fp32_bound_ms": fp32_ms,
             "library_ms": library_ms, "bytes": bytes_moved, "ops": ops, **t})
+        fp32_txt = (f", float32 bound {fp32_ms:.4f} ms" if gram else "")
         print(f"[kernel] {name:20s} {label}: m={m} d={d} | err {err:.3e} "
               f"(limit {limit:.3e}) repeat bitwise"
               f"{', symmetric bitwise' if symmetric else ''} | kernel "
               f"{timing_text(t)}; plain {plain_ms:.4f} ms bound "
               f"{bound_ms:.4f} ms "
-              f"({bound_by}) library {library_ms:.4f} ms [{card}]",
+              f"({bound_by}{', split TF32' if gram else ''}){fp32_txt} "
+              f"library {library_ms:.4f} ms [{card}]",
               flush=True)
         del first, again, want
     del x, z, w, spec
@@ -1005,8 +1071,10 @@ def path_profile(dev, card, tag, spec):
     run(RunSpec(**{**spec, "steps": 3}), device=dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         res = run(RunSpec(**spec), device=dev, log_every=1)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     evts = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {}
@@ -1146,7 +1214,8 @@ def bounds_case(case, dev):
 
 
 LEAN_KERNELS = ("robust_agg", "weighted_sum", "pair_gram", "rfa_iter",
-                "weighted_sum_blocked")
+                "weighted_sum_blocked", "pair_gram_blocked",
+                "sqdist_to_blocked")
 
 
 def check_lean(cases):
@@ -1193,10 +1262,13 @@ def kernel_entry(name, source, replaces, launches, rows):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", choices=("all", "kernels"), default="all",
+    ap.add_argument("--phases", choices=("all", "kernels", "tracer"),
+                    default="all",
                     help="'kernels': the kernel phases alone (no paths, "
                          "no kernels line), e.g. to time another tree's "
-                         "kernels with this script's measurements")
+                         "kernels with this script's measurements; "
+                         "'tracer': the profiler's lost events and clock "
+                         "offset alone (no build)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1209,6 +1281,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = gpu_line()
     print(f"[card] {card}", flush=True)
+    if args.phases == "tracer":
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "chip_smoke_tracer.json").write_text(
+            json.dumps({"card": card, **tracer_probe(dev, card)}))
+        return 0
     print(f"[versions] python {sys.version.split()[0]} torch "
           f"{torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)

@@ -1,17 +1,21 @@
-"""Where the looping kernels' time goes, by timing variants of them on one
-NVIDIA card.
+"""Where the looping kernels' and the blocked Gram's time goes, by timing
+variants of them on one NVIDIA card.
 
     python3 kernel_variants.py [variant ...]
 
 Each variant is the kernels of ``src/repro_torch/kernels/csrc`` with one
-design choice of ``robust_agg`` / ``weighted_sum`` undone or one step cut
-out, built from an edited copy under ``build/variants/<name>/`` (the
-sources in the checkout stay as they are). The timed cases are
-``chip_smoke.py``'s full-width ones (n = 8; the dense float32 stack and
-the bfloat16 stack at d = 117,440,512, the RandK 0.1 wire at d = 2²²),
-each variant's device ms from torch.profiler. Variants that cut a step
-out give wrong aggregates: they measure that step's cost and nothing
-else. Writes ``chiprun_out/kernel_variants.json``; needs a CUDA card.
+design choice of ``robust_agg`` / ``weighted_sum`` or of
+``pair_gram_blocked`` undone or one step cut out, built from an edited
+copy under ``build/variants/<name>/`` (the sources in the checkout stay
+as they are). The looping kernels' cases are ``chip_smoke.py``'s
+full-width ones (n = 8; the dense float32 stack and the bfloat16 stack
+at d = 117,440,512, the RandK 0.1 wire at d = 2²²); the Gram's are the
+giant-n main path's 128 × 1 and 128 × 123 and the full-width 128 × 2²²
+and 1024 × 2²⁰, each with its error against the plain version, as a
+share of the largest entry. Each variant's device ms is from
+torch.profiler. Variants that cut a step out give wrong results: they
+measure that step's cost and nothing else. Writes
+``chiprun_out/kernel_variants.json``; needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -50,6 +54,42 @@ VARIANTS = {
     "contiguous": [(f, _RANGE, "constexpr bool RANGE = true;")
                    for f in ("robust_agg.cu", "norm_agg.cu")],
 }
+_GRAM = "norm_agg_blocked.cu"
+GRAM_VARIANTS = {
+    "gram": [],
+    # the tensor-core products cut out (wrong Grams)
+    "gram_no_products": [(_GRAM, "for (int k = 0; k < GK; k += 8) {",
+                          "for (int k = 0; k < 0; k += 8) {")],
+    # the split into hi and lo cut out (wrong Grams)
+    "gram_no_split": [(_GRAM, "      split_half(sm.hi(s, 0), sm.lo(s, 0), "
+                              "g, t);\n      if (!diag) split_half(sm.hi(s,"
+                              " 1), sm.lo(s, 1), g, t);\n", "")],
+    # the output passes cut out (G unwritten)
+    "gram_no_output": [(_GRAM, "for (int pass = 0; pass < 2; ++pass) {",
+                        "for (int pass = 0; pass < 0; ++pass) {")],
+    # hi and lo rounded by the conversion instruction, not integer steps
+    "gram_cvt": [(_GRAM, "  return __uint_as_float((__float_as_uint(x) + "
+                         "0x1000u) & 0xFFFFE000u);",
+                  "  unsigned r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : "
+                  "\"=r\"(r) : \"f\"(x));\n  return __uint_as_float(r);")],
+    # the running sums folded every 2048 columns (the reference's column
+    # tile), not every 128
+    "gram_fold_2048": [(_GRAM, "constexpr int G_FOLD = 4;",
+                        "constexpr int G_FOLD = 64;")],
+    # slab s - 1 handed back before slab s + 1 is split (the design hands
+    # it back after)
+    "gram_release_early": [(
+        _GRAM,
+        "      if (s + 1 < ns) prep(s + 1);\n      const bool at_fold",
+        "      wgmma_wait<1>();\n      mbar_arrive_if(&sm.empty[(s + G_RING - "
+        "1) % G_RING], s > 0 && t == 0);\n      if (s + 1 < ns) prep(s + 1);"
+        "\n      const bool at_fold"),
+        (_GRAM,
+         "      pin(acc);\n      mbar_arrive_if(&sm.empty[(s + G_RING - 1) % "
+         "G_RING], s > 0 && t == 0);\n      if (at_fold) {",
+         "      pin(acc);\n      if (at_fold) {")],
+}
+GRAM_CASES = [(128, 1), (128, 123), (128, 1 << 22), (1024, 1 << 20)]
 
 
 def make(name, edits):
@@ -68,15 +108,17 @@ def make(name, edits):
 
 
 def build(names):
-    """Every variant's robust_agg and norm_agg, one process each, at
-    once."""
+    """Every variant's libraries (the looping kernels', or the blocked
+    ones for a Gram variant), one process each, at once."""
     procs = {}
     for name in names:
+        libs = (['norm_agg_blocked'] if name in GRAM_VARIANTS
+                else ['robust_agg', 'norm_agg'])
         code = ("import sys; from pathlib import Path; sys.path.insert(0, "
                 f"{str(ROOT / 'src')!r}); from repro_torch.kernels import "
                 f"_build as B; B.CSRC = Path({str(OUT / name / 'csrc')!r});"
                 f" B.BUILD_DIR = Path({str(OUT / name / 'lib')!r}); "
-                "B.build(['robust_agg', 'norm_agg'])")
+                f"B.build({libs!r})")
         procs[name] = subprocess.Popen([sys.executable, "-c", code],
                                        stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
@@ -95,9 +137,10 @@ def main(argv) -> int:
     import chip_smoke as C
     from repro_torch.core.attacks import CoordAttack
     from repro_torch.kernels import _build, norm_agg, robust_agg as RA
-    names = argv or list(VARIANTS)
+    edits = {**VARIANTS, **GRAM_VARIANTS}
+    names = argv or list(edits)
     for name in names:
-        make(name, VARIANTS[name])
+        make(name, edits[name])
     build(names)
     dev = torch.device("cuda")
     alie = CoordAttack("ALIE", 1.06)
@@ -108,12 +151,33 @@ def main(argv) -> int:
                   ("sparse_wire", 1 << 22, 419_430, 1))}
     wn = torch.rand(8, device=dev) + 0.1
     card = C.gpu_line()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stacks = {(m, d): torch.randn(m, d, device=dev, generator=gen)
+              for m, d in GRAM_CASES}
+    plains = {key: norm_agg.pair_gram_blocked_plain(x)
+              for key, x in stacks.items()}
     rows = {}
     for name in names:
         _build.CSRC = OUT / name / "csrc"
         _build.BUILD_DIR = OUT / name / "lib"
         _build._LIBS.clear()
         row = {}
+        if name in GRAM_VARIANTS:
+            for (m, d), x in stacks.items():
+                want = plains[(m, d)]
+                try:
+                    got = norm_agg.pair_gram_blocked(x)
+                except RuntimeError:  # the launch refuses the shape: the
+                    continue          # fold-2048 variant below 2048 columns
+                err = float((got - want).abs().max() / want.abs().max())
+                row[f"pair_gram_blocked {m}x{d}"] = C.device_profile(
+                    lambda: norm_agg.pair_gram_blocked(x))[0]
+                row[f"pair_gram_blocked {m}x{d} error"] = err
+            rows[name] = row
+            print(f"[variant {name}] device ms, error / largest entry: "
+                  + ", ".join(f"{k} {v:.4g}" for k, v in row.items())
+                  + f" [{card}]", flush=True)
+            continue
         for kind, (x, w, mask, mean, std) in inputs.items():
             row[f"robust_agg {kind}"] = C.device_profile(
                 lambda: RA.robust_agg(x, w, mask, mean, std, rule="median",

@@ -24,7 +24,7 @@
 // any order, so a fixed grid of blocks (as many as are resident at once)
 // loops over the columns, each block keeping its partial Gram, or its m
 // partial sums of squares, on chip; one launch finishes them
-// (blocks_finish): the last block of each group of 16 to finish (tickets
+// (blocks_finish, finish.cuh): the last block of each group of 16 to finish (tickets
 // after a __threadfence, in a buffer the wrapper keeps for each stream)
 // sums the group's partials in block order, the last group the groups' in
 // group order; a grid of one block writes at once. No floating-point
@@ -54,6 +54,7 @@
 //   weighted_sum: the register load; no W and no reduction across blocks.
 
 #include "agg_prologue.cuh"
+#include "finish.cuh"
 
 __device__ __forceinline__ float warp_sum(float v, int width) {
   for (int off = width >> 1; off > 0; off >>= 1)
@@ -75,82 +76,6 @@ __host__ __device__ inline void pair_of(int q, int m, int* i, int* j) {
 // q of the pair (i, j), i <= j, in the row-major upper triangle of m x m.
 __host__ __device__ inline int pair_index(int i, int j, int m) {
   return i * m - i * (i - 1) / 2 + (j - i);
-}
-
-// --- the one-launch finish ------------------------------------------------
-
-// A launch's tickets, `tickets` (FINISH_TICKETS,): the blocks that have
-// written their partials, a count for each group of FINISH_GROUP blocks,
-// then the groups that have summed theirs; the last to count itself sets
-// the count back to 0. The wrapper keeps one zeroed buffer for each stream
-// (launches on one stream run one after another; launches on two streams
-// never share one).
-constexpr int FINISH_GROUP = 16;
-constexpr int FINISH_MAX_GROUPS = 1024;
-constexpr int FINISH_TICKETS = FINISH_MAX_GROUPS + 1;
-
-// This block's `count` partial sums s_part into part[blockIdx.x] of part
-// (blocks + groups, count). The last block of each group of FINISH_GROUP to
-// finish (a ticket of `tickets` after a __threadfence) sums the group's
-// partials in block order into part[blocks + group]; the last group to
-// finish sums the groups' in group order and hands each sum q to
-// write(q, sum); a grid of one group hands its group's sums at once. Each
-// sum is one fixed-order sum, a thread an entry, with no floating-point
-// atomics: a call repeats bit for bit. A grid of one block (the main
-// path's narrow leaves) writes at once.
-// (Two levels, so that no one block reads every block's partials: at
-// m = 64 the Gram's are 2080 floats from each of some 260 blocks.)
-template <typename Write>
-__device__ __forceinline__ void blocks_finish(const float* s_part, int count,
-                                              float* part, unsigned* tickets,
-                                              Write write) {
-  __shared__ bool s_last;
-  const int tid = threadIdx.x;
-  const int blocks = gridDim.x;
-  const int groups = (blocks + FINISH_GROUP - 1) / FINISH_GROUP;
-  const int grp = blockIdx.x / FINISH_GROUP, first = grp * FINISH_GROUP;
-  const int in_grp = min(FINISH_GROUP, blocks - first);
-  if (blocks == 1) {                   // a narrow call: this block's sums
-    for (int q = tid; q < count; q += blockDim.x) write(q, s_part[q]);
-    return;
-  }
-  for (int q = tid; q < count; q += blockDim.x)
-    part[(long long)blockIdx.x * count + q] = s_part[q];
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(&tickets[grp], 1u) == in_grp - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  float* gpart = part + (long long)blocks * count;
-  for (int q = tid; q < count; q += blockDim.x) {
-    float acc = 0.f;
-#pragma unroll
-    for (int b = 0; b < FINISH_GROUP; ++b)
-      if (b < in_grp)
-        acc = __fadd_rn(acc, __ldcg(part + (long long)(first + b) * count + q));
-    if (groups == 1)                   // one group: its sums are the result
-      write(q, acc);
-    else
-      gpart[(long long)grp * count + q] = acc;
-  }
-  if (tid == 0) tickets[grp] = 0;
-  if (groups == 1) return;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    s_last = atomicAdd(&tickets[FINISH_MAX_GROUPS], 1u) == groups - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int q = tid; q < count; q += blockDim.x) {
-    float acc = 0.f;
-#pragma unroll 8
-    for (int g = 0; g < groups; ++g)
-      acc = __fadd_rn(acc, __ldcg(gpart + (long long)g * count + q));
-    write(q, acc);
-  }
-  if (tid == 0) tickets[FINISH_MAX_GROUPS] = 0;
 }
 
 // What a pair_gram or rfa_iter launch takes besides its source: W (m, n),
@@ -342,7 +267,7 @@ __global__ void __launch_bounds__(TILE, REGS_MIN_BLOCKS(MB, V))
   __syncthreads();
   float* out = k.out;
   blocks_finish(s_part, m * (m + 1) / 2, k.part, k.tickets,
-                [=](int q, float v) {
+                blockIdx.x, gridDim.x, [=](int q, float v) {
                   int i, j;
                   pair_of(q, m, &i, &j);
                   out[i * m + j] = v;
@@ -436,7 +361,7 @@ __global__ void __launch_bounds__(TILE, REGS_MIN_BLOCKS(MB, V))
   __syncthreads();
   float* sq = k.out;
   blocks_finish(s_part, m, k.part, k.tickets,
-                [=](int q, float v) { sq[q] = v; });
+                blockIdx.x, gridDim.x, [=](int q, float v) { sq[q] = v; });
 }
 
 // --- the shared-memory path (8 < m <= 64) ---------------------------------
@@ -710,7 +635,7 @@ __global__ void __launch_bounds__(TILE, 3) pair_gram_smem(Src a, NormArgs k) {
   __syncthreads();
   float* out = k.out;
   blocks_finish(s_part, m * (m + 1) / 2, k.part, k.tickets,
-                [=](int q, float v) {
+                blockIdx.x, gridDim.x, [=](int q, float v) {
                   int i, j;
                   pair_of(q, m, &i, &j);
                   out[i * m + j] = v;
@@ -779,7 +704,7 @@ __global__ void __launch_bounds__(TILE, 3) rfa_iter_smem(Src a, NormArgs k) {
   __syncthreads();
   float* sq = k.out;
   blocks_finish(s_part, m, k.part, k.tickets,
-                [=](int q, float v) { sq[q] = v; });
+                blockIdx.x, gridDim.x, [=](int q, float v) { sq[q] = v; });
 }
 
 // Sum_i w_i sent_i over the n <= 64 attacked rows: a looping grid (a
@@ -979,10 +904,6 @@ struct WeightedSum {
   }
 };
 
-// Words of the tickets buffer that pair_gram_launch and rfa_iter_launch
-// take.
-extern "C" int norm_agg_tickets() { return FINISH_TICKETS; }
-
 // The grid of pair_gram (kernel 0) or rfa_iter (kernel 1) on the source
 // `load`: the blocks resident on the current device at once (negative:
 // -(CUDA error)), and in *group the columns a block takes a step (set by
@@ -1020,7 +941,7 @@ static int norm_launch(int kernel, const Src& a, const NormArgs& k,
 
 // One launch: the blocks' partial Grams and their groups' sums in `part`
 // (blocks + ceil(blocks / 16), m (m + 1) / 2), G in out (m, m).
-// `tickets` (norm_agg_tickets(),) uint32 starts at zero and is left at
+// `tickets` (finish_tickets(),) uint32 starts at zero and is left at
 // zero; no two launches in flight at once may share it.
 extern "C" int pair_gram_launch(SRC_PARAMS, const float* w_mat, int m,
                                 int blocks, float* part, float* out,

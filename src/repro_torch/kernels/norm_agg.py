@@ -30,9 +30,9 @@ whose attack and bucketing are already applied:
 * ``sqdist_to_blocked``    — (m,) squared distances of the rows to z;
 * ``weighted_sum_blocked`` — Σ_i w_i·x_i.
 
-Their kernels are in ``csrc/norm_agg_blocked.cu`` (``weighted_sum_blocked``
-in one launch, the other two in two); ``rfa_segments_blocked`` and
-``krum_segments_blocked`` drive them.
+Their kernels are in ``csrc/norm_agg_blocked.cu``, one launch a call each
+(the Gram's product on the tensor cores, in split float32);
+``rfa_segments_blocked`` and ``krum_segments_blocked`` drive them.
 
 Under the fault guard or partial participation the fused kernels take a
 (n,) ``valid`` mask, which their load applies after the attack and before
@@ -45,6 +45,7 @@ item 8).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -239,13 +240,13 @@ def _lib():
     if lib.pair_gram_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.norm_agg_grid.argtypes = [i] * 5 + [ctypes.POINTER(i)]
-        lib.norm_agg_tickets.argtypes = []
+        lib.finish_tickets.argtypes = []
         lib.pair_gram_launch.argtypes = _launch.SRC_ARGTYPES + [
             p, i, i, p, p, p, p]
         lib.rfa_iter_launch.argtypes = _launch.SRC_ARGTYPES + [
             p, i, p, i, p, p, p, p, p]
         lib.weighted_sum_launch.argtypes = _launch.SRC_ARGTYPES + [p, p, p]
-        for fn in (lib.norm_agg_grid, lib.norm_agg_tickets,
+        for fn in (lib.norm_agg_grid, lib.finish_tickets,
                    lib.pair_gram_launch, lib.rfa_iter_launch,
                    lib.weighted_sum_launch):
             fn.restype = ctypes.c_int
@@ -270,19 +271,21 @@ def _blocks(lib, who, load, device, n, m, bucketed, d):
 
 
 def _tickets(lib, device, stream) -> int:
-    """The one-launch finish's tickets for ``stream``: a uint32 buffer
-    zeroed once, when it is made, and left at zero by every launch, so
-    that launches on two streams never count into one buffer."""
+    """The one-launch finish's tickets for ``stream`` (``blocks_finish`` in
+    csrc/finish.cuh, which the fused and the blocked kernels share): a
+    uint32 buffer zeroed once, when it is made, and left at zero by every
+    launch, so that launches on two streams never count into one
+    buffer."""
     key = (device.index, stream)
     if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(lib.norm_agg_tickets(),
+        _TICKETS[key] = torch.zeros(lib.finish_tickets(),
                                     dtype=torch.int32, device=device)
     return _TICKETS[key].data_ptr()
 
 
 def _finish_part(blocks, entries, device):
     """The one-launch finish's workspace: the blocks' partial sums, then
-    their groups' of 16 (``blocks_finish`` in csrc/norm_agg.cu)."""
+    their groups' of 16 (``blocks_finish`` in csrc/finish.cuh)."""
     return torch.empty(blocks + -(-blocks // 16), entries,
                        dtype=torch.float32, device=device)
 
@@ -543,39 +546,67 @@ def weighted_sum_blocked(x, w):
 for _fn in (pair_gram_blocked, sqdist_to_blocked, weighted_sum_blocked):
     _fn.calls = _fn.launches = 0
 
-# blocks the split kernels aim for: a few waves on the card's 132 SMs
-_GRAM_BLOCKS = 4 * 8 * 132    # 64 threads each
-_SQDIST_BLOCKS = 16 * 132     # 256 threads each
-_GRAM_WORKSPACE_BYTES = 256 << 20
-_GRAM_TILE = 64               # the kernel's output tile
+_SMS = 132                    # the card's streaming multiprocessors
+_GRAM_TILE = 128              # the Gram kernel's output tile, one block an SM
+_GRAM_PART = 128 * 136        # entries of a chunk's partial tile (padded rows)
+_SQDIST_ROWS = 8              # rows of a sqdist block, a warp each
+_SQDIST_BLOCKS = 64 * _SMS    # 256 threads each: some ten waves
+_WORKSPACE_BYTES = 256 << 20
+_FINISH_GROUP = 16            # as csrc/finish.cuh
+_FINISH_TICKETS = 4096
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _finish_groups(chunks: int) -> int:
+    return _cdiv(chunks, _FINISH_GROUP)
+
+
+def finish_fits(units: int, chunks: int, entries: int) -> bool:
+    """Whether ``units`` units of ``chunks`` chunks of ``entries`` partial
+    sums fit the one-launch finish (``blocks_finish``, csrc/finish.cuh):
+    their tickets in the per-stream buffer and their (units, chunks +
+    groups, entries) workspace under 256 MB. One chunk needs neither."""
+    groups = _finish_groups(chunks)
+    return chunks == 1 or (
+        units * (groups + 1) <= _FINISH_TICKETS
+        and units * (chunks + groups) * entries * 4 <= _WORKSPACE_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
 def gram_plan(m: int, d: int):
     """(chunks, columns per chunk, column tile) of ``pair_gram_blocked``'s
-    kernel. Its running sums restart every ``_tile_for(d)`` columns, the
-    reference's column tile; d is split into chunks of whole column tiles
-    when the (i <= j) 64-row tile pairs alone are too few for a few waves
-    on the card, and the (chunks, pairs, 64, 64) workspace stays under
-    256 MB."""
+    kernel: one block, alone on an SM, for each 128-row tile pair (i <= j)
+    and chunk of whole column tiles (``_tile_for(d)`` columns, the
+    reference's, which the plain version sums one by one). The chunks are
+    the fewest among those whose blocks best fill the waves they take on
+    the card (within 1%), and their finish fits (``finish_fits``)."""
     nt = _cdiv(m, _GRAM_TILE)
     pairs = nt * (nt + 1) // 2
     tile = _tile_for(d)
     n_tiles = _cdiv(d, tile)
-    chunks = max(1, min(_cdiv(_GRAM_BLOCKS, pairs),
-                        _GRAM_WORKSPACE_BYTES // (pairs * _GRAM_TILE ** 2 * 4),
-                        n_tiles))
-    cols = _cdiv(n_tiles, chunks) * tile
-    return _cdiv(d, cols), cols, tile
+    best, best_fill = n_tiles, 0.0
+    for per in range(n_tiles, 0, -1):
+        chunks = _cdiv(n_tiles, per)
+        if not finish_fits(pairs, chunks, _GRAM_PART):
+            break
+        fill = pairs * n_tiles / (_cdiv(pairs * chunks, _SMS) * _SMS * per)
+        if fill > best_fill * 1.01:
+            best, best_fill = per, fill
+    return _cdiv(n_tiles, best), best * tile, tile
 
 
 def sqdist_plan(m: int, d: int):
     """(chunks, columns per chunk) of ``sqdist_to_blocked``'s kernel: one
-    warp per row and chunk, chunks of whole 128-column steps."""
-    chunks = max(1, min(_cdiv(_SQDIST_BLOCKS, _cdiv(m, 8)), _cdiv(d, 1024)))
+    warp per row and chunk, chunks of whole 128-column steps, enough for
+    some ten waves of blocks on the card (so that the last, partial wave
+    costs little) where their finish fits."""
+    rows = _cdiv(m, _SQDIST_ROWS)
+    chunks = max(1, min(_cdiv(_SQDIST_BLOCKS, rows), _cdiv(d, 1024)))
+    if not finish_fits(rows, chunks, _SQDIST_ROWS):
+        chunks = 1
     cols = _cdiv(_cdiv(d, chunks), 128) * 128
     return _cdiv(d, cols), cols
 
@@ -584,14 +615,29 @@ def _lib_blocked():
     lib = _build.load("norm_agg_blocked")
     if lib.pair_gram_blocked_launch.argtypes is None:
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pair_gram_blocked_launch.argtypes = [p, q, q, i, q, q, p, p, p]
-        lib.sqdist_to_blocked_launch.argtypes = [p, p, q, q, i, q, p, p, p]
+        lib.finish_tickets.argtypes = []
+        lib.pair_gram_blocked_launch.argtypes = [p, q, q, i, q, q, p, p, p,
+                                                 p]
+        lib.tf32_tile_launch.argtypes = [p, p, i, p, p]
+        lib.sqdist_to_blocked_launch.argtypes = [p, p, q, q, i, q, p, p, p,
+                                                 p]
         lib.weighted_sum_blocked_launch.argtypes = [p, p, q, q, p, p]
-        for fn in (lib.pair_gram_blocked_launch,
-                   lib.sqdist_to_blocked_launch,
+        for fn in (lib.finish_tickets, lib.pair_gram_blocked_launch,
+                   lib.tf32_tile_launch, lib.sqdist_to_blocked_launch,
                    lib.weighted_sum_blocked_launch):
             fn.restype = ctypes.c_int
     return lib
+
+
+def _chunk_finish(lib, units, chunks, entries, device, stream):
+    """(workspace, tickets pointer) of a blocked launch split into chunks:
+    (units, chunks + groups, entries) float32 and the stream's tickets;
+    (None, None) for one chunk, which writes its result at once."""
+    if chunks == 1:
+        return None, None
+    part = torch.empty(units, chunks + _finish_groups(chunks), entries,
+                       dtype=torch.float32, device=device)
+    return part, _tickets(lib, device, stream)
 
 
 def _launch_pair_gram_blocked(x):
@@ -599,14 +645,33 @@ def _launch_pair_gram_blocked(x):
     lib = _lib_blocked()
     chunks, cols, tile = gram_plan(m, d)
     nt = _cdiv(m, _GRAM_TILE)
-    part = torch.empty(chunks, nt * (nt + 1) // 2, _GRAM_TILE, _GRAM_TILE,
-                       dtype=torch.float32, device=x.device)
+    st = _launch.stream(x.device)
+    part, tickets = _chunk_finish(lib, nt * (nt + 1) // 2, chunks,
+                                  _GRAM_PART, x.device, st)
     out = torch.empty(m, m, dtype=torch.float32, device=x.device)
-    err = lib.pair_gram_blocked_launch(xp, m, d, chunks, cols, tile,
-                                       part.data_ptr(), out.data_ptr(),
-                                       _launch.stream(x.device))
+    err = lib.pair_gram_blocked_launch(
+        xp, m, d, chunks, cols, tile, None if part is None else
+        part.data_ptr(), out.data_ptr(), tickets, st)
     _launch.raise_on("pair_gram_blocked", err)
     pair_gram_blocked.launches += 1
+    return out
+
+
+def tf32_tile(a, b):
+    """(64, 128) a bᵀ of a (64, k) and b (128, k) float32 CUDA tensors,
+    k in {8, 16, 24, 32}, by the Gram kernel's tensor-core product alone
+    (one warpgroup, TF32 operands: each value's low 13 mantissa bits are
+    dropped), for tests on the card."""
+    k = a.shape[1]
+    if k not in (8, 16, 24, 32):
+        raise ValueError(f"tf32_tile: k must be 8, 16, 24 or 32, got {k}")
+    ap = _launch.check("tf32_tile", "a", a, a.device, torch.float32, (64, k))
+    bp = _launch.check("tf32_tile", "b", b, a.device, torch.float32,
+                       (128, k))
+    out = torch.empty(64, 128, dtype=torch.float32, device=a.device)
+    err = _lib_blocked().tf32_tile_launch(ap, bp, k // 8, out.data_ptr(),
+                                          _launch.stream(a.device))
+    _launch.raise_on("tf32_tile", err)
     return out
 
 
@@ -616,11 +681,13 @@ def _launch_sqdist_to_blocked(x, z):
                        (d,))
     lib = _lib_blocked()
     chunks, cols = sqdist_plan(m, d)
-    part = torch.empty(chunks, m, dtype=torch.float32, device=x.device)
+    st = _launch.stream(x.device)
+    part, tickets = _chunk_finish(lib, _cdiv(m, _SQDIST_ROWS), chunks,
+                                  _SQDIST_ROWS, x.device, st)
     out = torch.empty(m, dtype=torch.float32, device=x.device)
-    err = lib.sqdist_to_blocked_launch(xp, zp, m, d, chunks, cols,
-                                       part.data_ptr(), out.data_ptr(),
-                                       _launch.stream(x.device))
+    err = lib.sqdist_to_blocked_launch(
+        xp, zp, m, d, chunks, cols, None if part is None else
+        part.data_ptr(), out.data_ptr(), tickets, st)
     _launch.raise_on("sqdist_to_blocked", err)
     sqdist_to_blocked.launches += 1
     return out

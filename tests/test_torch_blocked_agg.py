@@ -308,14 +308,24 @@ def test_cpu_tensors_take_the_plain_versions():
                                   (1024, 1 << 20), (4096, 1 << 16),
                                   (4096, 1 << 22), (150, 2100)])
 def test_kernel_plans_cover_d_and_bound_the_workspace(m, d):
-    nt = -(-m // 64)
+    """Both plans cover d with whole steps (the Gram's chunks with whole
+    column tiles of the reference, where its running sums restart), keep
+    the one-launch finish's tickets and workspace in bounds, and at full
+    width fill the waves of Gram blocks (one a 128-row tile pair and chunk,
+    alone on an SM) they take on the card's 132 SMs to 90% or more."""
+    nt = -(-m // 128)
     pairs = nt * (nt + 1) // 2
     chunks, cols, tile = norm_agg.gram_plan(m, d)
     assert tile == norm_agg._tile_for(d) and cols % tile == 0
     assert (chunks - 1) * cols < d <= chunks * cols
-    assert chunks * pairs * 64 * 64 * 4 <= 256 << 20
+    groups = -(-chunks // 16)
+    assert chunks == 1 or (pairs * (groups + 1) <= 4096 and
+                           pairs * (chunks + groups) * 128 * 136 * 4
+                           <= 256 << 20)
     if d >= 1 << 16:                      # full width: the card is filled
-        assert chunks * pairs >= 2 * 8 * 132
+        blocks = chunks * pairs
+        assert blocks >= 0.9 * 132 * -(-blocks // 132)
     chunks, cols = norm_agg.sqdist_plan(m, d)
     assert cols % 128 == 0 and (chunks - 1) * cols < d <= chunks * cols
     assert chunks < 65536
+    assert norm_agg.finish_fits(-(-m // 8), chunks, 8)

@@ -839,6 +839,92 @@ def test_weighted_sum_blocked_one_launch(dev, m, d):
     assert torch.equal(got, norm_agg.weighted_sum_blocked_plain(x, w))
 
 
+# the blocked Gram's and distances' shapes: one chunk and several (the
+# finish), a partial tile of rows (65, 130, 300) and of columns, d not a
+# multiple of 4 (no tensor map: 65 x 1, 128 x 123, 1024 x 4097) or of 8, and
+# a diagonal tile alone (m <= 128) or among off-diagonal ones
+NORM_BLOCKED_SHAPES = [(65, 1), (128, 123), (130, 2100), (4096, 256),
+                       (1024, 4097), (128, 1 << 20), (300, 70000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, d", NORM_BLOCKED_SHAPES)
+def test_pair_gram_blocked_one_launch(dev, m, d):
+    """One launch a call (the product on the tensor cores in split
+    float32, the chunks' finish in the same launch), repeated bit for bit,
+    symmetric bit for bit, within TOL of the largest entry of the plain
+    version."""
+    x, _, _ = _blocked_inputs(m, d, dev)
+    before = norm_agg.pair_gram_blocked.launches
+    got = norm_agg.pair_gram_blocked(x)
+    again = norm_agg.pair_gram_blocked(x)
+    want = norm_agg.pair_gram_blocked_plain(x)
+    torch.cuda.synchronize()
+    assert norm_agg.pair_gram_blocked.launches == before + 2
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    _near(got, want, float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, d", NORM_BLOCKED_SHAPES)
+def test_sqdist_to_blocked_one_launch(dev, m, d):
+    """One launch a call (one chunk writes at once; more chunks finish in
+    the same launch), repeated bit for bit, within TOL of the largest
+    distance of the plain version."""
+    x, z, _ = _blocked_inputs(m, d, dev)
+    before = norm_agg.sqdist_to_blocked.launches
+    got = norm_agg.sqdist_to_blocked(x, z)
+    again = norm_agg.sqdist_to_blocked(x, z)
+    want = norm_agg.sqdist_to_blocked_plain(x, z)
+    torch.cuda.synchronize()
+    assert norm_agg.sqdist_to_blocked.launches == before + 2
+    assert torch.equal(got, again)
+    _near(got, want, float(want.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pair_gram_blocked", "sqdist_to_blocked"])
+def test_blocked_finish_on_two_streams(dev, name):
+    """Launches split into chunks, in flight on two streams at once, keep
+    their own tickets (a buffer for each stream): each result equals the
+    one-stream call bit for bit, and so does a later call."""
+    m, d = 300, 70000
+    x, z, _ = _blocked_inputs(m, d, dev)
+    args = (x,) if name == "pair_gram_blocked" else (x, z)
+    assert (norm_agg.gram_plan(m, d)[0] if name == "pair_gram_blocked"
+            else norm_agg.sqdist_plan(m, d)[0]) > 16   # two-level finish
+    fn = BLOCKED[name]
+    want = fn(*args)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    got = []
+    for _ in range(6):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append(fn(*args))
+    torch.cuda.synchronize()
+    for g in got + [fn(*args)]:
+        assert torch.equal(g, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 32])
+def test_tf32_wgmma_tile(dev, k):
+    """The Gram kernel's tensor-core product alone (wgmma m64n128k8 on
+    TF32 operands from 128-byte-swizzled shared memory, k / 8 steps along
+    the swizzled row): on values that TF32 holds exactly, a bᵀ within
+    float32 accumulation of the float64 product, so a wrong descriptor,
+    swizzle or fragment layout shows."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    a, b = (torch.randn(r, k, device=dev, generator=g) for r in (64, 128))
+    a, b = (t.view(torch.int32).bitwise_and(-8192).view(torch.float32)
+            for t in (a, b))                 # 10 mantissa bits: exact TF32
+    got = norm_agg.tf32_tile(a, b)
+    want = (a.double() @ b.double().T).float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * k)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["randk", "topk"])
 @pytest.mark.parametrize("d, k, blocks", [(1, 1, 1), (123, 12, 1),
