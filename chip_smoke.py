@@ -25,8 +25,11 @@ kernels on dense and wire rounds; and partial participation, at 5
 workers with cm (80% sampled) and at 256 with RFA and Krum (75%); the
 int8, sign and bf16 wires: MARINA with int8 (cm, RFA and Krum, and cm
 under the chaos plan), Byz-EF21 with sign (cm) and with bf16 (cm, and
-Krum under the chaos plan); and the ``kernels.ops`` entry points on every
-wire format and on a bfloat16 stack. The masked kernels (``valid`` in the
+Krum under the chaos plan); the ``kernels.ops`` entry points on every
+wire format and on a bfloat16 stack; and the method zoo at the main
+path's shape (sgd, sgdm, mvr, saga, and csgd and diana on the RandK wire,
+with cm; svrg with RFA; cmfilter on the TopK wire with Krum) and MARINA
+under the RN attack, which diverges as the reference does. The masked kernels (``valid`` in the
 load, the masked coordinate rule) are held to their plain versions beside
 the unmasked ones, and so is every load (dense float32 or bfloat16, the
 sparse, int8, sign and bf16 wires) in each fused kernel. It checks that
@@ -105,6 +108,30 @@ EF21_SPEC = dict(
 # the dense wires: MARINA with int8 (blockwise ℓ2 dithering, one norm per
 # 256 coordinates) at a9a width; Byz-EF21 with sign and with bf16 at
 # gisette width
+# the method zoo at the main path's shape and attack: (tag, what differs
+# from MAIN_SPEC, the load of its aggregations). lr 0.5 where the
+# reference's loss falls over its 100 rounds on the CPU; where it does
+# not at 0.5 or 0.25, the largest of 0.1 and 0.05 at which it falls by
+# 0.05 (csgd, diana: RandK 0.1 uploads without variance reduction).
+# cmfilter takes TopK 0.1: its mirrored momenta u_i <- u_i + Q(m_i - u_i)
+# grow without bound under RandK's d/K scaling (the reference's loss
+# reaches 1e32 at every lr), as EF21's do (experiments/path_lr_check.py)
+ZOO_PATHS = [
+    ("sgd cm", dict(method="sgd"), "dense"),
+    ("sgdm cm", dict(method="sgdm"), "dense"),
+    ("csgd cm", dict(method="csgd", lr=0.1), "sparse"),
+    ("diana cm", dict(method="diana", lr=0.05), "sparse"),
+    ("mvr cm", dict(method="mvr"), "dense"),
+    ("svrg rfa", dict(method="svrg", aggregator="rfa"), "dense"),
+    ("cmfilter krum", dict(method="cmfilter", aggregator="krum",
+                           compressor="topk"), "sparse"),
+    ("saga cm", dict(method="saga", method_kwargs={"batch_size": 16}),
+     "dense"),
+]
+# MARINA under RN (scale 10): Alg. 2 fills the sixth row of 5 workers'
+# buckets with their mean, noise included, so two of cm's three buckets
+# carry noise and the reference's loss grows at lr 0.5 to 0.05
+RN_SPEC = dict(MAIN_SPEC, attack="RN")
 INT8_SPEC = dict(MAIN_SPEC, compressor="int8", compressor_kwargs={})
 SIGN_SPEC = dict(EF21_SPEC, compressor="sign", compressor_kwargs={})
 BF16_SPEC = dict(EF21_SPEC, compressor="bf16", compressor_kwargs={})
@@ -872,6 +899,13 @@ COUNTED = (tuple(f"{name}/{load}{tag}" for name in FUSED_KERNELS
            + BLOCKED_KERNELS + QUANT_KERNELS)
 
 
+# a fused kernel's launches per aggregation of one segment or leaf: RFA
+# makes T = 8 Weiszfeld passes and a weighted sum, Krum a Gram and a sum
+PER_AGG = {"cm": {"robust_agg": 1},
+           "rfa": {"rfa_iter": 8, "weighted_sum": 1},
+           "krum": {"pair_gram": 1, "weighted_sum": 1}}
+
+
 def _fused(name):
     from repro_torch.kernels import norm_agg
     from repro_torch.kernels.robust_agg import robust_agg
@@ -916,7 +950,7 @@ def _add(counts, name, load, n, masked=False):
 
 
 def expected_counts(aggregator, full, vr, giant=False, guard=False,
-                    cohort=False, fmt="sparse") -> dict:
+                    cohort=False, fmt="sparse", dense_vr=False) -> dict:
     """Launches of one MARINA run: one init aggregation and F full rounds
     on the packed b+w segment (dense load), V VR rounds on the two leaves'
     wire payloads of ``fmt``; RFA makes T = 8 Weiszfeld passes and a
@@ -929,7 +963,10 @@ def expected_counts(aggregator, full, vr, giant=False, guard=False,
     launch and masks every one (the init's too). Under a sampled cohort
     (``cohort``, cm at 5 workers) the init is unmasked, and every round,
     VR rounds reconstructed densely, is one masked launch on the packed
-    segment."""
+    segment. An attack
+    the load cannot apply (RN, ``dense_vr``) takes every VR round off the
+    wire: its candidates are rebuilt and aggregated as the packed dense
+    segment, one more dense aggregation a round, and no wire launch."""
     counts = dict.fromkeys(COUNTED, 0)
     if cohort:
         _add(counts, "robust_agg", "dense", 1)
@@ -944,12 +981,22 @@ def expected_counts(aggregator, full, vr, giant=False, guard=False,
             counts["pair_gram_blocked"] = 2 * aggs
             counts["weighted_sum_blocked"] = 2 * aggs
         return counts
-    per_agg = {"cm": {"robust_agg": 1},
-               "rfa": {"rfa_iter": 8, "weighted_sum": 1},
-               "krum": {"pair_gram": 1, "weighted_sum": 1}}[aggregator]
-    for name, times in per_agg.items():
+    if dense_vr:
+        full, vr = full + vr, 0
+    for name, times in PER_AGG[aggregator].items():
         _add(counts, name, "dense", times * (1 + full), guard)
         _add(counts, name, fmt, times * 2 * vr, guard)
+    return counts
+
+
+def zoo_counts(aggregator, rounds, fmt="dense") -> dict:
+    """Launches of a run of the method zoo: no aggregation at init, one
+    a round, on the packed b+w segment (``fmt`` "dense") or on each of
+    the two leaves' wire payloads."""
+    counts = dict.fromkeys(COUNTED, 0)
+    leaves = 1 if fmt == "dense" else 2
+    for name, times in PER_AGG[aggregator].items():
+        _add(counts, name, fmt, times * leaves * rounds)
     return counts
 
 
@@ -981,23 +1028,23 @@ def main_path(dev, card, tag, spec, want_counts, diverges=False,
     diverges on it) starts finite and must agree with the CPU path round
     for round, NaN for NaN, to ``traj_tol`` relative to max(1, |loss|)."""
     from repro_torch.api import RunSpec, run
-    ef21 = spec["method"] == "byz_ef21"
     reset_counts()
     t0 = time.time()
     res = run(RunSpec(**spec), device=dev, log_every=1)
     wall = time.time() - t0
     counts = read_counts()
     hist = res.history
+    coin = "c_k" in hist[0]              # MARINA's; other methods have none
     losses = [h["loss"] for h in hist]
     ck = [int(h.get("c_k", 1)) for h in hist]
     full = sum(ck)
     vr = len(ck) - full
     for h in hist[::50] + [hist[-1]]:
         print(f"[main {tag}] step {h['step']:4d} loss {h['loss']:.6f}"
-              + ("" if ef21 else f" c_k={int(h['c_k'])}"), flush=True)
+              + (f" c_k={int(h['c_k'])}" if coin else ""), flush=True)
     per_round_ms = res.wall_s / len(hist) * 1e3
-    rounds = ("every round uploads" if ef21
-              else f"{full} full (c_k=1), {vr} VR")
+    rounds = (f"{full} full (c_k=1), {vr} VR" if coin
+              else "every round uploads")
     print(f"[main {tag}] {len(hist)} rounds, {rounds}; "
           f"{per_round_ms:.3f} ms per round (host clock, loop "
           f"only); run() wall {wall:.2f} s incl. data and init; launches "
@@ -1405,6 +1452,16 @@ def main(argv=None) -> int:
         lambda f, v, r: ef21_counts(r, fmt="bf16", aggregator="krum",
                                     guard=True), traj_tol=QUANT_TRAJ_TOL)
     paths["ops wire"] = ops_wire_path(dev, card)
+    for tag, over, load in ZOO_PATHS:
+        spec = {**MAIN_SPEC, **over}
+        paths[tag] = main_path(
+            dev, card, tag, spec,
+            lambda f, v, r, a=spec["aggregator"], ld=load: zoo_counts(a, r,
+                                                                      ld))
+    paths["marina RN cm"] = main_path(
+        dev, card, "marina RN cm", RN_SPEC,
+        lambda f, v, r: expected_counts("cm", f, v, dense_vr=True),
+        diverges=True)
     path_specs = {"cm": MAIN_SPEC, "rfa": {**MAIN_SPEC, "aggregator": "rfa"},
                   "krum": {**MAIN_SPEC, "aggregator": "krum"},
                   "cm chaos": {**MAIN_SPEC, **CHAOS_SPEC},

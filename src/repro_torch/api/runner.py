@@ -64,7 +64,7 @@ def build(spec, device=None) -> Experiment:
     dk = spec.data_kwargs
     if dk.get("sampling", "uniform") != "uniform":
         raise NotImplementedError(
-            "importance sampling is not ported yet (ROADMAP queue 1, item 6)")
+            "importance sampling is not ported yet (ROADMAP queue 1, item 6b)")
     dim = int(dk.get("dim", 30))
     batch_size = int(dk.get("batch_size", 32))
     data = make_logreg_data(

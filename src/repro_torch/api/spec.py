@@ -129,6 +129,14 @@ class RunSpec:
             raise ValueError(f"steps={self.steps} must be >= 0")
         if self.task == "lm" and self.arch is None:
             raise ValueError("task='lm' needs arch=<name>")
+        if self.method == "saga" and self.task == "lm":
+            raise ValueError(
+                "method='saga' needs a FIXED anchor set (its per-sample "
+                "gradient table is indexed by position into the anchor), "
+                "but the lm task's TokenStream resamples the anchor every "
+                "round — the 'correction' term would be noise, not SAGA. "
+                "Use task='logreg', or a VR method without per-sample "
+                "state (marina / byz_ef21 / mvr)")
         if (self.method == "byz_ef21"
                 and self.compressor not in compressors.CONTRACTIVE):
             raise ValueError(

@@ -11,6 +11,10 @@ import numpy as np
 import torch
 
 
+# estimator state keys holding a parameter tree
+_PARAM_TREES = ("prev_params", "snapshot")
+
+
 def tree_from_numpy(tree: dict, device="cpu") -> dict:
     """A dict of arrays (params, g, a batch, an anchor) -> dict of
     tensors."""
@@ -20,20 +24,27 @@ def tree_from_numpy(tree: dict, device="cpu") -> dict:
 
 def state_from_numpy(state: dict, device="cpu") -> dict:
     """An engine state {"params", "g", "step", ...} -> the port's state,
-    with per-worker estimator trees (``worker_*``, e.g. Byz-EF21's
-    ``worker_g``). Optimizer state is not ported, so it must be None."""
+    with the estimators' state: per-worker trees (``worker_*``, e.g.
+    Byz-EF21's ``worker_g``), parameter trees (MVR's ``prev_params``,
+    SVRG's ``snapshot``) and DIANA's 0-d ``alpha``. Optimizer state is not
+    ported, so it must be None."""
     if state.get("opt_state") is not None:
         raise NotImplementedError(
             "optimizer state is not ported yet (ROADMAP queue 1, item 12)")
-    workers = sorted(k for k in state if k.startswith("worker_"))
+    trees = sorted(k for k in state if k.startswith("worker_")
+                   or k in _PARAM_TREES)
     extra = sorted(set(state) - {"params", "g", "step", "opt_state",
-                                 *workers})
+                                 "alpha", *trees})
     if extra:
         raise NotImplementedError(f"estimator state {extra} is not ported")
-    return {"params": tree_from_numpy(state["params"], device),
-            "g": tree_from_numpy(state["g"], device),
-            **{k: tree_from_numpy(state[k], device) for k in workers},
-            "opt_state": None, "step": int(state["step"])}
+    out = {"params": tree_from_numpy(state["params"], device),
+           "g": tree_from_numpy(state["g"], device),
+           **{k: tree_from_numpy(state[k], device) for k in trees},
+           "opt_state": None, "step": int(state["step"])}
+    if "alpha" in state:
+        out["alpha"] = torch.as_tensor(np.array(state["alpha"]),
+                                       device=device)
+    return out
 
 
 def key_from_numpy(key, device="cpu") -> torch.Tensor:

@@ -1,3 +1,3 @@
-"""Byz-VR-MARINA core (port of ``repro.core``): the round engine, the MARINA
-estimator, compressors, aggregators, attacks, the sparse wire and the
-kernel aggregation backend."""
+"""Byz-VR-MARINA core (port of ``repro.core``): the round engine, the
+estimators of every method and the baselines' makers, compressors,
+aggregators, attacks, the wire and the kernel aggregation backend."""

@@ -2,8 +2,9 @@
 
 ``attack(key, honest, good_mean, good_std) -> sent``. BF / ALIE / IPM also
 carry the kernel-fusable ``CoordAttack`` form that the robust-aggregation
-kernel applies inside its load. RN (it needs ``jax.random``'s normal
-stream on the materialized tensor) is not ported in this slice.
+kernel applies inside its load. RN, scaled standard normals from
+``repro_torch.random`` (the reference's ``jax.random.normal`` stream),
+has no such form: it is applied to the materialized candidates.
 """
 from __future__ import annotations
 
@@ -96,9 +97,17 @@ def ipm(eps: float = 0.1) -> Attack:
                   needs_mean=True)
 
 
-def random_noise(**kw) -> Attack:
-    raise NotImplementedError(
-        "attack 'RN' is not ported yet (ROADMAP queue 1, item 3)")
+def random_noise(scale: float = 10.0) -> Attack:
+    """scale · N(0, 1) in every coordinate, one key for every leaf."""
+    def apply(key, h, m, s):
+        if h.dtype != torch.float32:
+            raise NotImplementedError(
+                f"attack 'RN' on {h.dtype} candidates is not ported yet "
+                "(ROADMAP queue 1, item 12)")
+        from repro_torch import random as R
+        return R.normal(key, h.shape, scale)
+
+    return Attack("RN", apply)
 
 
 REGISTRY = {

@@ -48,7 +48,7 @@ class ByzVRMarinaConfig:
         if self.agg_mode not in PORTED_BACKENDS:
             raise NotImplementedError(
                 f"agg_mode {self.agg_mode!r} is not ported yet (ROADMAP "
-                "queue 1, items 6 and 11)")
+                "queue 1, items 6b and 11)")
         if not 0.0 <= self.p <= 1.0:
             raise ValueError(f"p={self.p} must be a probability in [0, 1]")
         if self.n_workers < 1:

@@ -257,7 +257,7 @@ def _not_ported(name):
     def factory(**kw):
         raise NotImplementedError(
             f"compressor {name!r} is not ported yet (ROADMAP queue 1, "
-            "item 6)")
+            "item 6b)")
     return factory
 
 

@@ -249,10 +249,15 @@ class RoundOutput:
 
 
 class GradientEstimator:
-    """Pluggable per-worker gradient estimator (see the reference)."""
+    """Pluggable per-worker gradient estimator (see the reference).
+    ``seed_batchable`` False keeps a method's state off a vmap over seeds
+    (per-worker gradient tables); ``streamable`` True marks a candidate
+    that is a pure per-client function of (params, batch, local state)."""
     name: str = "?"
     rng: tuple = ("grad", "attack", "agg")
     update_params_first: bool = False
+    seed_batchable: bool = True
+    streamable: bool = False
 
     def init_extras(self, cfg, loss_fn, params, anchor, key):
         raise NotImplementedError
@@ -265,6 +270,9 @@ class GradientEstimator:
 
     def round_bits(self, cfg, d: int, full_round: bool = True) -> int:
         return 32 * d
+
+    def expected_bits(self, cfg, d: int) -> float:
+        return float(self.round_bits(cfg, d))
 
 
 def make_engine_init(cfg, loss_fn, estimator: GradientEstimator,
@@ -335,6 +343,9 @@ class Method:
     def round_bits(self, d: int, full_round: bool = True) -> int:
         return self.estimator.round_bits(self.cfg, d, full_round)
 
+    def expected_bits(self, d: int) -> float:
+        return self.estimator.expected_bits(self.cfg, d)
+
 
 def make_method(name: str, cfg, loss_fn,
                 corrupt_fn: Optional[Callable] = None, **est_kw) -> Method:
@@ -343,3 +354,8 @@ def make_method(name: str, cfg, loss_fn,
     return Method(name=name, estimator=est, cfg=cfg,
                   init=make_engine_init(cfg, loss_fn, est, corrupt_fn),
                   step=make_engine_step(cfg, loss_fn, est, corrupt_fn))
+
+
+def list_methods():
+    from repro_torch.core import estimators as E
+    return sorted(E.ESTIMATORS)

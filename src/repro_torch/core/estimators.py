@@ -1,22 +1,42 @@
 """Gradient estimators pluggable into the round engine (port of
 ``repro/core/estimators.py``).
 
-Ported: ``marina``, Byz-VR-MARINA (Alg. 1): a Bernoulli(p) coin c_k
-picks anchor full gradients or the compressed variance-reduced difference
-g^k + Q(∇f_i(x^{k+1}) - ∇f_i(x^k)) (the reference branches with
-``lax.cond``; here the coin is read on the host and a Python ``if`` takes
-one branch); and ``byz_ef21``, Byz-EF21 with per-worker error feedback
-under a contractive compressor. The other registry entries are named so
-specs validate, and raise ``NotImplementedError`` when built.
+Each estimator owns what distinguishes its method: its per-worker
+candidates, its extra worker / server state and its communication cost.
+The engine does the parameter update, the attack, the robust aggregation
+and the metrics.
+
+  marina   — Byz-VR-MARINA (Alg. 1): a Bernoulli(p) coin c_k picks anchor
+             full gradients or g^k + Q(∇f_i(x^{k+1}) - ∇f_i(x^k)).
+  sgd      — Parallel-SGD; ``sgdm`` BR-SGDm (worker momenta attacked and
+             aggregated).
+  csgd     — compressed SGD; with a robust rule BR-CSGD.
+  diana    — BR-DIANA: worker shifts h_i, uploads Q(g_i - h_i).
+  mvr      — BR-MVR (STORM momentum variance reduction).
+  svrg     — Byrd-SVRG, loopless (App. B.4).
+  byz_ef21 — Byz-EF21: contractive compressor and per-worker error
+             feedback.
+  cmfilter — compressed momentum filtering: worker momenta uploaded as
+             compressed differences against a server-mirrored copy.
+  saga     — Byrd-SAGA over the stacked protocol: per-worker per-sample
+             gradient tables over the anchor.
+
+Where the reference branches on a Bernoulli coin with ``lax.cond``
+(MARINA's c_k, SVRG's refresh), the coin is read on the host and a
+Python ``if`` computes only the branch taken. The sparse-support MARINA
+variant (``agg_mode="sparse_support"``) is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
+from repro_torch.core.aggregators import mean0, xla_sum_rows
 from repro_torch.core.engine import (GradientEstimator, RoundOutput,
                                      message_phase, stacked_grads)
 
@@ -26,6 +46,14 @@ class CompressedUploadBits:
 
     def round_bits(self, cfg, d, full_round=True):
         return int(cfg.compressor.bits_per_vector(d))
+
+    def expected_bits(self, cfg, d):
+        return float(cfg.compressor.bits_per_vector(d))
+
+
+def _zeros_like_f32(params):
+    return tu.tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                       params)
 
 
 @dataclasses.dataclass
@@ -85,6 +113,193 @@ class MarinaEstimator(GradientEstimator):
             return 32 * d
         return int(cfg.compressor.bits_per_vector(d))
 
+    def expected_bits(self, cfg, d):
+        return (cfg.p * 32 * d
+                + (1 - cfg.p) * cfg.compressor.bits_per_vector(d))
+
+
+@dataclasses.dataclass
+class SGDEstimator(GradientEstimator):
+    """momentum=0: Parallel-SGD; momentum>0: BR-SGDm, whose worker momenta
+    are what is attacked and aggregated."""
+    momentum: float = 0.0
+    name = "sgd"
+    rng = ("grad", "attack", "agg")
+    streamable = True
+
+    def init_extras(self, cfg, loss_fn, params, anchor, key):
+        g0 = (_zeros_like_f32(params) if self.momentum > 0.0
+              else tu.tree_zeros_like(params))
+        return g0, {"worker_m": tu.tree_broadcast_leading(
+            _zeros_like_f32(params), cfg.n_workers)}
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys, sampled=None):
+        wkeys = tu.per_worker_keys(keys["grad"], cfg.n_workers)
+        loss, grads = stacked_grads(loss_fn, params, batch, wkeys)
+        if self.momentum > 0.0:
+            beta = self.momentum
+            m_new = tu.tree_map(
+                lambda m, g: (1 - beta) * g.float() + beta * m.float(),
+                state["worker_m"], grads)
+            cand = m_new
+        else:
+            m_new = state["worker_m"]
+            cand = grads
+        return RoundOutput(loss=loss, cand=cand, updates={"worker_m": m_new})
+
+
+@dataclasses.dataclass
+class CSGDEstimator(CompressedUploadBits, GradientEstimator):
+    """Compressed SGD: each worker uploads Q(∇f_i); on the wire the payload
+    carries Q(·) with no base."""
+    name = "csgd"
+    rng = ("grad", "q", "attack", "agg")
+    streamable = True
+
+    def init_extras(self, cfg, loss_fn, params, anchor, key):
+        return tu.tree_zeros_like(params), {}
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys, sampled=None):
+        from repro_torch.core import wire
+
+        n = cfg.n_workers
+        wkeys = tu.per_worker_keys(keys["grad"], n)
+        qkeys = tu.per_worker_keys(keys["q"], n,
+                                   common=cfg.compressor.common_randomness)
+        loss, grads = stacked_grads(loss_fn, params, batch, wkeys)
+        metrics = {"wire_bits": wire.tree_wire_bits(cfg.compressor, grads)}
+        if wire.wire_supported(cfg, grads):
+            cand = wire.pack_candidates(cfg.compressor, qkeys, grads)
+        else:
+            cand = tu.compress_stacked(cfg.compressor, qkeys, grads)
+        return RoundOutput(loss=loss, cand=cand, metrics=metrics)
+
+
+@dataclasses.dataclass
+class DianaEstimator(CompressedUploadBits, GradientEstimator):
+    """DIANA: worker i keeps a shift h_i and uploads Q(g_i - h_i); the
+    server adds the aggregated compressed difference to the shifts' mean.
+    alpha defaults to 1/(1+ω(d)), d the model size or ``d_hint``."""
+    alpha: Optional[float] = None
+    d_hint: Optional[int] = None
+    name = "diana"
+    rng = ("grad", "q", "attack", "agg")
+
+    def init_extras(self, cfg, loss_fn, params, anchor, key):
+        d = int(self.d_hint if self.d_hint is not None
+                else tu.tree_size(params))
+        omega = cfg.compressor.omega(d)
+        a = self.alpha if self.alpha is not None else 1.0 / (1.0 + omega)
+        device = tu.leaves(params)[0].device
+        extras = {
+            "worker_h": tu.tree_broadcast_leading(_zeros_like_f32(params),
+                                                  cfg.n_workers),
+            "alpha": torch.tensor(a, dtype=torch.float32, device=device),
+        }
+        return _zeros_like_f32(params), extras
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys, sampled=None):
+        from repro_torch.core import wire
+
+        n = cfg.n_workers
+        wkeys = tu.per_worker_keys(keys["grad"], n)
+        qkeys = tu.per_worker_keys(keys["q"], n,
+                                   common=cfg.compressor.common_randomness)
+        h = state["worker_h"]
+        a = state["alpha"]
+
+        def one(b, kg, h_i):
+            g, ln = grad_and_value(loss_fn)(params, b, kg)
+            return ln, tu.tree_sub(g, h_i)
+
+        losses, diffs = vmap(one)(batch, wkeys, h)
+        metrics = {"wire_bits": wire.tree_wire_bits(cfg.compressor, diffs)}
+        if wire.wire_supported(cfg, diffs):
+            cand = wire.pack_candidates(cfg.compressor, qkeys, diffs)
+            qdiff = wire.decoded_payload(cand)
+        else:
+            cand = qdiff = tu.compress_stacked(cfg.compressor, qkeys, diffs)
+        h_mean = tu.tree_map(mean0, h)
+        h_new = tu.tree_map(lambda hh, q: hh + a * q, h, qdiff)
+
+        def finalize(agg_diff):
+            return tu.tree_add(h_mean, agg_diff), {"worker_h": h_new}
+
+        return RoundOutput(loss=losses.mean(), cand=cand, finalize=finalize,
+                           metrics=metrics)
+
+
+@dataclasses.dataclass
+class MVREstimator(GradientEstimator):
+    """BR-MVR: per-worker momentum variance reduction,
+    v_i^k = g_i(x^k) + (1-α)(v_i^{k-1} - g_i(x^{k-1})), then robust
+    aggregation."""
+    alpha: float = 0.1
+    name = "mvr"
+    rng = ("grad", "attack", "agg")
+
+    def init_extras(self, cfg, loss_fn, params, anchor, key):
+        # the reference hands the un-split key to per_worker_keys
+        wkeys = tu.per_worker_keys(key, cfg.n_workers)
+        _, grads = stacked_grads(loss_fn, params, anchor, wkeys)
+        v0 = tu.tree_map(lambda g: g.float(), grads)
+        return _zeros_like_f32(params), {"prev_params": params,
+                                         "worker_v": v0}
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys, sampled=None):
+        wkeys = tu.per_worker_keys(keys["grad"], cfg.n_workers)
+        prev = state["prev_params"]
+        alpha = self.alpha
+
+        def one(b, kg, v_i):
+            gx, ln = grad_and_value(loss_fn)(params, b, kg)
+            gp, _ = grad_and_value(loss_fn)(prev, b, kg)
+            return ln, tu.tree_map(
+                lambda g, vv, go: g.float() + (1 - alpha) * (vv - go.float()),
+                gx, v_i, gp)
+
+        losses, v = vmap(one)(batch, wkeys, state["worker_v"])
+        return RoundOutput(loss=losses.mean(), cand=v,
+                           updates={"prev_params": params, "worker_v": v})
+
+
+@dataclasses.dataclass
+class SVRGEstimator(GradientEstimator):
+    """Loopless SVRG: with probability p the snapshot w <- x and the full
+    worker gradients refresh; worker i sends
+    v_i = g_i(x, mb) - g_i(w, mb) + full_i."""
+    name = "svrg"
+    rng = ("bern", "grad", "attack", "agg")
+
+    def init_extras(self, cfg, loss_fn, params, anchor, key):
+        # the reference hands the un-split key to per_worker_keys
+        wkeys = tu.per_worker_keys(key, cfg.n_workers)
+        _, fulls = stacked_grads(loss_fn, params, anchor, wkeys)
+        return tu.tree_zeros_like(params), {"snapshot": params,
+                                            "worker_full": fulls}
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys, sampled=None):
+        wkeys = tu.per_worker_keys(keys["grad"], cfg.n_workers)
+        if bool(R.bernoulli(keys["bern"], cfg.p)):
+            w = params
+            _, fulls = stacked_grads(loss_fn, params, anchor, wkeys)
+        else:
+            w, fulls = state["snapshot"], state["worker_full"]
+
+        def one(b, kg, full_i):
+            gx, ln = grad_and_value(loss_fn)(params, b, kg)
+            gw, _ = grad_and_value(loss_fn)(w, b, kg)
+            return ln, tu.tree_add(tu.tree_sub(gx, gw), full_i)
+
+        losses, cand = vmap(one)(batch, wkeys, fulls)
+        return RoundOutput(loss=losses.mean(), cand=cand,
+                           updates={"snapshot": w, "worker_full": fulls})
+
 
 @dataclasses.dataclass
 class ByzEF21Estimator(CompressedUploadBits, GradientEstimator):
@@ -96,6 +311,7 @@ class ByzEF21Estimator(CompressedUploadBits, GradientEstimator):
     name = "byz_ef21"
     rng = ("grad", "q", "attack", "agg")
     update_params_first = True
+    needs_contractive = True
 
     def init_extras(self, cfg, loss_fn, params, anchor, key):
         # g_i^0 = ∇f_i(x^0) uncompressed, g^0 = ARAgg(g_1^0, ..., g_n^0)
@@ -132,6 +348,143 @@ class ByzEF21Estimator(CompressedUploadBits, GradientEstimator):
                            updates={"worker_g": g_new}, metrics=metrics)
 
 
+@dataclasses.dataclass
+class CMFilterEstimator(CompressedUploadBits, GradientEstimator):
+    """Compressed momentum filtering: worker i keeps a momentum
+    m_i = (1-β) g_i + β m_i and a server-mirrored reconstruction u_i, and
+    uploads Q(m_i - u_i); both sides set u_i <- u_i + Q(m_i - u_i). The
+    robust rule filters the u_i, and a server momentum η blends the result
+    with the previous round's g. On the wire u_i is the payload's n-row
+    base."""
+    momentum: float = 0.9
+    server_momentum: float = 0.0
+    name = "cmfilter"
+    rng = ("grad", "q", "attack", "agg")
+
+    def init_extras(self, cfg, loss_fn, params, anchor, key):
+        z = _zeros_like_f32(params)
+        return z, {"worker_m": tu.tree_broadcast_leading(z, cfg.n_workers),
+                   "worker_u": tu.tree_broadcast_leading(z, cfg.n_workers)}
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys, sampled=None):
+        from repro_torch.core import wire
+
+        n = cfg.n_workers
+        beta = self.momentum
+        eta = self.server_momentum
+        wkeys = tu.per_worker_keys(keys["grad"], n)
+        qkeys = tu.per_worker_keys(keys["q"], n,
+                                   common=cfg.compressor.common_randomness)
+
+        def one(b, kg, m_i, u_i):
+            g, ln = grad_and_value(loss_fn)(params, b, kg)
+            m_new = tu.tree_map(lambda gg, mm: (1 - beta) * gg.float()
+                                + beta * mm, g, m_i)
+            return ln, m_new, tu.tree_sub(m_new, u_i)
+
+        losses, m_new, diffs = vmap(one)(batch, wkeys, state["worker_m"],
+                                         state["worker_u"])
+        metrics = {"wire_bits": wire.tree_wire_bits(cfg.compressor, diffs)}
+        if wire.wire_supported(cfg, diffs):
+            cand = wire.pack_candidates(cfg.compressor, qkeys, diffs,
+                                        base=state["worker_u"])
+            u_new = tu.tree_add(state["worker_u"], wire.decoded_payload(cand))
+        else:
+            q = tu.compress_stacked(cfg.compressor, qkeys, diffs)
+            cand = u_new = tu.tree_add(state["worker_u"], q)
+        g_prev = state["g"]          # the previous round's g
+
+        def finalize(agg):
+            g = tu.tree_map(lambda a, gp: (1 - eta) * a.float()
+                            + eta * gp.float(), agg, g_prev)
+            return g, {"worker_m": m_new, "worker_u": u_new}
+
+        return RoundOutput(loss=losses.mean(), cand=cand, finalize=finalize,
+                           metrics=metrics)
+
+
+def saga_indices(k_idx, m: int, b: int):
+    """(..., b) table slots drawn without replacement: the first b of a
+    permutation of the m slots, one per key of k_idx (..., 2)."""
+    return R.permutation(k_idx, m)[..., :b]
+
+
+def _rows(t, idx):
+    """idx (n, b) broadcast over the trailing axes of t (n, m, ...)."""
+    n, b = idx.shape
+    return idx.reshape((n, b) + (1,) * (t.dim() - 2)).expand(
+        (n, b) + tuple(t.shape[2:]))
+
+
+def saga_update(table, table_mean, g_new, idx):
+    """One leaf of every worker's SAGA step: table (n, m, ...), its mean
+    (n, ...), the fresh gradients g_new (n, b, ...) at slots idx (n, b) ->
+    (estimate mean_j[g_new - table[idx]] + table_mean, the table with
+    g_new written at idx, its mean)."""
+    i = _rows(table, idx)
+    diff = g_new - torch.gather(table, 1, i)
+    return (mean0(diff, 1) + table_mean, table.scatter(1, i, g_new),
+            table_mean + xla_sum_rows(diff.unbind(1)) * (1.0 / table.shape[1]))
+
+
+@dataclasses.dataclass
+class SAGAEstimator(GradientEstimator):
+    """SAGA over the stacked protocol: worker i keeps a per-sample gradient
+    table over its slice of the anchor and the table's mean, and sends
+    v_i = mean_j[∇f_{i,j}(x) - table_i[j]] + mean(table_i) over b slots j
+    drawn without replacement. The tables are worker state and never on
+    the wire; they need the same anchor every round (``RunSpec`` refuses
+    ``task="lm"``). ``seed_batchable = False``: a vmap over seeds would
+    stack the (n, m, d) tables once a seed."""
+    batch_size: int = 16
+    name = "saga"
+    rng = ("grad", "attack", "agg")
+    seed_batchable = False
+
+    def init_extras(self, cfg, loss_fn, params, anchor, key):
+        n = cfg.n_workers
+        m = tu.leaves(anchor)[0].shape[1]      # samples per worker
+        return tu.tree_zeros_like(params), {
+            "worker_table": tu.tree_map(
+                lambda p: torch.zeros((n, m) + tuple(p.shape),
+                                      dtype=torch.float32, device=p.device),
+                params),
+            "worker_table_mean": tu.tree_broadcast_leading(
+                _zeros_like_f32(params), n),
+        }
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys, sampled=None):
+        table = state["worker_table"]
+        n, m = tu.leaves(table)[0].shape[:2]
+        b = min(int(self.batch_size), m)
+        wkeys = tu.per_worker_keys(keys["grad"], n)
+        kk = R.split(wkeys, 2)                           # (n, 2, 2)
+        k_idx, k_loss = kk[:, 0], kk[:, 1]
+        idx = saga_indices(k_idx, m, b)                  # (n, b)
+
+        # every worker's b samples as n·b batches of one sample
+        samples = {k: torch.gather(a, 1, _rows(a, idx)).reshape(
+            (n * b, 1) + tuple(a.shape[2:])) for k, a in anchor.items()}
+        lkeys = k_loss[:, None].expand(n, b, 2).reshape(n * b, 2)
+
+        def g_of(sample, kl):
+            g, ln = grad_and_value(loss_fn)(params, sample, kl)
+            return ln, g
+
+        losses, g_new = vmap(g_of)(samples, lkeys)
+        v, tables, means = {}, {}, {}
+        for k in sorted(table):
+            gn = g_new[k].float().reshape((n, b) + tuple(g_new[k].shape[1:]))
+            v[k], tables[k], means[k] = saga_update(
+                table[k], state["worker_table_mean"][k], gn, idx)
+        loss = losses.reshape(n, b).mean(1).mean()
+        return RoundOutput(loss=loss, cand=v,
+                           updates={"worker_table": tables,
+                                    "worker_table_mean": means})
+
+
 def _marina_factory(cfg, **kw):
     return MarinaEstimator(**kw)
 
@@ -146,19 +499,55 @@ def _ef21_factory(cfg, **kw):
     return ByzEF21Estimator(**kw)
 
 
-def _not_ported(name):
-    def factory(cfg, **kw):
-        raise NotImplementedError(
-            f"method {name!r} is not ported yet (ROADMAP queue 1, item 6)")
-    return factory
-
-
 ESTIMATORS = {
     "marina": _marina_factory,
+    "sgd": lambda cfg, **kw: SGDEstimator(momentum=kw.pop("momentum", 0.0),
+                                          **kw),
+    "sgdm": lambda cfg, **kw: SGDEstimator(momentum=kw.pop("momentum", 0.9),
+                                           **kw),
+    "csgd": lambda cfg, **kw: CSGDEstimator(**kw),
+    "diana": lambda cfg, **kw: DianaEstimator(**kw),
+    "mvr": lambda cfg, **kw: MVREstimator(**kw),
+    "svrg": lambda cfg, **kw: SVRGEstimator(**kw),
     "byz_ef21": _ef21_factory,
-    **{nm: _not_ported(nm) for nm in ("sgd", "sgdm", "csgd", "diana", "mvr",
-                                      "svrg", "cmfilter", "saga")},
+    "cmfilter": lambda cfg, **kw: CMFilterEstimator(**kw),
+    "saga": lambda cfg, **kw: SAGAEstimator(**kw),
 }
+
+# the traits of a method without a cfg in hand
+ESTIMATOR_CLASSES = {
+    "marina": MarinaEstimator,
+    "sgd": SGDEstimator,
+    "sgdm": SGDEstimator,
+    "csgd": CSGDEstimator,
+    "diana": DianaEstimator,
+    "mvr": MVREstimator,
+    "svrg": SVRGEstimator,
+    "byz_ef21": ByzEF21Estimator,
+    "cmfilter": CMFilterEstimator,
+    "saga": SAGAEstimator,
+}
+
+
+def needs_contractive_compressor(name: str) -> bool:
+    """Whether this method rejects unbiased-Q compressors (EF21 family)."""
+    cls = ESTIMATOR_CLASSES.get(name)
+    return bool(getattr(cls, "needs_contractive", False))
+
+
+def streamable(name: str) -> bool:
+    """Whether this method's candidates may be computed at dispatch time
+    and buffered; unknown names answer False."""
+    cls = ESTIMATOR_CLASSES.get(name)
+    return False if cls is None else bool(getattr(cls, "streamable", False))
+
+
+def seed_batchable(name: str) -> bool:
+    """Whether cells of this method may run vmapped over seeds; unknown
+    names answer False."""
+    cls = ESTIMATOR_CLASSES.get(name)
+    return False if cls is None else bool(getattr(cls, "seed_batchable",
+                                                  True))
 
 
 def get_estimator(name: str, cfg, **kw) -> GradientEstimator:

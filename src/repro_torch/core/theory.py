@@ -1,6 +1,6 @@
 """Theory helpers (port of ``repro/core/theory.py``): the δ bookkeeping
 that validates configurations, and the communication count of a round.
-The step sizes and rates are not ported yet (ROADMAP queue 1, item 6)."""
+The step sizes and rates are not ported yet (ROADMAP queue 1, item 6b)."""
 from __future__ import annotations
 
 

@@ -31,6 +31,10 @@ def tree_scale(s, a):
     return tree_map(lambda x: (s * x.float()).to(x.dtype), a)
 
 
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
 def tree_dot(a, b):
     return sum(torch.dot(x.float().reshape(-1), y.float().reshape(-1))
                for x, y in zip(leaves(a), leaves(b)))
@@ -42,6 +46,12 @@ def tree_norm_sq(a):
 
 def tree_size(a) -> int:
     return sum(x.numel() for x in leaves(a))
+
+
+def tree_broadcast_leading(a, n: int):
+    """Each leaf repeated along a new leading axis of n rows (stored, not
+    a stride-0 view: the kernels read per-worker state as dense rows)."""
+    return tree_map(lambda x: x.expand((n,) + tuple(x.shape)).contiguous(), a)
 
 
 def masked_mean_std(xs: dict, good_mask: torch.Tensor,

@@ -275,8 +275,8 @@ def _sqrt_f32(var):
 
 def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
     """Omniscient attack + robust aggregation over a wire payload: the
-    kernel-fusable attacks ride into the kernel; other backends
-    reconstruct densely.
+    kernel-fusable attacks ride into the kernel; other backends, and an
+    attack without a load form (RN), reconstruct densely.
 
     ``cfg.fault_guard`` adds the fail-closed decode guard: rows whose
     payload does not decode safely (``faults.guard.payload_valid``:
@@ -285,8 +285,8 @@ def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
     after reconstruction. Paths that materialize the attacked candidates
     also reject rows the attack left non-finite."""
     from repro_torch.core import engine
-    from repro_torch.core.sharded_agg import AttackCtx, \
-        tree_aggregate_pallas_wire
+    from repro_torch.core.sharded_agg import (
+        AttackCtx, tree_aggregate_pallas, tree_aggregate_pallas_wire)
     from repro_torch.faults import guard as fguard
     guard = cfg.fault_guard
     valid = fguard.payload_valid(wc) if guard else None
@@ -299,9 +299,13 @@ def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
     if cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF"):
         return tree_aggregate_pallas_wire(cfg, agg_key, wc, valid=valid)
     if cfg.attack.coord_apply is None:
-        raise NotImplementedError(
-            f"attack {cfg.attack.name!r} over the wire is not ported yet "
-            "(ROADMAP queue 1, item 3)")
+        # an attack the load cannot apply (RN): the dense candidates, the
+        # attack on them, the dense kernels
+        sent = engine.apply_attack(cfg, attack_key, reconstruct(wc),
+                                   stats_valid=valid)
+        if guard:
+            valid = valid & fguard.finite_row_mask(sent)
+        return tree_aggregate_pallas(cfg, agg_key, sent, valid=valid)
     mask = cfg.byz_mask(next(iter(wc.payloads[0].values())).device)
     means = stds = None
     if cfg.attack.needs_mean or cfg.attack.needs_std:

@@ -198,9 +198,12 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return x * torch.where(x.abs() == 1.0, inf, p)
 
 
-def normal(key, shape: Sequence[int] = ()) -> torch.Tensor:
-    """float32 standard normals: sqrt(2)·erfinv(u), u uniform on
-    (-1, 1)."""
+def normal(key, shape: Sequence[int] = (), scale: float = 1.0) -> torch.Tensor:
+    """float32 normals of standard deviation ``scale``: sqrt(2)·erfinv(u),
+    u uniform on (-1, 1), times ``scale`` as compiled code takes
+    ``scale * normal(...)``: XLA folds the two constants into one float32
+    product first."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
-    return erfinv(u) * float(np.float32(np.sqrt(2)))
+    return erfinv(u) * float(np.float32(np.float32(scale)
+                                        * np.float32(np.sqrt(2))))

@@ -192,14 +192,17 @@ def test_spec_json_is_shared():
 # the fault layer and partial participation are ported (their tests are
 # tests/test_torch_faults.py and tests/test_torch_participation.py), and
 # so are the int8, sign and bf16 compressors (tests/test_torch_wire_formats
-# .py); the cases that named them now name what is still unported
+# .py), every method and the RN attack (tests/test_torch_estimators.py);
+# the cases that named them now name what is still unported
 @pytest.mark.parametrize("override", [
-    {"method": "sgd"}, {"compressor": "dither"}, {"compressor": "natural"},
-    {"attack": "RN"}, {"agg_mode": "all_to_all"},
-    {"participation": 0.6, "method": "diana"},
+    {"agg_mode": "sparse_support"}, {"compressor": "dither"},
+    {"compressor": "natural"}, {"task": "lm", "arch": "qwen3-1.7b"},
+    {"agg_mode": "all_to_all"},
+    {"participation": 0.6, "compressor": "natural"},
     {"fault_guard": True, "compressor": "dither"}, {"trace": True},
     {"optimizer": "adam"},
-    {**GIANT, "participation": 0.5, "method": "mvr"},
+    {**GIANT, "participation": 0.5,
+     "data_kwargs": {**GIANT["data_kwargs"], "sampling": "importance"}},
 ])
 def test_unported_components_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

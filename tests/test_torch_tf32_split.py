@@ -42,17 +42,21 @@ def split(x):
 def emulated_gram(x, products=3, run=None):
     """The split Gram: per run of columns (default the reference's column
     tile), hi·hi + hi·lo + lo·hi (or hi·hi alone for ``products=1``) in
-    float64, rounded to float32, folded in float32."""
-    d = x.shape[1]
+    float64, rounded to float32, folded in float32 in order. The runs are
+    one batch of float64 products (the last run padded with zero columns,
+    which add exact zeros), so the test makes a few BLAS calls where a
+    loop over the runs made thousands."""
+    m, d = x.shape
     tile = run or norm_agg._tile_for(d)
-    g = np.zeros((x.shape[0],) * 2, dtype=np.float32)
-    for a in range(0, d, tile):
-        hi, lo = (t.astype(np.float64) for t in split(x[:, a:a + tile]))
-        t = hi @ hi.T
-        if products == 3:
-            t = hi @ lo.T + lo @ hi.T + t
-        g = g + t.astype(np.float32)
-    return g
+    runs = -(-d // tile)
+    xp = np.zeros((m, runs * tile), dtype=np.float32)
+    xp[:, :d] = x
+    hi, lo = (torch.from_numpy(t.astype(np.float64))
+              .reshape(m, runs, tile).transpose(0, 1) for t in split(xp))
+    t = hi @ hi.mT
+    if products == 3:
+        t = hi @ lo.mT + lo @ hi.mT + t
+    return np.add.accumulate(t.numpy().astype(np.float32), axis=0)[-1]
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():
