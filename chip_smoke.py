@@ -29,7 +29,13 @@ Krum under the chaos plan); the ``kernels.ops`` entry points on every
 wire format and on a bfloat16 stack; and the method zoo at the main
 path's shape (sgd, sgdm, mvr, saga, and csgd and diana on the RandK wire,
 with cm; svrg with RFA; cmfilter on the TopK wire with Krum) and MARINA
-under the RN attack, which diverges as the reference does. The masked kernels (``valid`` in the
+under the RN attack, which diverges as the reference does;
+sparse-support MARINA (which launches no kernel, as the reference runs
+no kernel there), MARINA with dither, natural compression and importance
+sampling; the traced twins of seven paths (their launches and
+trajectories equal to the untraced runs', bit for bit, their traces held
+to the CPU path's) and three rounds under ``obs.profile.profile_trace``.
+The masked kernels (``valid`` in the
 load, the masked coordinate rule) are held to their plain versions beside
 the unmasked ones, and so is every load (dense float32 or bfloat16, the
 sparse, int8, sign and bf16 wires) in each fused kernel. It checks that
@@ -67,7 +73,9 @@ REPS = 21                        # timed runs per measurement (median taken)
 # early seen on the H100) and drops what falls outside its window, which
 # lost most of the events of a few-microsecond kernel's 21 calls
 PROFILE_PAD_S = 0.05
-MAIN_STEPS = 100                 # rounds of each main path
+# rounds of each main path: with the kernel phases, the paths and their
+# CPU checks, the script has to end inside 1200 s on a slow host too
+MAIN_STEPS = 60
 CPU_CHECK_STEPS = 12
 TRAJ_TOL = 2e-5
 # the paths of a compressor that rounds (int8 levels, signs, bf16): the
@@ -110,7 +118,7 @@ EF21_SPEC = dict(
 # gisette width
 # the method zoo at the main path's shape and attack: (tag, what differs
 # from MAIN_SPEC, the load of its aggregations). lr 0.5 where the
-# reference's loss falls over its 100 rounds on the CPU; where it does
+# reference's loss falls over 100 rounds on the CPU; where it does
 # not at 0.5 or 0.25, the largest of 0.1 and 0.05 at which it falls by
 # 0.05 (csgd, diana: RandK 0.1 uploads without variance reduction).
 # cmfilter takes TopK 0.1: its mirrored momenta u_i <- u_i + Q(m_i - u_i)
@@ -132,6 +140,22 @@ ZOO_PATHS = [
 # buckets with their mean, noise included, so two of cm's three buckets
 # carry noise and the reference's loss grows at lr 0.5 to 0.05
 RN_SPEC = dict(MAIN_SPEC, attack="RN")
+# the rest of the zoo at the main path's shape: (tag, what differs from
+# MAIN_SPEC). MARINA with the dense compressors (no wire: every VR round
+# is one dense robust_agg) and with importance sampling (RandK's wire as
+# on the main path); lrs from experiments/path_lr_check.py, as ZOO_PATHS'
+ZOO_REST_PATHS = [
+    ("marina dither cm", dict(compressor="dither", compressor_kwargs={},
+                              lr=0.5)),
+    ("marina natural cm", dict(compressor="natural", compressor_kwargs={},
+                               lr=0.5)),
+    ("marina importance cm", dict(data_kwargs={
+        **MAIN_SPEC["data_kwargs"], "sampling": "importance"})),
+]
+# sparse-support MARINA: common-randomness RandK, so every worker sends
+# the same K coordinates and the VR rounds aggregate the support alone
+SPARSE_SPEC = dict(MAIN_SPEC, agg_mode="sparse_support", compressor_kwargs={
+    "ratio": 0.1, "common_randomness": True})
 INT8_SPEC = dict(MAIN_SPEC, compressor="int8", compressor_kwargs={})
 SIGN_SPEC = dict(EF21_SPEC, compressor="sign", compressor_kwargs={})
 BF16_SPEC = dict(EF21_SPEC, compressor="bf16", compressor_kwargs={})
@@ -1306,16 +1330,239 @@ def kernel_entry(name, source, replaces, launches, rows):
         "device_ops": max((r["device_ops"] or 0) for r in rows)}
 
 
+TRACED_STEPS = 20                # rounds of each traced twin
+# the traced twins: (tag, spec, the untraced path's launches)
+TRACED_PATHS = [
+    ("cm", MAIN_SPEC, lambda f, v, r: expected_counts("cm", f, v)),
+    ("rfa", {**MAIN_SPEC, "aggregator": "rfa"},
+     lambda f, v, r: expected_counts("rfa", f, v)),
+    ("krum", {**MAIN_SPEC, "aggregator": "krum"},
+     lambda f, v, r: expected_counts("krum", f, v)),
+    ("rfa n=256", {**MAIN_SPEC, **GIANT_SPEC, "aggregator": "rfa"},
+     lambda f, v, r: expected_counts("rfa", f, v, giant=True)),
+    ("krum n=256", {**MAIN_SPEC, **GIANT_SPEC, "aggregator": "krum"},
+     lambda f, v, r: expected_counts("krum", f, v, giant=True)),
+    ("cm chaos", {**MAIN_SPEC, **CHAOS_SPEC},
+     lambda f, v, r: expected_counts("cm", f, v, guard=True)),
+    ("cm participation 0.8", {**MAIN_SPEC, **PART_SPEC},
+     lambda f, v, r: expected_counts("cm", f, v, cohort=True)),
+]
+TRACE_EXACT = ("byz_mask", "fault_mask", "guard_valid", "sampled_mask",
+               "krum_selected")
+# cm's and tm's selection fractions count rank positions; where rows tie
+# exactly (on a RandK round every row carries g^k off the support) an ulp
+# of g^k, which the card's and the CPU's trajectories do not share (their
+# gradients part by ~1e-7, ROADMAP queue 3), moves the padded bucket to
+# either side of the tie. They are held on identical inputs instead
+TRACE_RANKED = ("bucket_weights", "influence")
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    return obj
+
+
+def trace_errors(got, ref, g_norm, ranked=True) -> dict:
+    """Each field's largest difference over its scale: the field's largest
+    entry, and for the distances (rounding noise on a full round, whose
+    rows all carry the anchor gradient) the aggregate's norm at least
+    (its square for Krum's scores). The exact fields must be equal, and
+    infinities (the guard's Krum scores) must sit alike."""
+    if sorted(got) != sorted(ref) or got["rule"] != ref["rule"]:
+        raise AssertionError(f"trace fields {sorted(got)} vs {sorted(ref)}")
+    errs = {}
+    for k in ref:
+        if k == "rule" or (not ranked and ref["rule"] in ("cm", "tm")
+                           and k in TRACE_RANKED):
+            continue
+        if k in TRACE_EXACT:
+            if got[k] != ref[k]:
+                raise AssertionError(f"trace {k}: {got[k]} vs {ref[k]}")
+            continue
+        a = np.atleast_1d(np.asarray(got[k], np.float64))
+        b = np.atleast_1d(np.asarray(ref[k], np.float64))
+        fin = np.isfinite(b)
+        if not (np.array_equal(np.isfinite(a), fin)
+                and np.array_equal(a[~fin], b[~fin])):
+            raise AssertionError(f"trace {k}: {a} vs {b}")
+        top = float(np.max(np.abs(b[fin]), initial=0.0))
+        scale = (max(top, g_norm) if k in ("dist_to_agg", "rfa_residual")
+                 else max(top, g_norm ** 2) if k == "krum_scores" else top)
+        err = float(np.max(np.abs(a[fin] - b[fin]), initial=0.0))
+        errs[k] = err / scale if scale > 0 else err
+    return errs
+
+
+def _merge_max(acc, errs):
+    for k, v in errs.items():
+        acc[k] = max(acc.get(k, 0.0), v)
+
+
+def _same_run(a, b) -> bool:
+    return ([h["loss"] for h in a.history] == [h["loss"] for h in b.history]
+            and all(torch.equal(a.state[k][n], b.state[k][n])
+                    for k in ("params", "g") for n in a.state[k]))
+
+
+def traced_path(dev, card, tag, spec, want_counts):
+    """A path's telemetry twin on the card: TRACED_STEPS rounds untraced
+    twice, then traced, each with the counts set to 0 just before.
+    (a) every run's launches equal the path's formula, the traced run's
+    included; (b) the two untraced runs repeat bit for bit, and the
+    traced run ends with their losses and parameters bit for bit; (c) the
+    first CPU_CHECK_STEPS traces agree with the CPU path's traced run
+    (``trace_errors``, TRAJ_TOL, cm's rank fields aside), and each of
+    those rounds' trace, rebuilt on the CPU from the card's own inputs to
+    ``obs.trace._build_trace``, agrees with the card's in every field."""
+    from repro_torch.api import RunSpec, run
+    from repro_torch.obs import trace as T
+    spec = {**spec, "steps": TRACED_STEPS}
+    orig = T._build_trace
+    captured = []
+
+    def capture(cfg, agg_key, sent, agg, **kw):
+        rt = orig(cfg, agg_key, sent, agg, **kw)
+        if len(captured) < CPU_CHECK_STEPS:
+            captured.append((cfg, _to_cpu(agg_key), _to_cpu(sent),
+                             _to_cpu(agg), _to_cpu(kw), rt))
+        return rt
+
+    runs = []
+    for traced in (False, False, True):
+        reset_counts()
+        T._build_trace = capture if traced else orig
+        try:
+            res = run(RunSpec(**spec, trace=traced), device=dev, log_every=1)
+        finally:
+            T._build_trace = orig
+        runs.append((res, read_counts()))
+    (u1, c1), (u2, c2), (tr, ct) = runs
+    ck = [int(h.get("c_k", 1)) for h in u1.history]
+    want = want_counts(sum(ck), len(ck) - sum(ck), len(ck))
+    for what, counts in (("untraced", c1), ("untraced again", c2),
+                         ("traced", ct)):
+        if counts != want:
+            raise AssertionError(f"traced {tag}: {what} launches "
+                                 f"{nonzero(counts)}, expected "
+                                 f"{nonzero(want)}")
+    repeats, same = _same_run(u1, u2), _same_run(u1, tr)
+    if not repeats:
+        raise AssertionError(f"traced {tag}: two untraced runs differ")
+    if not same:
+        raise AssertionError(f"traced {tag}: the traced run's losses or "
+                             "parameters differ from the untraced run's")
+    cpu = run(RunSpec(**{**spec, "steps": CPU_CHECK_STEPS}, trace=True),
+              device="cpu", log_every=1)
+    if [int(h.get("c_k", 1)) for h in cpu.history] != ck[:CPU_CHECK_STEPS]:
+        raise AssertionError(f"traced {tag}: c_k differs from the CPU path")
+    vs_cpu, rebuilt = {}, {}
+    for a, b, h in zip(tr.traces, cpu.traces, cpu.history):
+        _merge_max(vs_cpu, trace_errors(a, b, h["g_norm"], ranked=False))
+    for cfg, key, sent, agg, kw, rt in captured:
+        g_norm = float(torch.sqrt(sum((v.float() ** 2).sum()
+                                      for v in agg.values())))
+        _merge_max(rebuilt, trace_errors(
+            T.to_host(rt), T.to_host(orig(cfg, key, sent, agg, **kw)),
+            g_norm))
+    ms = [r.wall_s / len(r.history) * 1e3 for r, _ in runs]
+    print(f"[traced {tag}] {TRACED_STEPS} rounds: {ms[0]:.3f} / "
+          f"{ms[1]:.3f} ms per round untraced, {ms[2]:.3f} traced (host "
+          f"clock, every round traced); launches {nonzero(ct)} in each run; "
+          f"untraced runs repeat bit for bit: {repeats}; traced = untraced "
+          f"bit for bit: {same}; first {CPU_CHECK_STEPS} traces vs the CPU "
+          f"path, max error / scale "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in vs_cpu.items()})
+          + f"; rebuilt on the CPU from the card's inputs ({len(captured)} "
+          "rounds) "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in rebuilt.items()})
+          + f" [{card}]", flush=True)
+    worst = max(list(vs_cpu.values()) + list(rebuilt.values()))
+    if len(captured) != CPU_CHECK_STEPS or worst > TRAJ_TOL:
+        raise AssertionError(f"traced {tag}: trace fields differ by {worst}"
+                             f" of their scale (limit {TRAJ_TOL})")
+    return {"tag": tag, "launches": ct, "rounds": TRACED_STEPS,
+            "untraced_ms": ms[:2], "traced_ms": ms[2],
+            "untraced_repeat": repeats, "traced_equal": same,
+            "vs_cpu_err": vs_cpu, "rebuilt_err": rebuilt}
+
+
+def profile_phase(dev, card):
+    """Three rounds of the traced cm path under ``obs.profile
+    .profile_trace`` with the step markers on: the Chrome trace must
+    hold three ``round`` ranges and the ``robust_agg`` kernel."""
+    import shutil
+    from repro_torch.api import RunSpec, run
+    from repro_torch.obs import profile as P
+    out = ROOT / "build" / "chip_smoke_profile"
+    shutil.rmtree(out, ignore_errors=True)
+    run(RunSpec(**{**MAIN_SPEC, "steps": 2, "trace": True}), device=dev)
+    P.enable_step_markers()
+    try:
+        with P.profile_trace(str(out)):
+            time.sleep(PROFILE_PAD_S)
+            run(RunSpec(**{**MAIN_SPEC, "steps": 3, "trace": True}),
+                device=dev, log_every=1)
+            time.sleep(PROFILE_PAD_S)
+    finally:
+        P.enable_step_markers(False)
+    files = sorted(out.glob("trace_*.json"))
+    events = json.loads(files[-1].read_text())["traceEvents"]
+    rounds = [e for e in events if e.get("name") == P.ROUND_RANGE
+              and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    agg = [e for e in kernels if "robust_agg" in e.get("name", "")]
+    print(f"[profile_trace] {files[-1].name}: {len(events)} events, "
+          f"{len(rounds)} 'round' ranges, {len(kernels)} kernel events, "
+          f"{len(agg)} of robust_agg [{card}]", flush=True)
+    if len(rounds) != 3 or not agg:
+        raise AssertionError("profile_trace: expected 3 round ranges and a "
+                             f"robust_agg kernel, got {len(rounds)} and "
+                             f"{len(agg)}")
+    return {"file": files[-1].name, "events": len(events),
+            "round_ranges": len(rounds), "kernel_events": len(kernels),
+            "robust_agg_events": len(agg)}
+
+
+def zoo_obs_paths(dev, card) -> dict:
+    """Sparse-support MARINA, MARINA with the dense compressors and with
+    importance sampling, the traced twins and the profiled run."""
+    paths = {}
+    # the reference aggregates this mode with the rule's plain tree, on
+    # the support alone for VR rounds and densely otherwise: no kernel
+    # runs, so the path must launch none
+    paths["marina sparse_support cm"] = main_path(
+        dev, card, "marina sparse_support cm", SPARSE_SPEC,
+        lambda f, v, r: dict.fromkeys(COUNTED, 0))
+    for tag, over in ZOO_REST_PATHS:
+        spec = {**MAIN_SPEC, **over}
+        dense = spec["compressor"] != "randk"   # no wire: dense VR rounds
+        paths[tag] = main_path(
+            dev, card, tag, spec,
+            lambda f, v, r, dv=dense: expected_counts("cm", f, v,
+                                                      dense_vr=dv))
+    traced = {tag: traced_path(dev, card, tag, spec, want)
+              for tag, spec, want in TRACED_PATHS}
+    return {"paths": paths, "traced": traced,
+            "profile_trace": profile_phase(dev, card)}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", choices=("all", "kernels", "tracer"),
+    ap.add_argument("--phases", choices=("all", "kernels", "tracer",
+                                         "zoo_obs"),
                     default="all",
                     help="'kernels': the kernel phases alone (no paths, "
                          "no kernels line), e.g. to time another tree's "
                          "kernels with this script's measurements; "
                          "'tracer': the profiler's lost events and clock "
-                         "offset alone (no build)")
+                         "offset alone (no build); 'zoo_obs': the build and "
+                         "the paths of sparse support, the dense "
+                         "compressors, importance sampling and tracing "
+                         "alone (no kernels line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1340,6 +1587,16 @@ def main(argv=None) -> int:
     for name, log in _build.build().items():
         print(f"[build] {name}.cu ({time.time() - t0:.1f} s):\n{log.strip()}",
               flush=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    if args.phases == "zoo_obs":
+        got = zoo_obs_paths(dev, card)
+        (out_dir / "chip_smoke_zoo_obs.json").write_text(json.dumps(
+            {"card": card, "torch": torch.__version__, **got,
+             "wall_s": time.time() - t_start}, indent=1, default=str))
+        print(f"[done] the zoo_obs paths alone, "
+              f"{time.time() - t_start:.1f} s", flush=True)
+        return 0
     main_rows = [kernel_case(c, dev) for c in MAIN_CASES]
     wide_rows = [kernel_case(c, dev) for c in WIDE_CASES]
     norm_main = [r for c in NORM_MAIN_CASES for r in norm_case(c, dev)]
@@ -1385,8 +1642,6 @@ def main(argv=None) -> int:
              "load_masked_wide_cases": load_masked_wide,
              "load_norm_masked_main_cases": load_norm_masked_main,
              "load_norm_masked_wide_cases": load_norm_masked_wide}
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     quant = ops_path(dev, card)
     cases["block_quantize_cases"] = quant["cases"]
     if args.phases == "kernels":
@@ -1462,6 +1717,10 @@ def main(argv=None) -> int:
         dev, card, "marina RN cm", RN_SPEC,
         lambda f, v, r: expected_counts("cm", f, v, dense_vr=True),
         diverges=True)
+    zoo_obs = zoo_obs_paths(dev, card)
+    paths.update(zoo_obs["paths"])
+    paths.update({f"traced {tag}": {"launches": row["launches"]}
+                  for tag, row in zoo_obs["traced"].items()})
     path_specs = {"cm": MAIN_SPEC, "rfa": {**MAIN_SPEC, "aggregator": "rfa"},
                   "krum": {**MAIN_SPEC, "aggregator": "krum"},
                   "cm chaos": {**MAIN_SPEC, **CHAOS_SPEC},
@@ -1529,7 +1788,8 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          **cases,
-         "main_paths": paths, "path_profiles": profiles,
+         "main_paths": paths, "traced_paths": zoo_obs["traced"],
+         "profile_trace": zoo_obs["profile_trace"], "path_profiles": profiles,
          "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))
     print(f"[done] {time.time() - t_start:.1f} s in all", flush=True)

@@ -146,6 +146,13 @@ class RunSpec:
                 "E||C(x)-x||^2 <= delta_C ||x||^2, and unbiasedness "
                 "scaling (randk's d/K) breaks it; got "
                 f"compressor={self.compressor!r}")
+        if self.trace and self.agg_mode in ("all_to_all", "sparse_support"):
+            raise ValueError(
+                f"trace=True is not supported under agg_mode="
+                f"{self.agg_mode!r}: the sharded wire modes never hold the "
+                "stacked candidates in one place, so per-worker influence / "
+                "distance diagnostics have nothing to read. Use 'gspmd' or "
+                "'pallas'")
         if self.faults or self.fault_guard:
             plan = as_plan(self.faults)    # raises on unknown kinds/keys
             if self.fault_guard and self.agg_mode not in ("gspmd", "pallas"):
@@ -165,6 +172,15 @@ class RunSpec:
                         f"{n_active}) is >= 1/2, outside the guard's delta "
                         "budget — the drop-faulty-workers equivalence is "
                         "not guaranteed this round", stacklevel=2)
+        if self.method == "marina" and self.agg_mode == "sparse_support":
+            if (self.compressor != "randk"
+                    or not self.compressor_kwargs.get("common_randomness")):
+                raise ValueError(
+                    "agg_mode='sparse_support' needs compressor='randk' with "
+                    "compressor_kwargs={'ratio': ..., "
+                    "'common_randomness': True} so all workers share the "
+                    f"per-step support; got compressor={self.compressor!r} "
+                    f"kwargs={self.compressor_kwargs}")
         for fname in _KWARGS_FIELDS:
             val = getattr(self, fname)
             if not isinstance(val, dict):
@@ -234,7 +250,6 @@ class RunSpec:
         from repro_torch.core.byz_vr_marina import ByzVRMarinaConfig
         unported = [
             (self.task != "logreg", "task='lm' (ROADMAP queue 1, item 12)"),
-            (self.trace, "trace=True (ROADMAP queue 1, item 8)"),
             (self.optimizer != "none",
              "optimizers (ROADMAP queue 1, item 12)"),
         ]

@@ -4,8 +4,9 @@ trimmed mean (tm), RFA (smoothed Weiszfeld) and Krum. These plain
 versions are the gspmd backend and the reference the kernel backend is
 held to. RFA and Krum take global distances, summed over the leaves of a
 tree. ``Aggregator.tree_masked`` is the masked twin the fault guard and
-partial participation use. Not ported yet: the telemetry twin (ROADMAP
-queue 1, item 8).
+partial participation use; ``Aggregator.tree_traced`` (and
+``tree_masked(..., return_info=True)``) is the telemetry twin, the same
+aggregate with the rules' own intermediates.
 """
 from __future__ import annotations
 
@@ -319,58 +320,89 @@ class Aggregator:
         if self.bucket_size > 1 and self.rule != "mean":
             x = bucketize(key, x, self.bucket_size)
         if self.norm_based:
-            return self._norm_tree({"x": x})["x"]
+            return self._norm_tree({"x": x})[0]["x"]
         return self._rule(x)
 
     def tree(self, key, xs: dict) -> dict:
         """xs: tree with leading worker axis n on every leaf; one shared
         bucketing permutation across leaves."""
+        return self._tree(key, xs, False)
+
+    def tree_traced(self, key, xs: dict):
+        """``(tree(key, xs), info)``: the same aggregate by the same ops,
+        and the rule's own intermediates for ``obs.trace.RoundTrace``:
+        ``perm`` (the shared bucketing permutation, None without
+        bucketing), and for RFA ``bucket_weights`` (the last Weiszfeld
+        weights) and ``rfa_sq`` (the rows' squared distances to the
+        output, one more distance pass), for Krum ``bucket_weights`` (the
+        selection one-hot), ``krum_scores`` and ``krum_selected``.
+        Coordinate rules return ``perm`` alone."""
+        return self._tree(key, xs, True)
+
+    def _tree(self, key, xs: dict, return_info: bool):
         n = tu.leaves(xs)[0].shape[0]
+        info = {"perm": None}
         if self.bucket_size > 1 and self.rule != "mean":
             perm = R.permutation(key, n)
+            info["perm"] = perm
             xs = tu.tree_map(
                 lambda a: _bucketize_perm(a, perm, self.bucket_size), xs)
         if self.norm_based:
-            return self._norm_tree(xs)
-        return tu.tree_map(self._rule, xs)
+            z, extra = self._norm_tree(xs, return_info)
+            info.update(extra)
+        else:
+            z = tu.tree_map(self._rule, xs)
+        return (z, info) if return_info else z
 
-    def tree_masked(self, key, xs: dict, valid) -> dict:
+    def tree_masked(self, key, xs: dict, valid, return_info: bool = False):
         """Guarded twin of ``tree``: rows with ``valid[i] == False`` get
         exactly zero weight. Invalid rows are select-zeroed before any
         arithmetic, each bucket renormalizes over its valid members
         (``faults.guard.masked_bucket_matrix``), and a bucket with no
-        valid member is itself dropped."""
+        valid member is itself dropped. ``return_info`` returns ``(agg,
+        info)`` as ``tree_traced`` does."""
         from repro_torch.faults.guard import masked_bucket_matrix
         n = tu.leaves(xs)[0].shape[0]
         xs = _sanitize_rows(xs, valid)
         bvalid = valid
+        info = {"perm": None}
         if self.bucket_size > 1 and self.rule != "mean":
             perm = R.permutation(key, n)
+            info["perm"] = perm
             w_mat, bvalid = masked_bucket_matrix(perm, n, self.bucket_size,
                                                  valid)
             xs = tu.tree_map(lambda a: bucket_rows(w_mat, a).to(a.dtype), xs)
         if self.coordinatewise:
-            return tu.tree_map(lambda a: self._masked_rule(a, bvalid), xs)
-        if self.rule == "rfa":
-            return self._rfa_masked(xs, bvalid)
-        return self._krum_masked(xs, bvalid)
+            agg = tu.tree_map(lambda a: self._masked_rule(a, bvalid), xs)
+        elif self.rule == "rfa":
+            agg, extra = self._rfa_masked(xs, bvalid, return_info)
+            info.update(extra)
+        else:
+            agg, extra = self._krum_masked(xs, bvalid)
+            info.update(extra)
+        return (agg, info) if return_info else agg
 
-    def _rfa_masked(self, xs: dict, valid) -> dict:
+    def _rfa_masked(self, xs: dict, valid, return_info: bool = False):
         """Weiszfeld over the valid (already zeroed) rows: invalid rows
         get zero weight at every iteration; the start is the valid
-        mean."""
+        mean. -> (z, info)."""
         z = tu.tree_map(lambda a: masked_mean(a, valid), xs)
+        v = valid.float()
+        w = v / torch.clamp(v.sum(), min=1.0)
         for _ in range(self.iters):
             sq = _tree_sqdist_to(xs, z)
             w = torch.where(valid, 1.0 / torch.sqrt(sq + self.eps), 0.0)
             w = w / torch.clamp(torch.sum(w), min=1e-30)
             z = _tree_weighted_sum(w, xs)
-        return z
+        if not return_info:
+            return z, {}
+        return z, {"bucket_weights": w, "rfa_sq": _tree_sqdist_to(xs, z)}
 
-    def _krum_masked(self, xs: dict, valid) -> dict:
+    def _krum_masked(self, xs: dict, valid):
         """Krum over the valid rows: invalid rows and columns are +inf in
         the distance matrix, the neighbour count tracks the valid count c
-        (k = max(c - n_byz - 2, 1)), and an invalid row never wins."""
+        (k = max(c - n_byz - 2, 1)), and an invalid row never wins.
+        -> (z, info)."""
         n = tu.leaves(xs)[0].shape[0]
         d2 = _tree_pair_sqdists(xs)
         inf = torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device)
@@ -381,33 +413,47 @@ class Aggregator:
         srt = torch.sort(d2, dim=1).values
         scores = torch.where(near, srt, 0.0).sum(1)
         scores = torch.where(valid, scores, inf)
-        onehot = F.one_hot(torch.argmin(scores), n).float()
-        return _tree_weighted_sum(onehot, xs)
+        best = torch.argmin(scores)
+        onehot = F.one_hot(best, n).float()
+        return _tree_weighted_sum(onehot, xs), {
+            "bucket_weights": onehot, "krum_scores": scores,
+            "krum_selected": best}
 
-    def _norm_tree(self, xs: dict) -> dict:
-        return self._rfa_tree(xs) if self.rule == "rfa" else self._krum_tree(xs)
+    def _norm_tree(self, xs: dict, return_info: bool = False):
+        if self.rule == "rfa":
+            return self._rfa_tree(xs, return_info)
+        return self._krum_tree(xs)
 
-    def _rfa_tree(self, xs: dict) -> dict:
-        """Geometric median via smoothed Weiszfeld (Pillutla et al. 2022)."""
+    def _rfa_tree(self, xs: dict, return_info: bool = False):
+        """Geometric median via smoothed Weiszfeld (Pillutla et al. 2022).
+        -> (z, info)."""
         z = tu.tree_map(mean0, xs)
+        n = tu.leaves(xs)[0].shape[0]
+        w = torch.full((n,), 1.0 / n, dtype=torch.float32,
+                       device=tu.leaves(xs)[0].device)
         for _ in range(self.iters):
             sq = _tree_sqdist_to(xs, z)
             w = 1.0 / torch.sqrt(sq + self.eps)
             w = w / torch.sum(w)
             z = _tree_weighted_sum(w, xs)
-        return z
+        if not return_info:
+            return z, {}
+        return z, {"bucket_weights": w, "rfa_sq": _tree_sqdist_to(xs, z)}
 
-    def _krum_tree(self, xs: dict) -> dict:
+    def _krum_tree(self, xs: dict):
         """Krum (Eq. 15): the row minimizing the sum of squared distances
-        to its n - n_byz - 2 nearest neighbours."""
+        to its n - n_byz - 2 nearest neighbours. -> (z, info)."""
         n = tu.leaves(xs)[0].shape[0]
         d2 = _tree_pair_sqdists(xs)
         d2 = d2 + torch.diag(torch.full((n,), float("inf"), dtype=d2.dtype,
                                         device=d2.device))
         k = max(n - self.n_byz - 2, 1)
         scores = torch.sum(torch.sort(d2, dim=1).values[:, :k], dim=1)
-        onehot = F.one_hot(torch.argmin(scores), n).float()
-        return _tree_weighted_sum(onehot, xs)
+        best = torch.argmin(scores)
+        onehot = F.one_hot(best, n).float()
+        return _tree_weighted_sum(onehot, xs), {
+            "bucket_weights": onehot, "krum_scores": scores,
+            "krum_selected": best}
 
 
 def get_aggregator(name: str, *, bucket_size: int = 0, **kw) -> Aggregator:

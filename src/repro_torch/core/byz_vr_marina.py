@@ -37,7 +37,7 @@ class ByzVRMarinaConfig:
     aggregator: Aggregator = Aggregator("mean")
     compressor: Compressor = dataclasses.field(default_factory=identity)
     attack: Attack = dataclasses.field(default_factory=no_attack)
-    agg_mode: str = "gspmd"              # gspmd | pallas in this slice
+    agg_mode: str = "gspmd"              # gspmd | sparse_support | pallas
     fault_plan: Optional[object] = None  # faults.FaultPlan or None
     fault_guard: bool = False            # fail-closed non-finite masking
 
@@ -48,7 +48,7 @@ class ByzVRMarinaConfig:
         if self.agg_mode not in PORTED_BACKENDS:
             raise NotImplementedError(
                 f"agg_mode {self.agg_mode!r} is not ported yet (ROADMAP "
-                "queue 1, items 6b and 11)")
+                "queue 1, item 11)")
         if not 0.0 <= self.p <= 1.0:
             raise ValueError(f"p={self.p} must be a probability in [0, 1]")
         if self.n_workers < 1:

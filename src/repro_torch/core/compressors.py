@@ -1,18 +1,19 @@
 """Compression operators (port of ``repro/core/compressors.py``).
 
-Ported: ``identity``, ``rand_k`` (per-coordinate selection and the
-contiguous-block selection above ``_MAX_UNITS`` units), ``top_k``,
+Every entry of the reference's registry: ``identity``, ``rand_k``
+(per-coordinate selection and the contiguous-block selection above
+``_MAX_UNITS`` units), ``top_k``, ``l2_dithering``, ``natural_compression``,
 ``sign_compressor``, ``int8_quantization`` (blockwise ℓ2 dithering onto
-int8 levels) and ``bf16_cast``. ``dither`` and ``natural`` are named so
-specs validate, and raise ``NotImplementedError`` when built;
-``CONTRACTIVE`` names the entries with a contraction bound, ported or not,
-for ``byz_ef21``'s guard.
+int8 levels) and ``bf16_cast``. ``dither`` and ``natural`` have no kernel
+wire (``fallback_only``): their candidates reach the kernels dense.
+``CONTRACTIVE`` names the entries with a contraction bound, for
+``byz_ef21``'s guard.
 
 The float32 arithmetic is the reference's compiled code's: a sum over a
 leaf or a block follows XLA's windows of 32 lanes
 (``aggregators.xla_sum_lanes``), a division by a constant is a product
-with its rounded reciprocal, and the dither's ``scaled·127 + u`` is one
-fused multiply-add.
+with its rounded reciprocal, the dithers' ``scaled·s + u`` is one fused
+multiply-add, and XLA's code runs with subnormals flushed to zero.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as R
+from repro_torch import xla_math as X
 from repro_torch.core.aggregators import xla_sum_lanes
 from repro_torch.core.attacks import fma_f32
 
@@ -45,6 +47,11 @@ class Compressor:
 
     def bits_per_vector(self, d):
         return self.bits_fn(d)
+
+    def contractive_delta(self, d) -> Optional[float]:
+        """δ_C with E‖C(x) − x‖² <= δ_C ‖x‖² of one applied vector, or
+        None without a contraction bound."""
+        return None if self.contractive_fn is None else self.contractive_fn(d)
 
     def tree_bits(self, dims) -> float:
         return float(sum(self.bits_fn(int(d)) for d in dims))
@@ -143,6 +150,102 @@ def top_k(ratio: float = 0.1) -> Compressor:
         bits_fn=lambda d: _k(d) * (32 + 32),     # k values + k indices
         density_fn=_k, ratio=ratio,
         contractive_fn=lambda d: 1.0 - _k(d) / d, wire_format="sparse")
+
+
+def _uniform_like(key, x):
+    """U[0, 1) of x's shape on x's device; above 2^26 coordinates drawn in
+    chunks of 2^26 under fold_in(key, i), as the reference draws them."""
+    size = x.numel()
+    chunk = 1 << 26
+    if size <= chunk:
+        return R.uniform(key, x.shape).to(x.device)
+    us = [R.uniform(R.fold_in(key, i), (chunk,))
+          for i in range(-(-size // chunk))]
+    return torch.cat(us)[:size].reshape(x.shape).to(x.device)
+
+
+def l2_dithering(levels: int = 1) -> Compressor:
+    """Random dithering / QSGD ℓ2 quantization (Alistarh et al. 2017):
+    q(x)_i = ‖x‖₂·sign(x_i)·ξ_i, ξ_i a random rounding of |x_i|/‖x‖ onto
+    {0, 1/s, ..., 1}. Unbiased, ω <= min(d/s², √d/s). The norm's squares
+    are summed in XLA's lane order and rooted once (|x| for one
+    coordinate), the rounding
+    ``floor(scaled·s + u)`` is one fused multiply-add, and ``/ s`` a
+    product with the rounded 1/s."""
+    s = levels
+
+    def compress(key, x):
+        xf = X.ftz(x.reshape(-1).float())
+        # one coordinate: XLA rewrites sqrt(x·x) into |x| (no overflow)
+        norm = (xf.abs()[0] if xf.numel() == 1
+                else X.sqrt(xla_sum_lanes(X.ftz(xf * xf))))
+        zero = torch.zeros((), device=x.device)
+        scaled = torch.where(norm > 0, xf.abs() / torch.clamp(norm, min=1e-30),
+                             zero)
+        u = _uniform_like(key, xf)
+        level = torch.floor(fma_f32(X.ftz(scaled),
+                                    torch.tensor(float(s), device=x.device),
+                                    u))
+        sign = torch.where(xf == 0, xf, torch.sign(xf))    # keeps -0.0
+        out = X.ftz(X.ftz(norm * sign) * level) * _rcp(s).to(x.device)
+        return X.ftz(out).reshape(x.shape).to(x.dtype)
+
+    def omega(d):
+        return min(d / s**2, (d ** 0.5) / s)
+
+    # a coordinate is sent only when its level is positive: expected
+    # density s(s + √d), each with a sign and a level, beside the norm
+    def density(d):
+        return min(s * (s + d ** 0.5), d)
+
+    return Compressor(
+        name=f"dither_s{s}", compress=compress, omega_fn=omega,
+        bits_fn=lambda d: int(32 + density(d) * (2 + 32)),
+        density_fn=density,
+        # every block needs the whole vector's norm before a level
+        # decodes: no one-pass blockwise wire (int8 is the blockwise kind)
+        fallback_only=True)
+
+
+def _exp2_int(e):
+    """2^e of float32 integers e (and ±inf, NaN), exactly: the exponent
+    bits of a normal float32 where -126 <= e <= 127."""
+    finite = torch.isfinite(e)
+    ei = torch.where(finite, e, torch.zeros_like(e)).clamp(-126, 127)
+    p = ((ei.int() + 127) << 23).view(torch.float32)
+    return torch.where(finite, p, torch.where(e > 0, e, e * 0.0))
+
+
+def natural_compression() -> Compressor:
+    """Natural compression (Horvath et al. 2019a): the magnitude rounded at
+    random to one of its two neighbouring powers of two, unbiased, ω = 1/8;
+    wire 9 bits a coordinate (sign and exponent). ``log2`` is XLA's
+    ``log(x)`` times the rounded 1/log(2); subnormal magnitudes read as
+    zero, as XLA's code flushes them."""
+    rcp_ln2 = _rcp(X.log(torch.tensor(2.0)))
+
+    def compress(key, x):
+        xf = x.reshape(-1).float()
+        mag = X.ftz(xf.abs())
+        safe = torch.clamp(mag, min=1e-38)
+        lo = torch.floor(X.ftz(X.log(safe) * rcp_ln2.to(x.device)))
+        plo = _exp2_int(lo)
+        phi = plo * 2.0
+        p_hi = X.ftz(X.ftz(X.ftz(safe) - plo) / plo)     # P(round up)
+        u = _uniform_like(key, xf)
+        rounded = torch.where(u < p_hi, phi, plo)
+        out = torch.where(mag > 0, torch.sign(xf) * rounded,
+                          torch.zeros((), device=x.device))
+        return out.reshape(x.shape).to(x.dtype)
+
+    return Compressor(
+        name="natural", compress=compress,
+        omega_fn=lambda d: 1.0 / 8.0,
+        bits_fn=lambda d: 9 * d,
+        density_fn=lambda d: d,
+        # 9-bit sign and exponent words have no packed dtype; a wire would
+        # round-trip through int16 and save nothing over bf16
+        fallback_only=True)
 
 
 def _rcp(v) -> torch.Tensor:
@@ -253,20 +356,12 @@ def bf16_cast() -> Compressor:
         contractive_fn=lambda d: 2.0 ** -16, wire_format="bf16")
 
 
-def _not_ported(name):
-    def factory(**kw):
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet (ROADMAP queue 1, "
-            "item 6b)")
-    return factory
-
-
 REGISTRY = {
     "identity": identity,
     "randk": rand_k,
     "topk": top_k,
-    "dither": _not_ported("dither"),
-    "natural": _not_ported("natural"),
+    "dither": l2_dithering,
+    "natural": natural_compression,
     "sign": sign_compressor,
     "int8": int8_quantization,
     "bf16": bf16_cast,

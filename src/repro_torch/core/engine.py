@@ -12,9 +12,16 @@ are not finite get zero weight. Partial participation (``cfg.n_active``)
 samples a cohort per round (``sampled_worker_mask``), passed as an
 argument to the message phase (the reference publishes it through a
 module-level cell), aggregates over it alone, and freezes the per-worker
-state of the others (``carry_unsampled_state``). Telemetry twins and the
-buffered-ingest phase are not ported yet (ROADMAP queue 1, items 8 and
-10).
+state of the others (``carry_unsampled_state``).
+
+``make_engine_step(..., trace=True)`` builds the telemetry twin
+(``Method.step_traced``): the message phase takes ``trace=True``, runs
+the same kernel-driver calls with the rules' own intermediates returned,
+and builds a RoundTrace after them, which the metrics gain as
+``"trace"``; one code path, so the trajectory is the untraced step's, bit
+for bit. Estimators that own their message phase take the flag as an
+argument, as ``sampled``, and call ``phase_with_trace``. The
+buffered-ingest phase is not ported yet (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
 
 AGG_BACKENDS = ("gspmd", "all_to_all", "sparse_support", "pallas")
-PORTED_BACKENDS = ("gspmd", "pallas")
+PORTED_BACKENDS = ("gspmd", "sparse_support", "pallas")
 
 
 def apply_attack(cfg, key, cand: dict, stats_valid=None) -> dict:
@@ -61,16 +68,24 @@ def stacked_grads(loss_fn, params: dict, batches: dict, keys):
     return losses.mean(), grads
 
 
-def aggregate(cfg, key, sent: dict, valid=None) -> dict:
+def aggregate(cfg, key, sent: dict, valid=None, return_info: bool = False):
     """Backend dispatch for g = ARAgg(sent_1, ..., sent_n); ``valid``
-    (n,) gives invalid rows zero weight through the masked twins."""
-    if cfg.agg_mode == "gspmd":
+    (n,) gives invalid rows zero weight through the masked twins.
+    ``sparse_support`` changes only MARINA's VR rounds (the estimator
+    aggregates the shared support itself); every other aggregation under
+    it is the gspmd one. ``return_info`` (the telemetry twin) returns
+    ``(agg, info)``, the rules' intermediates, from the same calls."""
+    if cfg.agg_mode in ("gspmd", "sparse_support"):
         if valid is not None:
-            return cfg.aggregator.tree_masked(key, sent, valid)
+            return cfg.aggregator.tree_masked(key, sent, valid,
+                                              return_info=return_info)
+        if return_info:
+            return cfg.aggregator.tree_traced(key, sent)
         return cfg.aggregator.tree(key, sent)
     if cfg.agg_mode == "pallas":
         from repro_torch.core.sharded_agg import tree_aggregate_pallas
-        return tree_aggregate_pallas(cfg, key, sent, valid=valid)
+        return tree_aggregate_pallas(cfg, key, sent, valid=valid,
+                                     return_info=return_info)
     raise NotImplementedError(
         f"agg_mode {cfg.agg_mode!r} is not ported yet (ROADMAP queue 1, "
         "item 11)")
@@ -112,23 +127,54 @@ def _fusable(cfg) -> bool:
     """The pallas backend with no attack, or one that rides into the
     kernels' load."""
     return cfg.agg_mode == "pallas" and (
-        cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF")
-        or cfg.attack.coord_apply is not None)
+        clean_attack(cfg) or cfg.attack.coord_apply is not None)
 
 
-def _fused_phase(cfg, agg_key, cand, valid=None):
+def clean_attack(cfg) -> bool:
+    """No byzantine row is forged: no byzantines, or NA / LF."""
+    return cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF")
+
+
+def _fused_phase(cfg, agg_key, cand, valid=None, return_info: bool = False):
     """Attack and aggregation in the kernels (``_fusable`` configs), the
     attack's statistics and the aggregate over the ``valid`` rows."""
     from repro_torch.core.sharded_agg import tree_aggregate_pallas
-    if cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF"):
-        return tree_aggregate_pallas(cfg, agg_key, cand, valid=valid)
+    if clean_attack(cfg):
+        return tree_aggregate_pallas(cfg, agg_key, cand, valid=valid,
+                                     return_info=return_info)
     mask = cfg.byz_mask(tu.leaves(cand)[0].device)
     ctx = fusable_attack_ctx(cfg, cand, mask, stats_valid=valid)
     return tree_aggregate_pallas(cfg, agg_key, cand, attack_ctx=ctx,
-                                 valid=valid)
+                                 valid=valid, return_info=return_info)
 
 
-def participating_message_phase(cfg, attack_key, agg_key, cand, sampled):
+def _fault_mask(cfg, attack_key, trace, n, kinds):
+    """(n,) the rows the fault plan hit this round (recomputed from the
+    plan and the attack key), for the trace alone; None untraced or
+    without a plan."""
+    if not trace or cfg.fault_plan is None:
+        return None
+    from repro_torch.faults import inject
+    return inject.injected_mask(cfg.fault_plan, attack_key, n, kinds)
+
+
+def _result(cfg, agg_key, out, trace, sent, **kw):
+    """A phase's result: the backend's aggregate or, with ``trace``,
+    ``(agg, RoundTrace)`` from its ``(agg, info)`` and the attacked stack
+    ``sent`` (a thunk where the kernels attacked in their load: the trace
+    alone materializes it)."""
+    if not trace:
+        return out
+    from repro_torch.obs import trace as obs_trace
+    agg, info = out
+    if callable(sent):
+        sent = sent()
+    return agg, obs_trace._build_trace(cfg, agg_key, sent, agg, info=info,
+                                       **kw)
+
+
+def participating_message_phase(cfg, attack_key, agg_key, cand, sampled,
+                                trace=False):
     """``message_phase`` over the sampled cohort: non-sampled rows get zero
     weight through the masked twins, the attack's statistics see only the
     sampled good workers, and under the guard the validity is ``sampled``
@@ -140,21 +186,35 @@ def participating_message_phase(cfg, attack_key, agg_key, cand, sampled):
     if isinstance(cand, wire.WireCandidates):
         if plan is not None and plan.message_faults:
             cand = inject.inject_wire(plan, attack_key, cand)
+        fault_mask = _fault_mask(cfg, attack_key, trace, cand.n,
+                                 inject.MESSAGE_FAULTS)
         cand = wire.reconstruct(cand)
-    elif plan is not None and plan.tensor_faults:
-        cand = inject.inject_candidates(plan, attack_key, cand)
+    else:
+        if plan is not None and plan.tensor_faults:
+            cand = inject.inject_candidates(plan, attack_key, cand)
+        fault_mask = _fault_mask(cfg, attack_key, trace,
+                                 tu.leaves(cand)[0].shape[0],
+                                 inject.TENSOR_FAULTS)
+    kw = dict(fault_mask=fault_mask, sampled=sampled)
     if cfg.fault_guard:
         valid_pre = fguard.finite_row_mask(cand) & sampled
         sent = apply_attack(cfg, attack_key, cand, stats_valid=valid_pre)
-        return aggregate(cfg, agg_key, sent,
-                         valid=fguard.finite_row_mask(sent) & sampled)
+        valid = fguard.finite_row_mask(sent) & sampled
+        out = aggregate(cfg, agg_key, sent, valid=valid, return_info=trace)
+        return _result(cfg, agg_key, out, trace, sent, valid=valid, **kw)
+    kw.update(valid=sampled, record_guard=False)
     if _fusable(cfg):
-        return _fused_phase(cfg, agg_key, cand, sampled)
+        out = _fused_phase(cfg, agg_key, cand, sampled, return_info=trace)
+        return _result(cfg, agg_key, out, trace,
+                       lambda: apply_attack(cfg, attack_key, cand,
+                                            stats_valid=sampled), **kw)
     sent = apply_attack(cfg, attack_key, cand, stats_valid=sampled)
-    return aggregate(cfg, agg_key, sent, valid=sampled)
+    out = aggregate(cfg, agg_key, sent, valid=sampled, return_info=trace)
+    return _result(cfg, agg_key, out, trace, sent, **kw)
 
 
-def guarded_message_phase(cfg, attack_key, agg_key, cand):
+def guarded_message_phase(cfg, attack_key, agg_key, cand, trace=False,
+                          fault_mask=None):
     """Fail-closed twin of ``message_phase`` over dense candidates: rows
     that are not finite in every coordinate get zero weight, as if the
     workers had been dropped. The attack's statistics see only honest and
@@ -165,37 +225,75 @@ def guarded_message_phase(cfg, attack_key, agg_key, cand):
     from repro_torch.faults import guard as fguard
     valid_pre = fguard.finite_row_mask(cand)
     if _fusable(cfg):
-        return _fused_phase(cfg, agg_key, cand, valid_pre)
+        out = _fused_phase(cfg, agg_key, cand, valid_pre, return_info=trace)
+        return _result(cfg, agg_key, out, trace,
+                       lambda: apply_attack(cfg, attack_key, cand,
+                                            stats_valid=valid_pre),
+                       valid=valid_pre, fault_mask=fault_mask)
     sent = apply_attack(cfg, attack_key, cand, stats_valid=valid_pre)
-    return aggregate(cfg, agg_key, sent,
-                     valid=fguard.finite_row_mask(sent))
+    valid = fguard.finite_row_mask(sent)
+    out = aggregate(cfg, agg_key, sent, valid=valid, return_info=trace)
+    return _result(cfg, agg_key, out, trace, sent, valid=valid,
+                   fault_mask=fault_mask)
 
 
-def message_phase(cfg, attack_key, agg_key, cand, sampled=None):
+def message_phase(cfg, attack_key, agg_key, cand, sampled=None,
+                  trace=False):
     """Lines 9-10 of the round: omniscient attack, then robust
     aggregation. ``cand`` is a stacked dense tree or, on the wire path, a
     ``wire.WireCandidates`` payload. A fault plan injects its message
     faults first; ``cfg.fault_guard`` takes the guarded phases;
     ``sampled`` (the round's cohort) takes
-    ``participating_message_phase``."""
+    ``participating_message_phase``. ``trace`` (the telemetry twin)
+    returns ``(agg, RoundTrace)``: the same calls, with the backends'
+    ``return_info``, and the trace built after them
+    (``obs.trace._build_trace``)."""
     from repro_torch.core import wire
     from repro_torch.faults import inject
     if sampled is not None:
         return participating_message_phase(cfg, attack_key, agg_key, cand,
-                                           sampled)
+                                           sampled, trace)
     plan = cfg.fault_plan
     if isinstance(cand, wire.WireCandidates):
         if plan is not None and plan.message_faults:
             cand = inject.inject_wire(plan, attack_key, cand)
-        return wire.wire_message_phase(cfg, attack_key, agg_key, cand)
+        out = wire.wire_message_phase(cfg, attack_key, agg_key, cand,
+                                      return_info=trace)
+        if not trace:
+            return out
+        agg, info, valid = out
+        return _result(cfg, agg_key, (agg, info), trace,
+                       lambda: apply_attack(cfg, attack_key,
+                                            wire.reconstruct(cand),
+                                            stats_valid=valid),
+                       valid=valid,
+                       fault_mask=_fault_mask(cfg, attack_key, trace, cand.n,
+                                              inject.MESSAGE_FAULTS))
     if plan is not None and plan.tensor_faults:
         cand = inject.inject_candidates(plan, attack_key, cand)
+    fault_mask = _fault_mask(cfg, attack_key, trace,
+                             tu.leaves(cand)[0].shape[0],
+                             inject.TENSOR_FAULTS)
     if cfg.fault_guard:
-        return guarded_message_phase(cfg, attack_key, agg_key, cand)
+        return guarded_message_phase(cfg, attack_key, agg_key, cand, trace,
+                                     fault_mask)
     if _fusable(cfg):
-        return _fused_phase(cfg, agg_key, cand)
+        out = _fused_phase(cfg, agg_key, cand, return_info=trace)
+        return _result(cfg, agg_key, out, trace,
+                       lambda: apply_attack(cfg, attack_key, cand),
+                       fault_mask=fault_mask)
     sent = apply_attack(cfg, attack_key, cand)
-    return aggregate(cfg, agg_key, sent)
+    out = aggregate(cfg, agg_key, sent, return_info=trace)
+    return _result(cfg, agg_key, out, trace, sent, fault_mask=fault_mask)
+
+
+def phase_with_trace(cfg, attack_key, agg_key, cand, sampled=None,
+                     trace=False):
+    """``(message_phase(...), None)``, or with ``trace`` ``(agg,
+    RoundTrace)``: for estimators that run the message phase themselves
+    (MARINA's two branches)."""
+    out = message_phase(cfg, attack_key, agg_key, cand, sampled, trace)
+    return out if trace else (out, None)
 
 
 def carry_unsampled_state(state: dict, updates: dict, sampled,
@@ -239,13 +337,15 @@ def maybe_corrupt(cfg, corrupt_fn, batch):
 class RoundOutput:
     """What an estimator hands the engine: ``cand`` (attacked and
     aggregated by the engine, optionally post-processed by ``finalize``)
-    or ``g_new`` (the estimator ran the message phase itself)."""
+    or ``g_new`` (the estimator ran the message phase itself, with its
+    RoundTrace in ``trace`` when the telemetry twin runs)."""
     loss: Any
     cand: Any = None
     finalize: Optional[Callable] = None
     g_new: Any = None
     updates: Optional[dict] = None
     metrics: Optional[dict] = None
+    trace: Any = None
 
 
 class GradientEstimator:
@@ -263,9 +363,10 @@ class GradientEstimator:
         raise NotImplementedError
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None) -> RoundOutput:
-        """``sampled``: the round's cohort (None at full participation),
-        for estimators that run the message phase themselves."""
+              keys, sampled=None, trace=False) -> RoundOutput:
+        """``sampled``: the round's cohort (None at full participation);
+        ``trace``: whether the telemetry twin runs. Both for estimators
+        that run the message phase themselves (``phase_with_trace``)."""
         raise NotImplementedError
 
     def round_bits(self, cfg, d: int, full_round: bool = True) -> int:
@@ -288,7 +389,12 @@ def make_engine_init(cfg, loss_fn, estimator: GradientEstimator,
 
 
 def make_engine_step(cfg, loss_fn, estimator: GradientEstimator,
-                     corrupt_fn: Optional[Callable] = None):
+                     corrupt_fn: Optional[Callable] = None,
+                     trace: bool = False):
+    """The round. ``trace=True`` builds the telemetry twin: the same
+    aggregation calls with ``message_phase(..., trace=True)``, and the
+    metrics gain ``"trace"``, the RoundTrace (None where an estimator
+    aggregated without the shared phase: sparse-support rounds)."""
     est = estimator
     assert est.rng[-2:] == ("attack", "agg"), est.rng
 
@@ -304,13 +410,15 @@ def make_engine_step(cfg, loss_fn, estimator: GradientEstimator,
         batch = maybe_corrupt(cfg, corrupt_fn, batch)
         anchor = maybe_corrupt(cfg, corrupt_fn, anchor)
         ro = est.round(cfg, loss_fn, state, new_params, old_params, batch,
-                       anchor, keys, sampled=sampled)
+                       anchor, keys, sampled=sampled, trace=trace)
         updates = dict(ro.updates or {})
+        rt = None
         if ro.g_new is not None:
             g = ro.g_new
+            rt = ro.trace
         else:
-            agg = message_phase(cfg, keys["attack"], keys["agg"], ro.cand,
-                                sampled)
+            agg, rt = phase_with_trace(cfg, keys["attack"], keys["agg"],
+                                       ro.cand, sampled, trace)
             if ro.finalize is not None:
                 g, fin_updates = ro.finalize(agg)
                 updates.update(fin_updates)
@@ -326,6 +434,8 @@ def make_engine_step(cfg, loss_fn, estimator: GradientEstimator,
                      "opt_state": new_opt, "step": state["step"] + 1}
         metrics = {"loss": ro.loss, **(ro.metrics or {}),
                    "g_norm": torch.sqrt(tu.tree_norm_sq(g))}
+        if trace:
+            metrics["trace"] = rt
         return new_state, metrics
 
     return step
@@ -333,12 +443,15 @@ def make_engine_step(cfg, loss_fn, estimator: GradientEstimator,
 
 @dataclasses.dataclass(frozen=True)
 class Method:
-    """A Byzantine-robust training method over the shared engine."""
+    """A Byzantine-robust training method over the shared engine;
+    ``step_traced`` is the telemetry twin of ``step`` (metrics carry a
+    ``"trace"`` RoundTrace, the trajectory is the same bit for bit)."""
     name: str
     estimator: GradientEstimator
     init: Callable
     step: Callable
     cfg: Any
+    step_traced: Optional[Callable] = None
 
     def round_bits(self, d: int, full_round: bool = True) -> int:
         return self.estimator.round_bits(self.cfg, d, full_round)
@@ -353,7 +466,9 @@ def make_method(name: str, cfg, loss_fn,
     est = E.get_estimator(name, cfg, **est_kw)
     return Method(name=name, estimator=est, cfg=cfg,
                   init=make_engine_init(cfg, loss_fn, est, corrupt_fn),
-                  step=make_engine_step(cfg, loss_fn, est, corrupt_fn))
+                  step=make_engine_step(cfg, loss_fn, est, corrupt_fn),
+                  step_traced=make_engine_step(cfg, loss_fn, est, corrupt_fn,
+                                               trace=True))
 
 
 def list_methods():

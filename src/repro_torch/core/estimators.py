@@ -23,8 +23,11 @@ and the metrics.
 
 Where the reference branches on a Bernoulli coin with ``lax.cond``
 (MARINA's c_k, SVRG's refresh), the coin is read on the host and a
-Python ``if`` computes only the branch taken. The sparse-support MARINA
-variant (``agg_mode="sparse_support"``) is not ported yet.
+Python ``if`` computes only the branch taken. Under
+``agg_mode="sparse_support"`` MARINA takes ``MarinaSparseEstimator``:
+common-randomness RandK, whose VR rounds attack and aggregate the shared
+support alone, with the rule's plain tree (no kernel, as in the
+reference).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
 from repro_torch.core.aggregators import mean0, xla_sum_rows
 from repro_torch.core.engine import (GradientEstimator, RoundOutput,
-                                     message_phase, stacked_grads)
+                                     apply_attack, message_phase,
+                                     phase_with_trace, stacked_grads)
 
 
 class CompressedUploadBits:
@@ -71,7 +75,7 @@ class MarinaEstimator(GradientEstimator):
         return message_phase(cfg, k_attack, k_agg, grads), {}
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None):
+              keys, sampled=None, trace=False):
         from repro_torch.core import wire
 
         n = cfg.n_workers
@@ -79,8 +83,8 @@ class MarinaEstimator(GradientEstimator):
         wkeys = tu.per_worker_keys(keys["grad"], n)
         if c_k:
             loss, grads = stacked_grads(loss_fn, params, anchor, wkeys)
-            g = message_phase(cfg, keys["attack"], keys["agg"], grads,
-                              sampled)
+            g, rt = phase_with_trace(cfg, keys["attack"], keys["agg"], grads,
+                                     sampled, trace)
         else:
             qkeys = tu.per_worker_keys(
                 keys["q"], n, common=cfg.compressor.common_randomness)
@@ -100,12 +104,12 @@ class MarinaEstimator(GradientEstimator):
             else:
                 qs = tu.compress_stacked(cfg.compressor, qkeys, deltas)
                 cand = {k: state["g"][k][None] + qs[k] for k in sorted(qs)}
-            g = message_phase(cfg, keys["attack"], keys["agg"], cand,
-                              sampled)
+            g, rt = phase_with_trace(cfg, keys["attack"], keys["agg"], cand,
+                                     sampled, trace)
         dims = [p.numel() for p in tu.leaves(params)]
         wire_bits = (32.0 * sum(dims) if c_k else wire.tree_wire_bits(
             cfg.compressor, tu.tree_map(lambda p: p[None], params)))
-        return RoundOutput(loss=loss, g_new=g,
+        return RoundOutput(loss=loss, g_new=g, trace=rt,
                            metrics={"c_k": int(c_k), "wire_bits": wire_bits})
 
     def round_bits(self, cfg, d, full_round=True):
@@ -116,6 +120,79 @@ class MarinaEstimator(GradientEstimator):
     def expected_bits(self, cfg, d):
         return (cfg.p * 32 * d
                 + (1 - cfg.p) * cfg.compressor.bits_per_vector(d))
+
+
+def _support_take(flat, idx, blk: int):
+    """(..., d) -> (..., K, blk): the K selection units ``idx`` of each
+    row, the last unit zero-padded."""
+    xf = torch.nn.functional.pad(flat, (0, (-flat.shape[-1]) % blk))
+    return xf.reshape(flat.shape[:-1] + (-1, blk))[..., idx, :]
+
+
+def _support_put(leaf, idx, blk: int, vals):
+    """``leaf`` with its K units ``idx`` set to ``vals`` (K, blk), in
+    float32; every other coordinate unchanged."""
+    d = leaf.numel()
+    xf = torch.nn.functional.pad(leaf.reshape(-1).float(), (0, (-d) % blk))
+    xf = xf.reshape(-1, blk).clone()
+    xf[idx] = vals.float()
+    return xf.reshape(-1)[:d].reshape(leaf.shape).to(leaf.dtype)
+
+
+@dataclasses.dataclass
+class MarinaSparseEstimator(MarinaEstimator):
+    """Sparse-support MARINA: common-randomness RandK, so every worker
+    sends the same K units of each leaf, and a VR round attacks and
+    aggregates those units alone (the rule's plain tree over the (n, K,
+    blk) leaves); off the support g^k stays as it was, bit for bit.
+    Full rounds attack and aggregate the dense gradients the same way.
+    No kernel runs on this path, in the reference or here."""
+    name = "marina_sparse"
+
+    def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
+              keys, sampled=None, trace=False):
+        from repro_torch.core.compressors import unit_partition
+
+        n = cfg.n_workers
+        ratio = cfg.compressor.ratio          # checked by _marina_factory
+        c_k = bool(R.bernoulli(keys["bern"], cfg.p))
+        wkeys = tu.per_worker_keys(keys["grad"], n)
+        if c_k:
+            loss, grads = stacked_grads(loss_fn, params, anchor, wkeys)
+            sent = apply_attack(cfg, keys["attack"], grads)
+            return RoundOutput(loss=loss,
+                               g_new=cfg.aggregator.tree(keys["agg"], sent),
+                               metrics={"c_k": 1})
+        # the shared per-leaf supports: the same key for every worker
+        names = sorted(state["g"])
+        meta = []
+        for i, name in enumerate(names):
+            blk, n_units = unit_partition(state["g"][name].numel())
+            k_units = max(int(ratio * n_units), 1)
+            idx = R.permutation(R.fold_in(keys["q"], i), n_units)[:k_units]
+            meta.append((blk, idx, n_units / k_units))
+
+        def one(b, kg):
+            gn, ln = grad_and_value(loss_fn)(params, b, kg)
+            go, _ = grad_and_value(loss_fn)(old_params, b, kg)
+            return ln, tu.tree_sub(gn, go)
+
+        losses, deltas = vmap(one)(batch, wkeys)
+        # the candidates on the support: g^k's units plus the scaled
+        # delta's, one leaf per name (the reference's tuple, in its order)
+        cand = {}
+        for name, (blk, idx, scale) in zip(names, meta):
+            dv = _support_take(deltas[name].reshape(n, -1).float(), idx,
+                               blk) * scale
+            base = _support_take(state["g"][name].reshape(-1).float(), idx,
+                                 blk)
+            cand[name] = base[None] + dv
+        sent = apply_attack(cfg, keys["attack"], cand)
+        agg = cfg.aggregator.tree(keys["agg"], sent)
+        g_new = {name: _support_put(state["g"][name], idx, blk, agg[name])
+                 for name, (blk, idx, _) in zip(names, meta)}
+        return RoundOutput(loss=losses.mean(), g_new=g_new,
+                           metrics={"c_k": 0})
 
 
 @dataclasses.dataclass
@@ -134,7 +211,7 @@ class SGDEstimator(GradientEstimator):
             _zeros_like_f32(params), cfg.n_workers)}
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None):
+              keys, sampled=None, trace=False):
         wkeys = tu.per_worker_keys(keys["grad"], cfg.n_workers)
         loss, grads = stacked_grads(loss_fn, params, batch, wkeys)
         if self.momentum > 0.0:
@@ -161,7 +238,7 @@ class CSGDEstimator(CompressedUploadBits, GradientEstimator):
         return tu.tree_zeros_like(params), {}
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None):
+              keys, sampled=None, trace=False):
         from repro_torch.core import wire
 
         n = cfg.n_workers
@@ -201,7 +278,7 @@ class DianaEstimator(CompressedUploadBits, GradientEstimator):
         return _zeros_like_f32(params), extras
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None):
+              keys, sampled=None, trace=False):
         from repro_torch.core import wire
 
         n = cfg.n_workers
@@ -250,7 +327,7 @@ class MVREstimator(GradientEstimator):
                                          "worker_v": v0}
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None):
+              keys, sampled=None, trace=False):
         wkeys = tu.per_worker_keys(keys["grad"], cfg.n_workers)
         prev = state["prev_params"]
         alpha = self.alpha
@@ -283,7 +360,7 @@ class SVRGEstimator(GradientEstimator):
                                             "worker_full": fulls}
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None):
+              keys, sampled=None, trace=False):
         wkeys = tu.per_worker_keys(keys["grad"], cfg.n_workers)
         if bool(R.bernoulli(keys["bern"], cfg.p)):
             w = params
@@ -322,7 +399,7 @@ class ByzEF21Estimator(CompressedUploadBits, GradientEstimator):
         return message_phase(cfg, k_attack, k_agg, g_i), {"worker_g": g_i}
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None):
+              keys, sampled=None, trace=False):
         from repro_torch.core import wire
 
         n = cfg.n_workers
@@ -367,7 +444,7 @@ class CMFilterEstimator(CompressedUploadBits, GradientEstimator):
                    "worker_u": tu.tree_broadcast_leading(z, cfg.n_workers)}
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None):
+              keys, sampled=None, trace=False):
         from repro_torch.core import wire
 
         n = cfg.n_workers
@@ -455,7 +532,7 @@ class SAGAEstimator(GradientEstimator):
         }
 
     def round(self, cfg, loss_fn, state, params, old_params, batch, anchor,
-              keys, sampled=None):
+              keys, sampled=None, trace=False):
         table = state["worker_table"]
         n, m = tu.leaves(table)[0].shape[:2]
         b = min(int(self.batch_size), m)
@@ -486,6 +563,13 @@ class SAGAEstimator(GradientEstimator):
 
 
 def _marina_factory(cfg, **kw):
+    if cfg.agg_mode == "sparse_support":
+        comp = cfg.compressor
+        if not (comp.common_randomness and comp.ratio is not None):
+            raise ValueError(
+                "agg_mode='sparse_support' needs a common-randomness RandK "
+                f"compressor, got {comp.name!r}")
+        return MarinaSparseEstimator(**kw)
     return MarinaEstimator(**kw)
 
 

@@ -24,8 +24,13 @@ valid members), and the rules track the (m,) bucket validity ``bvalid``.
 The giant-n tier zeroes the rows before bucketing and hands ``bvalid`` to
 the drivers.
 
-The ``all_to_all`` backend, staleness weights and telemetry are not
-ported yet (ROADMAP queue 1, items 8, 10 and 11).
+``return_info=True`` (the telemetry twin, ``obs.trace``) returns
+``(tree, info)``: the RFA / Krum drivers' own intermediates (see
+``kernels.norm_agg``), ``{}`` for the coordinate rules, from the same
+launches as ``return_info=False``.
+
+The ``all_to_all`` backend and staleness weights are not ported yet
+(ROADMAP queue 1, items 10 and 11).
 """
 from __future__ import annotations
 
@@ -72,20 +77,21 @@ def _bucket_operator(agg, key, n, device, valid=None):
 def _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds, valid=None,
                bvalid=None):
     """The rule over kernel inputs ``srcs`` (dense segments or WireSrcs):
-    one (d_j,) aggregate per input."""
+    (one (d_j,) aggregate per input, the drivers' info)."""
     if agg.rule == "rfa":
         return norm_agg.rfa_segments(
             srcs, w_mat=w_mat, mask=mask, means=means, stds=stds,
             attack=attack_fn, iters=agg.iters, eps=agg.eps, valid=valid,
-            bvalid=bvalid)
+            bvalid=bvalid, return_info=True)
     if agg.rule == "krum":
         return norm_agg.krum_segments(
             srcs, w_mat=w_mat, mask=mask, means=means, stds=stds,
-            attack=attack_fn, n_byz=agg.n_byz, valid=valid, bvalid=bvalid)
+            attack=attack_fn, n_byz=agg.n_byz, valid=valid, bvalid=bvalid,
+            return_info=True)
     rule = COORD_KERNEL_RULE[agg.rule]
     return [robust_agg(src, w_mat, mask, mu, sd, valid, bvalid, rule=rule,
                        trim=agg.trim, attack=attack_fn)
-            for src, mu, sd in zip(srcs, means, stds)]
+            for src, mu, sd in zip(srcs, means, stds)], {}
 
 
 def _segments(leaves, attack_ctx):
@@ -148,12 +154,13 @@ def _materialize_attack_flat(flats, dtypes, attack_ctx):
 
 
 def _tree_aggregate_large_n(cfg, key, sent: dict, attack_ctx=None,
-                            valid=None) -> dict:
+                            valid=None):
     """Giant-n tier of ``tree_aggregate_pallas`` (more than
     ``MAX_FUSED_WORKERS`` workers): bucket first, so that no kernel holds
     the whole worker axis, then run the rule on the m bucketed rows of
     each leaf (module docstring). ``Aggregator.tree`` (``tree_masked``
-    under ``valid``) over the attacked candidates is its reference."""
+    under ``valid``) over the attacked candidates is its reference.
+    -> (tree, the drivers' info)."""
     agg = cfg.aggregator
     leaves = tu.leaves(sent)
     n = leaves[0].shape[0]
@@ -175,36 +182,37 @@ def _tree_aggregate_large_n(cfg, key, sent: dict, attack_ctx=None,
             flats = [w_mat @ xf for xf in flats]
     flats = [xf.contiguous() for xf in flats]
     m = flats[0].shape[0]
+    info = {}
     if agg.rule in COORD_KERNEL_RULE:
         outs = [agg._rule(xf) if bvalid is None
                 else agg._masked_rule(xf, bvalid) for xf in flats]
     elif agg.rule == "rfa":
-        if m <= MAX_FUSED_WORKERS:
-            outs = norm_agg.rfa_segments(flats, iters=agg.iters, eps=agg.eps,
-                                         bvalid=bvalid)
-        else:
-            outs = norm_agg.rfa_segments_blocked(flats, iters=agg.iters,
-                                                 eps=agg.eps, bvalid=bvalid)
-    elif m <= MAX_FUSED_WORKERS:
-        outs = norm_agg.krum_segments(flats, n_byz=agg.n_byz, bvalid=bvalid)
+        driver = (norm_agg.rfa_segments if m <= MAX_FUSED_WORKERS
+                  else norm_agg.rfa_segments_blocked)
+        outs, info = driver(flats, iters=agg.iters, eps=agg.eps,
+                            bvalid=bvalid, return_info=True)
     else:
-        outs = norm_agg.krum_segments_blocked(flats, n_byz=agg.n_byz,
-                                              bvalid=bvalid)
+        driver = (norm_agg.krum_segments if m <= MAX_FUSED_WORKERS
+                  else norm_agg.krum_segments_blocked)
+        outs, info = driver(flats, n_byz=agg.n_byz, bvalid=bvalid,
+                            return_info=True)
     return tu.unflatten(sent, [o.reshape(a.shape[1:]).to(a.dtype)
-                               for o, a in zip(outs, leaves)])
+                               for o, a in zip(outs, leaves)]), info
 
 
 def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None,
-                          valid=None) -> dict:
+                          valid=None, return_info: bool = False):
     """Aggregate the stacked candidate tree through the kernels, leaf-wise
     by segment, with one shared bucket operator; more than
-    ``MAX_FUSED_WORKERS`` workers take the giant-n tier. ``valid`` as in
-    the module docstring."""
+    ``MAX_FUSED_WORKERS`` workers take the giant-n tier. ``valid`` and
+    ``return_info`` as in the module docstring."""
     agg = cfg.aggregator
     leaves = tu.leaves(sent)
     n = leaves[0].shape[0]
     if n > MAX_FUSED_WORKERS:
-        return _tree_aggregate_large_n(cfg, key, sent, attack_ctx, valid)
+        tree, info = _tree_aggregate_large_n(cfg, key, sent, attack_ctx,
+                                             valid)
+        return (tree, info) if return_info else tree
     w_mat, bvalid = _bucket_operator(agg, key, n, leaves[0].device, valid)
     attack_fn = mask = None
     ctx = None
@@ -215,18 +223,19 @@ def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None,
             None if attack_ctx.means is None else tu.leaves(attack_ctx.means),
             None if attack_ctx.stds is None else tu.leaves(attack_ctx.stds))
     segs, means, stds, splits = _segments(leaves, ctx)
-    outs = _rule_outs(agg, segs, w_mat, attack_fn, mask, means, stds, valid,
-                      bvalid)
+    outs, info = _rule_outs(agg, segs, w_mat, attack_fn, mask, means, stds,
+                            valid, bvalid)
     tree_out = [None] * len(leaves)
     for out, split in zip(outs, splits):
         for i, off, sz in split:
             tree_out[i] = (out[off:off + sz].reshape(leaves[i].shape[1:])
                            .to(leaves[i].dtype))
-    return tu.unflatten(sent, tree_out)
+    tree = tu.unflatten(sent, tree_out)
+    return (tree, info) if return_info else tree
 
 
 def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None,
-                               valid=None) -> dict:
+                               valid=None, return_info: bool = False):
     """Wire twin of ``tree_aggregate_pallas``: each leaf launches the
     kernels on its ``quantize.WireSrc`` (no packing: payloads do not
     concatenate); ``attack_ctx`` carries per-leaf flat stat lists. More
@@ -244,8 +253,9 @@ def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None,
                     for name, st, sh in zip(wc.names, stats, wc.shapes)}
             ctx = AttackCtx(ctx.fn, ctx.mask, unflat(ctx.means),
                             unflat(ctx.stds))
-        return _tree_aggregate_large_n(cfg, key, W.reconstruct(wc), ctx,
-                                       valid)
+        tree, info = _tree_aggregate_large_n(cfg, key, W.reconstruct(wc),
+                                             ctx, valid)
+        return (tree, info) if return_info else tree
     srcs = W.wire_srcs(wc)
     w_mat, bvalid = _bucket_operator(agg, key, n, srcs[0].device, valid)
     attack_fn = mask = None
@@ -256,8 +266,9 @@ def tree_aggregate_pallas_wire(cfg, key, wc, attack_ctx=None,
             means = list(attack_ctx.means)
         if attack_ctx.stds is not None:
             stds = list(attack_ctx.stds)
-    outs = _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds, valid,
-                      bvalid)
-    return {name: out.reshape(sh).to(dt)
+    outs, info = _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds,
+                            valid, bvalid)
+    tree = {name: out.reshape(sh).to(dt)
             for name, out, sh, dt in zip(wc.names, outs, wc.shapes,
                                          wc.dtypes)}
+    return (tree, info) if return_info else tree

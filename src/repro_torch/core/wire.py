@@ -243,11 +243,10 @@ def wire_stats(wc: WireCandidates, good_mask, sanitize: bool = False):
             vals = torch.where(ok, vals, 0.0)
             idx = torch.where(ok, idx, 0)
         fi = idx.reshape(-1)
-        zeros = torch.zeros(d, dtype=torch.float32, device=vals.device)
-        qsum = zeros.index_add(0, fi, (w * vals).reshape(-1))
+        qsum = _scatter_sum(d, fi, (w * vals).reshape(-1))
         if base is None:
             m = qsum / cnt
-            s2 = zeros.index_add(0, fi, (w * vals * vals).reshape(-1))
+            s2 = _scatter_sum(d, fi, (w * vals * vals).reshape(-1))
             var = s2 / cnt - m.square()
         else:
             bf = base.float()                             # (rows, d)
@@ -259,12 +258,23 @@ def wire_stats(wc: WireCandidates, good_mask, sanitize: bool = False):
                   else cnt * db[0].square())
             bg = torch.gather(bf, 1, idx) if per_worker else bf[0][idx]
             mg = m[idx]
-            cross = zeros.index_add(
-                0, fi, (w * vals * (2.0 * (bg - mg) + vals)).reshape(-1))
+            cross = _scatter_sum(
+                d, fi, (w * vals * (2.0 * (bg - mg) + vals)).reshape(-1))
             var = (t1 + cross) / cnt
         means.append(m)
         stds.append(_sqrt_f32(var))
     return means, stds
+
+
+def _scatter_sum(d: int, fi, src):
+    """(d,) float32 sums of ``src`` at the slots ``fi``, each slot's terms
+    added from zero in their order in ``fi``, as the reference's
+    scatter-add: ``index_put_`` with ``accumulate``, a sequential loop on
+    the CPU and a sorted, ordered reduction on the card, where
+    ``index_add``'s atomics would add a slot's terms in any order and a
+    run would not repeat bit for bit."""
+    return torch.zeros(d, dtype=torch.float32, device=src.device).index_put_(
+        (fi,), src, accumulate=True)
 
 
 def _sqrt_f32(var):
@@ -273,7 +283,8 @@ def _sqrt_f32(var):
     return torch.sqrt(torch.clamp(var, min=0.0).double()).float()
 
 
-def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
+def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates,
+                       return_info: bool = False):
     """Omniscient attack + robust aggregation over a wire payload: the
     kernel-fusable attacks ride into the kernel; other backends, and an
     attack without a load form (RN), reconstruct densely.
@@ -283,21 +294,31 @@ def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
     non-finite floats, sparse indices outside [0, d)) get zero weight and
     stay out of the attack's statistics; the kernels select-zero them
     after reconstruction. Paths that materialize the attacked candidates
-    also reject rows the attack left non-finite."""
+    also reject rows the attack left non-finite.
+
+    ``return_info`` (the telemetry twin) returns ``(agg, info, valid)``:
+    the rules' intermediates and the final (n,) validity (None
+    unguarded). The aggregate comes from the same calls either way."""
     from repro_torch.core import engine
     from repro_torch.core.sharded_agg import (
         AttackCtx, tree_aggregate_pallas, tree_aggregate_pallas_wire)
     from repro_torch.faults import guard as fguard
     guard = cfg.fault_guard
     valid = fguard.payload_valid(wc) if guard else None
+
+    def ret(out):
+        return (*out, valid) if return_info else out
+
     if cfg.agg_mode != "pallas":
         sent = engine.apply_attack(cfg, attack_key, reconstruct(wc),
                                    stats_valid=valid)
         if guard:
             valid = valid & fguard.finite_row_mask(sent)
-        return engine.aggregate(cfg, agg_key, sent, valid=valid)
+        return ret(engine.aggregate(cfg, agg_key, sent, valid=valid,
+                                    return_info=return_info))
     if cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF"):
-        return tree_aggregate_pallas_wire(cfg, agg_key, wc, valid=valid)
+        return ret(tree_aggregate_pallas_wire(cfg, agg_key, wc, valid=valid,
+                                              return_info=return_info))
     if cfg.attack.coord_apply is None:
         # an attack the load cannot apply (RN): the dense candidates, the
         # attack on them, the dense kernels
@@ -305,7 +326,8 @@ def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
                                    stats_valid=valid)
         if guard:
             valid = valid & fguard.finite_row_mask(sent)
-        return tree_aggregate_pallas(cfg, agg_key, sent, valid=valid)
+        return ret(tree_aggregate_pallas(cfg, agg_key, sent, valid=valid,
+                                         return_info=return_info))
     mask = cfg.byz_mask(next(iter(wc.payloads[0].values())).device)
     means = stds = None
     if cfg.attack.needs_mean or cfg.attack.needs_std:
@@ -315,5 +337,6 @@ def wire_message_phase(cfg, attack_key, agg_key, wc: WireCandidates):
             stds = None
     ctx = AttackCtx(fn=cfg.attack.coord_apply, mask=mask, means=means,
                     stds=stds)
-    return tree_aggregate_pallas_wire(cfg, agg_key, wc, attack_ctx=ctx,
-                                      valid=valid)
+    return ret(tree_aggregate_pallas_wire(cfg, agg_key, wc, attack_ctx=ctx,
+                                          valid=valid,
+                                          return_info=return_info))

@@ -2,9 +2,10 @@
 logreg part of ``repro/data/synthetic.py``).
 
 ``LogRegData`` is the a9a-like synthetic dataset; minibatches are drawn
-with ``repro_torch.random.randint`` so they equal the reference's index
-for index. ``TokenStream`` and the LM label corruption are not ported yet
-(ROADMAP queue 1, item 12).
+with ``repro_torch.random.randint`` (uniform) or ``random.choice``
+(importance sampling) so they equal the reference's index for index.
+``TokenStream`` and the LM label corruption are not ported yet (ROADMAP
+queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -64,6 +65,23 @@ class LogRegData:
         x = torch.gather(full["x"], 1,
                          idx[..., None].expand(-1, -1, full["x"].shape[-1]))
         return {"x": x, "y": torch.gather(full["y"], 1, idx)}
+
+    def sample_batches_importance(self, key, batch_size: int,
+                                  probs) -> dict:
+        """(n, b, d) minibatches drawn with replacement by ``probs`` (m,)
+        (Example E.2), worker i under fold_in(key, i), with the
+        inverse-propensity weights w_j = 1/(m·p_j) under ``"w"`` so the
+        weighted minibatch gradient stays unbiased."""
+        n, m = self.n_workers, self.per_worker
+        keys = R.fold_in(key, torch.arange(n, device=key.device))
+        idx = R.choice(keys, m, (batch_size,), probs)
+        w = 1.0 / (m * probs[idx])
+        if self.homogeneous:
+            return {"x": self.features[idx], "y": self.labels[idx], "w": w}
+        full = self.stacked()
+        x = torch.gather(full["x"], 1,
+                         idx[..., None].expand(-1, -1, full["x"].shape[-1]))
+        return {"x": x, "y": torch.gather(full["y"], 1, idx), "w": w}
 
 
 def make_logreg_data(key, *, n_samples=2000, dim=50, n_workers=5,

@@ -39,8 +39,16 @@ Under the fault guard or partial participation the fused kernels take a
 W (invalid rows become zeros), and every driver takes the (m,) bucket
 validity ``bvalid``, which it applies to the weights and the scores; the
 blocked kernels take no mask (the giant-n tier zeroes the rows before
-bucketing). Not ported yet: the telemetry returns (ROADMAP queue 1,
-item 8).
+bucketing).
+
+``return_info=True`` on the four drivers also returns the rule's own
+intermediates, tensors the driver holds anyway: RFA's last Weiszfeld
+weights (``bucket_weights``), Krum's selection one-hot, scores and
+winner (``bucket_weights``, ``krum_scores``, ``krum_selected``). The
+launches and their arguments are those of ``return_info=False``: the
+reference spends one more fused pass on RFA's distances to its output,
+which the telemetry (``obs.trace``) takes instead from the bucketed stack
+it materializes anyway.
 """
 from __future__ import annotations
 
@@ -376,7 +384,7 @@ def _next_weights(sq, eps, bvalid):
 
 def rfa_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
                  attack=None, iters: int = 8, eps: float = 1e-8,
-                 valid=None, bvalid=None):
+                 valid=None, bvalid=None, return_info: bool = False):
     """Smoothed Weiszfeld (Pillutla et al. 2022) with global distances
     across segments, ``Aggregator._rfa_tree``'s semantics: uniform w_0
     makes the first pass's z the (bucketed) mean, each ``rfa_iter`` pass
@@ -387,7 +395,8 @@ def rfa_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
     ``valid`` / ``bvalid`` (fault guard, partial participation): the
     kernels select-zero the invalid worker rows in their load, and the
     weights of invalid (bucketed) rows are pinned to zero every iteration,
-    ``Aggregator._rfa_masked``'s semantics."""
+    ``Aggregator._rfa_masked``'s semantics. ``return_info`` also returns
+    ``{"bucket_weights": w_T}`` (module docstring)."""
     n = src_dims(segs[0])[0]
     m = w_mat.shape[0] if w_mat is not None else n
     means = means if means is not None else [None] * len(segs)
@@ -398,8 +407,9 @@ def rfa_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
                  for xs, mu, sd in zip(segs, means, stds))
         w = _next_weights(sq, eps, bvalid)
     w_eff = w if w_mat is None else w @ w_mat
-    return [weighted_sum(xs, w_eff, mask, mu, sd, valid, attack=attack)
+    outs = [weighted_sum(xs, w_eff, mask, mu, sd, valid, attack=attack)
             for xs, mu, sd in zip(segs, means, stds)]
+    return (outs, {"bucket_weights": w}) if return_info else outs
 
 
 def krum_select(g, n_byz: int, bvalid=None):
@@ -433,20 +443,29 @@ def krum_select(g, n_byz: int, bvalid=None):
 
 
 def krum_segments(segs, *, w_mat=None, mask=None, means=None, stds=None,
-                  attack=None, n_byz: int = 1, valid=None, bvalid=None):
+                  attack=None, n_byz: int = 1, valid=None, bvalid=None,
+                  return_info: bool = False):
     """Krum (Eq. 15) in two passes, ``Aggregator._krum_tree``'s semantics:
     one ``pair_gram`` per segment (global pairwise distances), the scoring
     (``krum_select``), one ``weighted_sum`` per segment extracting the
     winner through w_eff = onehot @ W. ``valid`` / ``bvalid`` as in
-    ``rfa_segments``."""
+    ``rfa_segments``; ``return_info`` also returns the scoring's
+    ``bucket_weights`` (the one-hot), ``krum_scores`` and
+    ``krum_selected``."""
     means = means if means is not None else [None] * len(segs)
     stds = stds if stds is not None else [None] * len(segs)
     g = sum(pair_gram(xs, w_mat, mask, mu, sd, valid, attack=attack)
             for xs, mu, sd in zip(segs, means, stds))
-    onehot, _, _ = krum_select(g, n_byz, bvalid)
+    onehot, scores, best = krum_select(g, n_byz, bvalid)
     w_eff = onehot if w_mat is None else onehot @ w_mat
-    return [weighted_sum(xs, w_eff, mask, mu, sd, valid, attack=attack)
+    outs = [weighted_sum(xs, w_eff, mask, mu, sd, valid, attack=attack)
             for xs, mu, sd in zip(segs, means, stds)]
+    return (outs, _krum_info(onehot, scores, best)) if return_info else outs
+
+
+def _krum_info(onehot, scores, best) -> dict:
+    return {"bucket_weights": onehot, "krum_scores": scores,
+            "krum_selected": best}
 
 
 # ---------------------------------------------------------------------------
@@ -712,28 +731,32 @@ def _launch_weighted_sum_blocked(x, w):
 # ---------------------------------------------------------------------------
 
 def rfa_segments_blocked(segs, *, iters: int = 8, eps: float = 1e-8,
-                         bvalid=None):
+                         bvalid=None, return_info: bool = False):
     """Giant-n smoothed Weiszfeld over dense (m, d_j) segments with global
     distances, ``Aggregator._rfa_tree``'s semantics (``_rfa_masked``'s
     with ``bvalid``): per pass one ``weighted_sum_blocked`` (z_t) and one
     ``sqdist_to_blocked`` per segment, then a final weighted sum. Returns
     the per-segment (d_j,) aggregates; nothing is read on the host between
-    launches."""
+    launches. ``return_info`` as in ``rfa_segments``."""
     m = segs[0].shape[0]
     w = _start_weights(m, bvalid, segs[0].device)
     for _ in range(iters):
         zs = [weighted_sum_blocked(xs, w) for xs in segs]
         sq = sum(sqdist_to_blocked(xs, z) for xs, z in zip(segs, zs))
         w = _next_weights(sq, eps, bvalid)
-    return [weighted_sum_blocked(xs, w) for xs in segs]
+    outs = [weighted_sum_blocked(xs, w) for xs in segs]
+    return (outs, {"bucket_weights": w}) if return_info else outs
 
 
-def krum_segments_blocked(segs, *, n_byz: int = 1, bvalid=None):
+def krum_segments_blocked(segs, *, n_byz: int = 1, bvalid=None,
+                          return_info: bool = False):
     """Giant-n Krum over dense (m, d_j) segments, ``Aggregator._krum_tree``'s
     semantics (``_krum_masked``'s with ``bvalid``): one
     ``pair_gram_blocked`` per segment (global distances), the scoring
     (``krum_select``), one ``weighted_sum_blocked`` per segment extracting
-    the winner through its one-hot."""
+    the winner through its one-hot. ``return_info`` as in
+    ``krum_segments``."""
     g = sum(pair_gram_blocked(xs) for xs in segs)
-    onehot, _, _ = krum_select(g, n_byz, bvalid)
-    return [weighted_sum_blocked(xs, onehot) for xs in segs]
+    onehot, scores, best = krum_select(g, n_byz, bvalid)
+    outs = [weighted_sum_blocked(xs, onehot) for xs in segs]
+    return (outs, _krum_info(onehot, scores, best)) if return_info else outs

@@ -21,6 +21,8 @@ Layout follows JAX 0.9.0 with ``jax_threefry_partitionable=True``:
 * ``randint`` combines two bit streams by modular arithmetic in uint32;
 * ``permutation`` sorts by fresh 32-bit keys in
   ceil(3·ln(n)/ln(2³²−1)) stable rounds;
+* ``choice`` with ``p`` searches u's place in cumsum(p), the cumsum in
+  the blocked order of XLA's CPU code (``cumsum``);
 * ``normal`` is sqrt(2)·erfinv(u) with XLA's single-precision erfinv
   polynomial (Giles) and XLA's own ``log-plus-one`` (``xla_math``), so
   the normals equal JAX's bit for bit.
@@ -148,6 +150,46 @@ def randint(key, shape: Sequence[int], minval: int, maxval: int):
     offset = _u32((higher % span) * multiplier)
     offset = _u32(offset + lower % span) % span
     return offset + int(minval)
+
+
+# XLA on the CPU rewrites a cumulative sum into a blocked scan of this base
+CUMSUM_BLOCK = 16
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """float32 inclusive cumulative sum of a 1-D tensor as ``jnp.cumsum``
+    runs on the CPU: cut into blocks of ``CUMSUM_BLOCK`` (the last
+    zero-padded), a sequential sum inside each block, the block totals
+    scanned the same way, recursively, and each block's exclusive prefix
+    then added to its entries."""
+    n = x.shape[0]
+    b = CUMSUM_BLOCK
+    if n <= b:
+        out = [x[0]]
+        for i in range(1, n):
+            out.append(out[-1] + x[i])
+        return torch.stack(out)
+    nb = -(-n // b)
+    blocks = torch.nn.functional.pad(x, (0, nb * b - n)).reshape(nb, b)
+    cols = [blocks[:, 0]]
+    for i in range(1, b):
+        cols.append(cols[-1] + blocks[:, i])
+    inner = torch.stack(cols, dim=1)
+    totals = cumsum(inner[:, -1])
+    rest = inner[1:] + totals[:-1, None]
+    return torch.cat([inner[:1], rest]).reshape(-1)[:n]
+
+
+def choice(key, n: int, shape: Sequence[int], p: torch.Tensor):
+    """int64 draws from range(n) with replacement and probabilities ``p``
+    (n,), shape key.shape[:-1] + shape, as ``jax.random.choice(key, n,
+    shape, replace=True, p=p)``: r = cumsum(p)[-1]·(1 - u) for u uniform,
+    placed in cumsum(p) by a left-sided search."""
+    if p.shape != (n,):
+        raise ValueError(f"p must have shape ({n},), got {tuple(p.shape)}")
+    p_cuml = cumsum(p.float())
+    r = p_cuml[-1] * (1.0 - uniform(key, shape).to(p.device))
+    return torch.searchsorted(p_cuml, r.contiguous(), side="left")
 
 
 def _shuffle_rounds(n: int) -> int:

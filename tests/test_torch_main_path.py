@@ -192,17 +192,24 @@ def test_spec_json_is_shared():
 # the fault layer and partial participation are ported (their tests are
 # tests/test_torch_faults.py and tests/test_torch_participation.py), and
 # so are the int8, sign and bf16 compressors (tests/test_torch_wire_formats
-# .py), every method and the RN attack (tests/test_torch_estimators.py);
-# the cases that named them now name what is still unported
+# .py), every method and the RN attack (tests/test_torch_estimators.py),
+# the rest of the zoo (sparse support, dither, natural compression,
+# importance sampling: tests/test_torch_zoo_rest.py) and tracing
+# (tests/test_torch_obs.py); the cases that named them now name what is
+# still unported: the language-model task on each model family of the
+# reference (dense, MoE, MLA + MoE, state-space, recurrent, vision and
+# audio), each optimizer, and the all_to_all backend
 @pytest.mark.parametrize("override", [
-    {"agg_mode": "sparse_support"}, {"compressor": "dither"},
-    {"compressor": "natural"}, {"task": "lm", "arch": "qwen3-1.7b"},
-    {"agg_mode": "all_to_all"},
-    {"participation": 0.6, "compressor": "natural"},
-    {"fault_guard": True, "compressor": "dither"}, {"trace": True},
+    {"task": "lm", "arch": "qwen3-1.7b"},
+    {"task": "lm", "arch": "phi3.5-moe-42b-a6.6b"},
+    {"task": "lm", "arch": "deepseek-v2-lite-16b"},
+    {"task": "lm", "arch": "mamba2-130m"},
+    {"task": "lm", "arch": "recurrentgemma-2b"},
+    {"task": "lm", "arch": "qwen2-vl-2b"},
+    {"task": "lm", "arch": "musicgen-medium"},
     {"optimizer": "adam"},
-    {**GIANT, "participation": 0.5,
-     "data_kwargs": {**GIANT["data_kwargs"], "sampling": "importance"}},
+    {"optimizer": "sgd"},
+    {"agg_mode": "all_to_all"},
 ])
 def test_unported_components_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
