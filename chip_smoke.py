@@ -34,7 +34,14 @@ sparse-support MARINA (which launches no kernel, as the reference runs
 no kernel there), MARINA with dither, natural compression and importance
 sampling; the traced twins of seven paths (their launches and
 trajectories equal to the untraced runs', bit for bit, their traces held
-to the CPU path's) and three rounds under ``obs.profile.profile_trace``.
+to the CPU path's) and three rounds under ``obs.profile.profile_trace``;
+and the exec phase: a cm run checkpointed and resumed (equal to the
+uninterrupted run bit for bit, its checkpoint equal on the CPU), the
+warm-up step (equal bit for bit), a sweep of cm, RFA and Krum over two
+seeds through ``run_sweep`` and two worker subprocesses pinned to the
+card, with an injected crash and hang retried (each artifact equal to an
+in-process run), resumed after an artifact is lost (the summary's bytes
+kept), and a gspmd seed group equal to its serial runs.
 The masked kernels (``valid`` in the
 load, the masked coordinate rule) are held to their plain versions beside
 the unmasked ones, and so is every load (dense float32 or bfloat16, the
@@ -73,6 +80,10 @@ REPS = 21                        # timed runs per measurement (median taken)
 # early seen on the H100) and drops what falls outside its window, which
 # lost most of the events of a few-microsecond kernel's 21 calls
 PROFILE_PAD_S = 0.05
+# profiles of a kernel row at most: in a whole run of this script with up
+# to five, 55 of 160 rows took all five windows and 52 of them never kept
+# every event, so windows four and five bought little and cost some 40 s
+PROFILE_TRIES = 3
 # rounds of each main path: with the kernel phases, the paths and their
 # CPU checks, the script has to end inside 1200 s on a slow host too
 MAIN_STEPS = 60
@@ -406,11 +417,11 @@ def timing(fn) -> dict:
     window where the tracer kept fewer events than there were calls, or
     none (before its window was padded, PROFILE_PAD_S, it lost some in
     some windows, at times several in a row), is profiled again, up to
-    five times (``profile_tries``), and the window that kept the most
-    events is reported."""
+    PROFILE_TRIES times (``profile_tries``), and the window that kept the
+    most events is reported."""
     ms = cuda_ms(fn)
     best = (None, None, [])
-    for tries in range(1, 6):
+    for tries in range(1, PROFILE_TRIES + 1):
         got = device_profile(fn)
         if got[1] is not None and (best[1] is None or got[1] > best[1]):
             best = got
@@ -1549,11 +1560,325 @@ def zoo_obs_paths(dev, card) -> dict:
             "profile_trace": profile_phase(dev, card)}
 
 
+# the exec phase: checkpoint and resume, the warm-up step, a faulted sweep
+# through the worker pool, and a gspmd seed group, all on the card
+EXEC_STEPS = 40                  # the uninterrupted run; its rounds 20-39
+RESUME_AT = 20                   # hold one c_k = 1 round (29) and VR rounds
+SWEEP_STEPS = 20                 # rounds of each sweep and group cell
+HANG_TIMEOUT_S = 15.0            # reaps the injected hang
+CK_REPS = 5                      # timed checkpoint saves and loads
+EXEC_FAULTS = {"seed": 0, "faults": [{"kind": "crash", "workers": [0]},
+                                     {"kind": "hang", "workers": [1]}]}
+
+
+def _history(hist) -> list:
+    return [{k: v for k, v in h.items() if k != "wall_s"} for h in hist]
+
+
+def _states_equal(a, b) -> bool:
+    """Two engine states (or trees of them) equal bit for bit, wherever
+    their tensors lie."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_states_equal(a[k], b[k]) for k in a))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape
+                and torch.equal(a.cpu().reshape(-1).view(torch.uint8),
+                                b.cpu().reshape(-1).view(torch.uint8)))
+    return a == b
+
+
+def _ms_per_round(res) -> float:
+    return res.wall_s / max(len(res.history), 1) * 1e3
+
+
+def _counted(tag, res, counts, want, card):
+    if counts != want:
+        raise AssertionError(f"exec {tag}: launches {nonzero(counts)}, "
+                             f"expected {nonzero(want)}")
+    print(f"[exec {tag}] {len(res.history)} rounds, {_ms_per_round(res):.3f}"
+          f" ms per round (host clock, loop only); launches "
+          f"{nonzero(counts)} [{card}]", flush=True)
+    return {"launches": counts, "rounds": len(res.history),
+            "per_round_ms": _ms_per_round(res)}
+
+
+def _rounds(hist):
+    ck = [int(h.get("c_k", 1)) for h in hist]
+    return sum(ck), len(ck) - sum(ck)
+
+
+def exec_resume(dev, card, out) -> dict:
+    """(1) cm for EXEC_STEPS rounds with a checkpoint every RESUME_AT,
+    then a run resumed from the step-RESUME_AT checkpoint: equal to
+    rounds RESUME_AT.. of the uninterrupted run bit for bit (every history
+    field but wall_s, the segment's comm_bits, the final state), with the
+    segment's launches; the checkpoint loads on the CPU equal to the
+    card's state at that step; save and load ms. (2) The same run with
+    ``warmup=True``: equal bit for bit, its extra launches those of one
+    round."""
+    import shutil
+    from repro_torch.api import RunSpec, run
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    spec = RunSpec(**{**MAIN_SPEC, "steps": EXEC_STEPS})
+    ck, at = str(out / "ck"), str(out / f"at{RESUME_AT}")
+    held = {}
+
+    def keep(it, state, m):
+        if it == RESUME_AT - 1:          # the state the next save holds
+            held["state"] = _to_cpu(state)
+        elif it == RESUME_AT:            # copy it before the end's save
+            for ext in (".npz", ".json"):
+                shutil.copy(ck + ext, at + ext)
+
+    paths = {}
+    reset_counts()
+    full = run(spec, device=dev, log_every=1, checkpoint=ck,
+               checkpoint_every=RESUME_AT, callback=keep)
+    paths["exec uninterrupted cm"] = _counted(
+        "uninterrupted cm", full, read_counts(),
+        expected_counts("cm", *_rounds(full.history)), card)
+    seg_full, seg_vr = _rounds(full.history[RESUME_AT:])
+    if not (seg_full and seg_vr):
+        raise AssertionError(f"exec resume: rounds {RESUME_AT}.. hold "
+                             f"{seg_full} c_k = 1 and {seg_vr} VR rounds; "
+                             "both kinds are needed")
+    reset_counts()
+    resumed = run(spec, device=dev, log_every=1, resume=at)
+    paths["exec resumed cm"] = _counted(
+        "resumed cm", resumed, read_counts(),
+        expected_counts("cm", seg_full, seg_vr), card)
+    base = full.history[RESUME_AT - 1]["comm_bits"]
+    want = _history(full.history[RESUME_AT:])
+    for h in want:
+        h["comm_bits"] -= base
+        h["comm_gbits"] = round(h["comm_bits"] / 1e9, 4)
+    same = (_history(resumed.history) == want
+            and resumed.comm_bits == full.comm_bits - base
+            and _states_equal(resumed.state, full.state))
+    loaded, step = load_checkpoint(at, like=held["state"], device="cpu")
+    on_cpu = step == RESUME_AT and _states_equal(loaded, held["state"])
+    print(f"[exec resume] resumed at step {RESUME_AT} ({seg_full} c_k = 1 "
+          f"and {seg_vr} VR rounds after it): equal to the uninterrupted "
+          f"run bit for bit: {same}; its checkpoint loads on the CPU equal "
+          f"to the card's state bit for bit: {on_cpu} [{card}]", flush=True)
+    if not (same and on_cpu):
+        raise AssertionError("exec resume: the resumed run or its "
+                             "checkpoint differs")
+    save_ms, load_ms = [], []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for _ in range(CK_REPS):
+        sync()
+        t0 = time.perf_counter()
+        save_checkpoint(str(out / "timed"), full.state,
+                        step=full.state["step"])
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        back, _ = load_checkpoint(str(out / "timed"), like=full.state)
+        sync()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    if not _states_equal(back, full.state):
+        raise AssertionError("exec: a checkpoint round trip differs")
+    n_bytes = sum(t.numel() * t.element_size() for k in ("params", "g")
+                  for t in full.state[k].values())
+    ck_ms = {"save_ms": statistics.median(save_ms),
+             "load_ms": statistics.median(load_ms), "state_bytes": n_bytes}
+    print(f"[exec checkpoint] the main path's state ({n_bytes} bytes of "
+          f"params and g, and the step): save {ck_ms['save_ms']:.3f} ms, "
+          f"load {ck_ms['load_ms']:.3f} ms (median of {CK_REPS}; host "
+          f"clock, the card synchronized; warm file cache) [{card}]",
+          flush=True)
+    # the warm-up step takes round 0's key: one more round of its kind
+    reset_counts()
+    warm = run(spec, device=dev, log_every=1, warmup=True)
+    warm_counts = read_counts()
+    c0 = int(full.history[0]["c_k"])
+    extra = {k: warm_counts[k] - paths["exec uninterrupted cm"]["launches"][k]
+             for k in COUNTED}
+    want_extra = dict.fromkeys(COUNTED, 0)
+    want_extra["robust_agg/dense" if c0 else "robust_agg/sparse"] = \
+        1 if c0 else 2
+    warm_same = (_history(warm.history) == _history(full.history)
+                 and _states_equal(warm.state, full.state))
+    print(f"[exec warmup cm] {_ms_per_round(warm):.3f} ms per round (loop "
+          f"only, after the throwaway step) against {_ms_per_round(full):.3f}"
+          f" without it; equal to that run bit for bit: {warm_same}; "
+          f"launches {nonzero(warm_counts)}, of which the throwaway step "
+          f"{nonzero(extra)} [{card}]", flush=True)
+    if not warm_same or extra != want_extra:
+        raise AssertionError(f"exec warmup: equal {warm_same}, throwaway "
+                             f"launches {nonzero(extra)} against "
+                             f"{nonzero(want_extra)}")
+    paths["exec warmup cm"] = {"launches": warm_counts,
+                               "rounds": len(warm.history),
+                               "per_round_ms": _ms_per_round(warm)}
+    return {"paths": paths, "checkpoint": ck_ms, "resume_equal": same,
+            "checkpoint_on_cpu_equal": on_cpu, "warmup_equal": warm_same,
+            "warmup_extra_launches": nonzero(extra)}
+
+
+def exec_sweep(dev, card, out) -> dict:
+    """(3) cm, rfa, krum x seeds 0, 1 through ``run_sweep`` and a pool of
+    two workers pinned to card 0, the first attempt of cell 0 crashing and
+    that of cell 1 hanging: every cell done, two retried; each artifact
+    equal to an in-process run of its spec on the card (launches
+    counted) except wall_s; then one artifact deleted and the sweep
+    resumed: that cell alone re-runs and the summary keeps its bytes.
+    (4) A gspmd seed group of three through ``run_group``: equal to the
+    same cells run serially, bit for bit."""
+    from repro_torch import exec as xc
+    from repro_torch.api import RunSpec, Sweep, run, run_sweep
+    from repro_torch.faults import as_plan
+    sweep = Sweep(RunSpec(**{**MAIN_SPEC, "steps": SWEEP_STEPS}),
+                  {"aggregator": ("cm", "rfa", "krum"), "seed": (0, 1)})
+    pool = xc.WorkerPool(max_workers=2, gpu_ids=("0", "0"),
+                         fault_plan=as_plan(EXEC_FAULTS),
+                         hang_timeout_s=HANG_TIMEOUT_S)
+    summary = out / "sweep_summary.json"
+    t0 = time.time()
+    srun = run_sweep(sweep, out_dir=str(out), pool=pool,
+                     summary_out=str(summary), log_every=1,
+                     device=dev.type)
+    sweep_s = time.time() - t0
+    if srun.failures:
+        raise AssertionError(f"exec sweep: failed cells {srun.failures}")
+    stats = srun.stats
+    if stats["subprocess_cells"] != len(sweep) or \
+            stats.get("retried_cells") != 2:
+        raise AssertionError(f"exec sweep: {stats}")
+    done = {r["run_id"]: r for r in
+            xc.Ledger(str(out / "ledger.jsonl")).iter_records()
+            if r["status"] == "done"}
+    cells, paths = {}, {}
+    print(f"[exec sweep] {len(sweep)} cells in {sweep_s:.1f} s through 2 "
+          f"workers on card 0 (cell 0 crashed and cell 1 hung on their "
+          f"first attempts, {HANG_TIMEOUT_S} s timeout): {stats}; the "
+          "workers' launches cannot be counted from this process, so each "
+          f"cell is run again in process and counted [{card}]", flush=True)
+    for rid, spec in sweep.expand():
+        rec = done[rid]
+        tm = rec["worker_timing"]
+        reset_counts()
+        here = run(spec, device=dev, log_every=1)
+        paths[f"exec sweep {rid}"] = _counted(
+            f"sweep {rid} in process", here, read_counts(),
+            expected_counts(spec.aggregator, *_rounds(here.history)), card)
+        same = (_history(srun.artifacts[rid]["history"])
+                == _history(here.history)
+                and srun.artifacts[rid]["comm_bits"] == here.comm_bits)
+        print(f"[exec sweep {rid}] subprocess cell: {rec['wall_s']:.2f} s "
+              f"from start to artifact ({rec['attempts']} attempt(s), "
+              f"fault {rec['injected_fault']}); in the worker: import "
+              f"{tm['import_s']:.2f} s, CUDA context {tm['cuda_init_s']:.2f}"
+              f" s, experiment and data {tm['build_s']:.2f} s, run "
+              f"{tm['run_s']:.2f} s of which the loop {tm['loop_s']:.2f} s "
+              f"({tm['loop_s'] / SWEEP_STEPS * 1e3:.3f} ms per round); "
+              f"artifact equal to the in-process run but wall_s: {same} "
+              f"[{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"exec sweep {rid}: the worker's history "
+                                 "differs from the in-process run's")
+        cells[rid] = {"wall_s": rec["wall_s"], "attempts": rec["attempts"],
+                      "injected_fault": rec["injected_fault"],
+                      "worker_timing": tm,
+                      "in_process_ms": _ms_per_round(here)}
+    before = summary.read_bytes()
+    lost = "aggregator=rfa__seed=1"
+    (out / f"{lost}.json").unlink()
+    t0 = time.time()
+    again = run_sweep(sweep, out_dir=str(out), pool=pool, resume=True,
+                      summary_out=str(summary), log_every=1,
+                      device=dev.type)
+    resume_s = time.time() - t0
+    same_bytes = summary.read_bytes() == before
+    print(f"[exec sweep resume] {lost}'s artifact deleted: "
+          f"{again.stats['executed_cells']} cell re-ran, "
+          f"{len(again.skipped)} skipped, in {resume_s:.1f} s; summary "
+          f"bytes equal: {same_bytes} [{card}]", flush=True)
+    if (again.failures or again.stats["executed_cells"] != 1
+            or lost not in again.artifacts or lost in again.skipped
+            or not same_bytes):
+        raise AssertionError(f"exec sweep resume: {again.stats}, "
+                             f"failures {again.failures}, summary bytes "
+                             f"equal {same_bytes}")
+    group = list(Sweep(RunSpec(**{**MAIN_SPEC, "agg_mode": "gspmd",
+                                  "steps": SWEEP_STEPS}),
+                       {"seed": (0, 1, 2)}).expand())
+    reset_counts()
+    results, gstats = xc.run_group(group, log_every=1, device=dev)
+    counts = read_counts()
+    group_same = True
+    for rid, spec in group:
+        serial = run(spec, device=dev, log_every=1)
+        got = results[rid]
+        group_same &= (_history(got.history) == _history(serial.history)
+                       and got.comm_bits == serial.comm_bits
+                       and _states_equal(got.state, serial.state))
+    ms = [_ms_per_round(results[rid]) for rid, _ in group]
+    print(f"[exec gspmd group] seeds 0, 1, 2 over one experiment: "
+          + " / ".join(f"{m:.3f}" for m in ms)
+          + f" ms per round; equal to serial runs bit for bit: {group_same};"
+          f" launches {nonzero(counts)} (gspmd runs no kernel) [{card}]",
+          flush=True)
+    if not group_same or nonzero(counts):
+        raise AssertionError(f"exec gspmd group: equal {group_same}, "
+                             f"launches {nonzero(counts)}")
+    paths["exec gspmd group"] = {"launches": counts,
+                                 "rounds": len(group) * SWEEP_STEPS,
+                                 "per_round_ms": statistics.mean(ms)}
+    return {"paths": paths, "cells": cells, "sweep_s": sweep_s,
+            "resume_s": resume_s, "stats": stats,
+            "summary_bytes_equal": same_bytes, "group_equal": group_same,
+            "group_stats": gstats}
+
+
+def exec_phase(dev, card) -> dict:
+    import shutil
+    t0 = time.time()
+    ck_dir = ROOT / "build" / "chip_smoke_exec"
+    sweep_dir = ROOT / "chiprun_out" / "exec_sweep"
+    for d in (ck_dir, sweep_dir):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    got = {"resume": exec_resume(dev, card, ck_dir),
+           "sweep": exec_sweep(dev, card, sweep_dir)}
+    got["paths"] = {**got["resume"].pop("paths"),
+                    **got["sweep"].pop("paths")}
+    got["wall_s"] = time.time() - t0
+    print(f"[exec] the phase took {got['wall_s']:.1f} s [{card}]",
+          flush=True)
+    return got
+
+
+def share_cpu_data():
+    """The paths' CPU checks build the same few datasets (a9a width at 5
+    and 256 workers, gisette width) again for every path, some 2.4 s of
+    threefry a9a build on a CPU: build each once. Runs on the card build
+    their own."""
+    import repro_torch.data as D
+    make, cache = D.make_logreg_data, {}
+
+    def cached(key, **kw):
+        if key.device.type != "cpu":
+            return make(key, **kw)
+        k = (tuple(key.tolist()), tuple(sorted(kw.items())))
+        if k not in cache:
+            cache[k] = make(key, **kw)
+        return cache[k]
+
+    D.make_logreg_data = cached
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", choices=("all", "kernels", "tracer",
-                                         "zoo_obs"),
+                                         "zoo_obs", "exec"),
                     default="all",
                     help="'kernels': the kernel phases alone (no paths, "
                          "no kernels line), e.g. to time another tree's "
@@ -1562,7 +1887,10 @@ def main(argv=None) -> int:
                          "offset alone (no build); 'zoo_obs': the build and "
                          "the paths of sparse support, the dense "
                          "compressors, importance sampling and tracing "
-                         "alone (no kernels line)")
+                         "alone (no kernels line); 'exec': the build and "
+                         "the checkpoint, resume, warm-up, worker-pool "
+                         "sweep and seed-group checks alone (no kernels "
+                         "line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1589,6 +1917,7 @@ def main(argv=None) -> int:
               flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    share_cpu_data()
     if args.phases == "zoo_obs":
         got = zoo_obs_paths(dev, card)
         (out_dir / "chip_smoke_zoo_obs.json").write_text(json.dumps(
@@ -1597,6 +1926,21 @@ def main(argv=None) -> int:
         print(f"[done] the zoo_obs paths alone, "
               f"{time.time() - t_start:.1f} s", flush=True)
         return 0
+    if args.phases == "exec":
+        got = exec_phase(dev, card)
+        (out_dir / "chip_smoke_exec.json").write_text(json.dumps(
+            {"card": card, "torch": torch.__version__, **got,
+             "wall_s": time.time() - t_start}, indent=1, default=str))
+        print(f"[done] the exec phase alone, {time.time() - t_start:.1f} s",
+              flush=True)
+        return 0
+    marks = {}
+
+    def mark(what):
+        marks[what] = time.time() - t_start
+        print(f"[phase] {what} at {marks[what]:.1f} s", flush=True)
+
+    mark("build done")
     main_rows = [kernel_case(c, dev) for c in MAIN_CASES]
     wide_rows = [kernel_case(c, dev) for c in WIDE_CASES]
     norm_main = [r for c in NORM_MAIN_CASES for r in norm_case(c, dev)]
@@ -1642,6 +1986,7 @@ def main(argv=None) -> int:
              "load_masked_wide_cases": load_masked_wide,
              "load_norm_masked_main_cases": load_norm_masked_main,
              "load_norm_masked_wide_cases": load_norm_masked_wide}
+    mark("kernel cases done")
     quant = ops_path(dev, card)
     cases["block_quantize_cases"] = quant["cases"]
     if args.phases == "kernels":
@@ -1653,6 +1998,7 @@ def main(argv=None) -> int:
               flush=True)
         return 0
     check_lean(cases)
+    mark("ops path done")
     cases["sparse_bounds_cases"] = [bounds_case(c, dev)
                                     for c in BOUNDS_CASES]
     paths = {}
@@ -1717,10 +2063,15 @@ def main(argv=None) -> int:
         dev, card, "marina RN cm", RN_SPEC,
         lambda f, v, r: expected_counts("cm", f, v, dense_vr=True),
         diverges=True)
+    mark("main paths done")
     zoo_obs = zoo_obs_paths(dev, card)
+    mark("zoo_obs paths done")
     paths.update(zoo_obs["paths"])
     paths.update({f"traced {tag}": {"launches": row["launches"]}
                   for tag, row in zoo_obs["traced"].items()})
+    exec_got = exec_phase(dev, card)
+    paths.update(exec_got["paths"])
+    mark("exec phase done")
     path_specs = {"cm": MAIN_SPEC, "rfa": {**MAIN_SPEC, "aggregator": "rfa"},
                   "krum": {**MAIN_SPEC, "aggregator": "krum"},
                   "cm chaos": {**MAIN_SPEC, **CHAOS_SPEC},
@@ -1790,6 +2141,8 @@ def main(argv=None) -> int:
          **cases,
          "main_paths": paths, "traced_paths": zoo_obs["traced"],
          "profile_trace": zoo_obs["profile_trace"], "path_profiles": profiles,
+         "exec": {k: v for k, v in exec_got.items() if k != "paths"},
+         "phase_marks_s": marks,
          "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))
     print(f"[done] {time.time() - t_start:.1f} s in all", flush=True)

@@ -15,12 +15,14 @@ Everything runs on one device: the card unless the caller passes
 ``device="cpu"``. Under ``spec.trace`` the logged rounds run the
 telemetry twin (``Method.step_traced``, the same trajectory bit for bit)
 and record their ``RoundTrace``; ``sink=`` / ``metrics_jsonl=`` stream
-the round, trace, span and gauge events. Checkpoints, callbacks and the
-warm-up step are not ported yet (ROADMAP queue 1, item 9).
+the round, trace, span and gauge events. ``checkpoint=`` saves the full
+engine state and ``resume=`` restarts from it on the same key schedule,
+so an interrupted and resumed run is the uninterrupted one bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, Callable, Optional
 
@@ -56,6 +58,9 @@ class Experiment:
     anchor: Callable
     device: torch.device
     data: Any = None
+
+    def run(self, **run_kw) -> "RunResult":
+        return _run_experiment(self, **run_kw)
 
 
 def build(spec, device=None) -> Experiment:
@@ -121,6 +126,16 @@ class RunResult:
         from repro_torch.obs import detect
         return detect.summarize(self.traces, frac)
 
+    def to_dict(self) -> dict:
+        """Artifact payload: the resolved spec beside the trajectory, so a
+        result file alone reproduces the run."""
+        out = {"spec": self.spec.to_dict(), "n_params": self.n_params,
+               "comm_bits": self.comm_bits, "wall_s": self.wall_s,
+               "history": self.history}
+        if self.traces:
+            out["detection"] = self.detection_summary()
+        return out
+
 
 def _trace_metrics(trace_host: dict) -> dict:
     """A logged round's detection metrics from its host trace, and the
@@ -139,30 +154,86 @@ def _trace_metrics(trace_host: dict) -> dict:
     return m
 
 
-def run(spec, device=None, *, log_every: int = 10, verbose: bool = False,
-        sink=None, metrics_jsonl: Optional[str] = None) -> RunResult:
+def run(spec, device=None, **run_kw) -> RunResult:
     """``build(spec, device)`` and the canonical loop (module docstring).
-    Every ``log_every``-th step and the last one are recorded; under
-    ``spec.trace`` those, and only those, run the telemetry twin.
+    The keyword options are the reference's loop knobs:
 
-    ``sink`` (an ``obs.sink.MetricSink``) receives a ``{"type":
-    "round"}`` event per logged round, a ``{"type": "trace"}`` event per
-    traced one, then a ``{"type": "span", "name": "run"}`` event and, with
-    traces, a ``{"type": "gauge", "name": "detection_summary"}``.
-    ``metrics_jsonl`` is a path: a ``JsonlSink`` there, fanned out with
-    ``sink``."""
+      log_every    — record (and with verbose=True, print) every k-th step
+                     and the last one; under ``spec.trace`` those, and
+                     only those (and callback steps), run the telemetry
+                     twin.
+      verbose      — print per-log-step progress lines.
+      warmup       — run one throwaway step first (the traced twin's too
+                     under ``spec.trace``) so ``wall_s`` is steady state;
+                     the trajectory is unchanged.
+      checkpoint   — path prefix: save the FULL engine state (params,
+                     estimator state, step) through ``repro_torch
+                     .checkpoint`` at the end of the run and every
+                     ``checkpoint_every`` steps.
+      checkpoint_every — periodic checkpoint cadence in steps (needs
+                     ``checkpoint``); the crash-restart point.
+      resume       — checkpoint prefix to restart from: the state is
+                     restored and the loop goes on at the saved step with
+                     the same key schedule, so the resumed run reproduces
+                     the uninterrupted trajectory bit for bit.
+                     (``history`` and ``comm_bits`` restart at the resume
+                     point: they cover the resumed segment only.)
+      metrics_out  — path: dump ``RunResult.to_dict()`` as JSON.
+      callback     — fn(it, state, logged_metrics); a truthy return stops
+                     the run early, and the stop point is recorded.
+      callback_every — callback cadence in steps (default: the log
+                     steps). Metrics are read to the host only on log and
+                     callback steps.
+      sink         — an ``obs.sink.MetricSink``: a ``{"type": "round"}``
+                     event per logged round, a ``{"type": "trace"}`` event
+                     per traced one, then a ``{"type": "span", "name":
+                     "run"}`` event and, with traces, a ``{"type":
+                     "gauge", "name": "detection_summary"}``.
+      metrics_jsonl — path: a ``JsonlSink`` there, fanned out with
+                     ``sink``.
+    """
+    return _run_experiment(build(spec, device), **run_kw)
+
+
+def _run_experiment(exp: Experiment, *, log_every: int = 10,
+                    verbose: bool = False, warmup: bool = False,
+                    checkpoint: Optional[str] = None,
+                    checkpoint_every: Optional[int] = None,
+                    resume: Optional[str] = None,
+                    metrics_out: Optional[str] = None,
+                    callback: Optional[Callable] = None,
+                    callback_every: Optional[int] = None,
+                    sink=None,
+                    metrics_jsonl: Optional[str] = None) -> RunResult:
     from repro_torch.obs.profile import round_range
+    spec = exp.spec
     own_jsonl = None
     if metrics_jsonl:
         from repro_torch.obs.sink import FanoutSink, JsonlSink
         own_jsonl = JsonlSink(metrics_jsonl)
         sink = FanoutSink(sink, own_jsonl) if sink is not None else own_jsonl
-    exp = build(spec, device)
     key = R.PRNGKey(spec.seed, device=exp.device)
     k_init, k_run = R.split(key)
     params = exp.init_params(k_init)
     n_params = int(tu.tree_size(params))
     state = exp.method.init(params, exp.anchor(0), k_run)
+    start = 0
+    if resume:
+        from repro_torch.checkpoint import load_checkpoint
+        state, ck_step = load_checkpoint(resume, like=state)
+        start = int(ck_step or 0)
+        if verbose:
+            print(f"[run] resumed from {resume}.npz at step {start}")
+    if warmup and spec.steps > 0:
+        k_step, k_batch = R.split(R.fold_in(k_run, 1))
+        wargs = (state, exp.minibatch(0, k_batch), exp.anchor(0), k_step)
+        exp.method.step(*wargs)
+        if spec.trace:
+            exp.method.step_traced(*wargs)
+        _sync(exp.device)
+        del wargs
+    if checkpoint:
+        from repro_torch.checkpoint import save_checkpoint
     history, traces = [], []
     comm_bits = 0.0
     # under partial participation only the sampled cohort uploads: each
@@ -170,11 +241,15 @@ def run(spec, device=None, *, log_every: int = 10, verbose: bool = False,
     # twin of theory.comm_bits_per_round(..., participation=...)
     part_frac = spec.resolved_participation() / spec.n_workers
     t0 = time.time()
-    for it in range(spec.steps):
-        do_log = it % max(log_every, 1) == 0 or it == spec.steps - 1
-        # the telemetry twin at log cadence only: the same trajectory, and
-        # the rounds in between stay the untraced step
-        step = (exp.method.step_traced if spec.trace and do_log
+    for it in range(start, spec.steps):
+        last = it == spec.steps - 1
+        do_log = it % max(log_every, 1) == 0 or last
+        do_cb = callback is not None and (
+            (it + 1) % max(callback_every, 1) == 0 or last
+            if callback_every is not None else do_log)
+        # the telemetry twin on log and callback steps only: the same
+        # trajectory, and the rounds in between stay the untraced step
+        step = (exp.method.step_traced if spec.trace and (do_log or do_cb)
                 else exp.method.step)
         with round_range():
             k_step, k_batch = R.split(R.fold_in(k_run, it + 1))
@@ -183,7 +258,7 @@ def run(spec, device=None, *, log_every: int = 10, verbose: bool = False,
         rt = metrics.pop("trace", None)
         comm_bits += part_frac * exp.method.round_bits(
             n_params, bool(metrics.get("c_k", 1)))
-        if do_log:
+        if do_log or do_cb:
             m = {k: float(v) for k, v in metrics.items()}
             m.update(step=it, wall_s=round(time.time() - t0, 2),
                      comm_bits=comm_bits,
@@ -193,27 +268,55 @@ def run(spec, device=None, *, log_every: int = 10, verbose: bool = False,
                 from repro_torch.obs.trace import to_host
                 trace_host = to_host(rt)
                 m.update(_trace_metrics(trace_host))
-                traces.append(trace_host)
-            history.append(m)
-            if sink is not None:
-                sink.emit({"type": "round", **m})
+            if do_log:
+                history.append(m)
                 if trace_host is not None:
-                    sink.emit({"type": "trace", "step": it, **trace_host})
+                    traces.append(trace_host)
+                if sink is not None:
+                    sink.emit({"type": "round", **m})
+                    if trace_host is not None:
+                        sink.emit({"type": "trace", "step": it,
+                                   **trace_host})
+                if verbose:
+                    print(f"  step {it:5d} loss {m['loss']:.4f} "
+                          f"|g| {m['g_norm']:.3e} "
+                          f"c_k={int(m.get('c_k', 1))} "
+                          f"comm {m['comm_gbits']:.3g}Gb ({m['wall_s']}s)")
+            if do_cb and callback(it, state, m):
+                if not do_log:           # record the stop point
+                    history.append(m)
+                break
+        if (checkpoint and checkpoint_every
+                and (it + 1) % checkpoint_every == 0 and not last):
+            save_checkpoint(checkpoint, state, step=state["step"])
             if verbose:
-                print(f"  step {it:5d} loss {m['loss']:.4f} "
-                      f"|g| {m['g_norm']:.3e} c_k={int(m.get('c_k', 1))} "
-                      f"comm {m['comm_gbits']:.3g}Gb ({m['wall_s']}s)")
-    if exp.device.type == "cuda":
-        torch.cuda.synchronize(exp.device)
+                print(f"[run] checkpoint @ step {it + 1} -> "
+                      f"{checkpoint}.npz")
+    _sync(exp.device)
     result = RunResult(spec=spec, history=history, state=state,
                        n_params=n_params, comm_bits=comm_bits,
                        wall_s=time.time() - t0, traces=traces)
     if sink is not None:
         sink.emit({"type": "span", "name": "run",
-                   "wall_s": round(result.wall_s, 6), "steps": spec.steps})
+                   "wall_s": round(result.wall_s, 6),
+                   "steps": spec.steps - start})
         if traces:
             sink.emit({"type": "gauge", "name": "detection_summary",
                        "value": result.detection_summary()})
         if own_jsonl is not None:
             own_jsonl.close()
+    if checkpoint:
+        # the FULL engine state, so a later run(..., resume=checkpoint)
+        # restarts the exact trajectory
+        save_checkpoint(checkpoint, state, step=state["step"])
+        if verbose:
+            print(f"[run] checkpoint -> {checkpoint}.npz")
+    if metrics_out:
+        with open(metrics_out, "w") as f:
+            json.dump(result.to_dict(), f, indent=1)
     return result
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

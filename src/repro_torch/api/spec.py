@@ -2,23 +2,23 @@
 (port of ``repro/api/spec.py``).
 
 The fields, defaults and JSON form are the reference's, so one
-``RunSpec.to_dict()`` drives both packages. Names are validated against
-the reference's full component registries; components this slice has not
+``RunSpec.to_dict()`` drives both packages. Names are validated through
+``api.registry``, as in the reference; components this slice has not
 ported are accepted here and raise ``NotImplementedError`` from
-``build_config``. ``ServeSpec`` is not ported yet (ROADMAP queue 1,
+``build_config`` (``arch`` is not validated: the port has no model
+configs yet). ``ServeSpec`` is not ported yet (ROADMAP queue 1,
 item 10).
 """
 from __future__ import annotations
 
 import dataclasses
-import difflib
 import json
 import warnings
 from typing import Optional
 
-from repro_torch.core import aggregators, attacks, compressors
+from repro_torch.api import registry
+from repro_torch.core import compressors
 from repro_torch.core.engine import AGG_BACKENDS
-from repro_torch.core.estimators import ESTIMATORS
 from repro_torch.core.theory import delta_over_active_set
 from repro_torch.faults.plan import as_plan
 
@@ -27,25 +27,18 @@ SCHEMA_VERSION = 1
 _KWARGS_FIELDS = ("method_kwargs", "attack_kwargs", "aggregator_kwargs",
                   "compressor_kwargs", "optimizer_kwargs", "data_kwargs",
                   "faults")
-
-_NAMES = {
-    "task": ("lm", "logreg"),
-    "method": tuple(sorted(ESTIMATORS)),
-    "attack": tuple(sorted(attacks.REGISTRY)),
-    "aggregator": tuple(sorted(aggregators.RULES)),
-    "compressor": tuple(sorted(compressors.REGISTRY)),
-    "optimizer": ("adam", "none", "sgd"),
-}
+_CHECKED = ("task", "method", "attack", "aggregator", "compressor",
+            "optimizer")
 
 
-def _check(kind: str, name) -> None:
-    known = _NAMES[kind]
-    if name not in known:
-        msg = f"unknown {kind} {name!r}; registered: {', '.join(known)}"
-        close = difflib.get_close_matches(str(name), known, n=1, cutoff=0.6)
-        if close:
-            msg += f" — did you mean {close[0]!r}?"
-        raise ValueError(msg)
+def resolve_agg_mode(mode: str) -> str:
+    """CLI convenience: "auto" -> the kernel path (``"pallas"``) where a
+    CUDA device is present, the plain path (``"gspmd"``) elsewhere. Specs
+    always store the resolved mode."""
+    if mode != "auto":
+        return mode
+    import torch
+    return "pallas" if torch.cuda.is_available() else "gspmd"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,11 +73,13 @@ class RunSpec:
     data_kwargs: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
-        for kind in _NAMES:
-            _check(kind, getattr(self, kind))
+        for kind in _CHECKED:
+            registry.check(kind, getattr(self, kind))
         if self.agg_mode not in AGG_BACKENDS:
+            hint = (" — pass 'auto' through api.spec.resolve_agg_mode() "
+                    "first" if self.agg_mode == "auto" else "")
             raise ValueError(
-                f"agg_mode {self.agg_mode!r} not in {AGG_BACKENDS}")
+                f"agg_mode {self.agg_mode!r} not in {AGG_BACKENDS}{hint}")
         if not 0.0 < self.p <= 1.0:
             raise ValueError(
                 f"p={self.p} must be in (0, 1] (full-gradient probability)")
@@ -243,6 +238,24 @@ class RunSpec:
     def from_json(cls, s: str) -> "RunSpec":
         return cls.from_dict(json.loads(s))
 
+    def replace(self, **updates) -> "RunSpec":
+        """``dataclasses.replace`` plus dotted-key merges into the kwargs
+        dicts: ``spec.replace(**{"compressor_kwargs.ratio": 0.1})``."""
+        merged: dict = {}
+        for key, val in updates.items():
+            if "." in key:
+                parent, sub = key.split(".", 1)
+                if parent not in _KWARGS_FIELDS:
+                    raise ValueError(
+                        f"dotted override {key!r}: {parent!r} is not one of "
+                        f"{_KWARGS_FIELDS}")
+                base = merged.get(parent, dict(getattr(self, parent)))
+                base[sub] = val
+                merged[parent] = base
+            else:
+                merged[key] = val
+        return dataclasses.replace(self, **merged)
+
     # -- builders -----------------------------------------------------------
     def build_config(self):
         """Resolve the named components into a ``ByzVRMarinaConfig``; raises
@@ -265,9 +278,21 @@ class RunSpec:
             n_active=None if n_active == self.n_workers else n_active,
             fault_plan=as_plan(self.faults), fault_guard=self.fault_guard,
             p=self.p, lr=self.lr,
-            aggregator=aggregators.get_aggregator(
-                self.aggregator, bucket_size=self.bucket_size, **agg_kw),
-            compressor=compressors.get_compressor(self.compressor,
-                                                  **self.compressor_kwargs),
-            attack=attacks.get_attack(self.attack, **self.attack_kwargs),
+            aggregator=registry.resolve("aggregator", self.aggregator,
+                                        bucket_size=self.bucket_size,
+                                        **agg_kw),
+            compressor=registry.resolve("compressor", self.compressor,
+                                        **self.compressor_kwargs),
+            attack=registry.resolve("attack", self.attack,
+                                    **self.attack_kwargs),
             agg_mode=self.agg_mode)
+
+    def build(self, device=None):
+        """-> ``runner.Experiment`` (method, data, loss, corrupt_fn)."""
+        from repro_torch.api import runner
+        return runner.build(self, device)
+
+    def run(self, device=None, **run_kw):
+        """Build and run through the shared loop (``api/runner.py``)."""
+        from repro_torch.api import runner
+        return runner.run(self, device, **run_kw)

@@ -26,8 +26,9 @@ Fault registry (``FAULTS``):
 * ``hang``         — process: the worker stalls past its timeout.
 
 Kinds are grouped by injection site: TENSOR + WIRE kinds act inside
-``engine.message_phase`` (message faults); PROCESS kinds act in the
-reference's ``exec.worker`` / ``serve.arrivals``, not ported yet.
+``engine.message_phase`` (message faults); PROCESS kinds act in
+``exec.worker`` (``exec.scheduler.process_fault`` picks the cells) and,
+in the reference, ``serve.arrivals`` (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 

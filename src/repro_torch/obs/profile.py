@@ -9,8 +9,8 @@ can wrap unconditionally. ``enable_step_markers()`` is the twin of the
 reference's XLA step-marker idiom: once on, ``api.run`` wraps each round
 in one ``torch.profiler.record_function("round")`` range, so the trace
 shows round boundaries. There are no finer ranges, as in the reference.
-The reference's ``add_cli_args`` flags come with the port's first
-command-line driver (ROADMAP queue 1, item 9).
+``add_cli_args`` gives the launch CLIs ``--metrics-out-jsonl`` and
+``--profile-dir``.
 """
 from __future__ import annotations
 
@@ -59,3 +59,13 @@ def profile_trace(profile_dir=None):
     prof.export_chrome_trace(os.path.join(
         profile_dir, f"trace_{stamp}_{os.getpid()}.json"))
 
+
+
+def add_cli_args(ap) -> None:
+    """The shared observability CLI surface of the launch CLIs."""
+    ap.add_argument("--metrics-out-jsonl", metavar="PATH",
+                    help="append metric events (rounds, traces, spans) as "
+                         "one JSON line each — the obs.sink stream")
+    ap.add_argument("--profile-dir", metavar="DIR",
+                    help="write a torch.profiler Chrome trace here, with "
+                         "one 'round' range a round")

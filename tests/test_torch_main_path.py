@@ -15,7 +15,7 @@ import torch
 from repro.api import RunSpec as JaxRunSpec
 from repro.api import run as jax_run
 from repro.api.runner import build as jax_build
-from repro_torch.api import RunSpec, run
+from repro_torch.api import RunSpec, registry, run
 from repro_torch.api.runner import build
 from repro_torch.convert import key_from_numpy, state_from_numpy, tree_from_numpy
 from repro_torch.core.theory import delta_over_active_set
@@ -198,7 +198,8 @@ def test_spec_json_is_shared():
 # (tests/test_torch_obs.py); the cases that named them now name what is
 # still unported: the language-model task on each model family of the
 # reference (dense, MoE, MLA + MoE, state-space, recurrent, vision and
-# audio), each optimizer, and the all_to_all backend
+# audio), each optimizer, and the all_to_all backend; and, through the
+# registry, resolving an optimizer other than "none" or an arch
 @pytest.mark.parametrize("override", [
     {"task": "lm", "arch": "qwen3-1.7b"},
     {"task": "lm", "arch": "phi3.5-moe-42b-a6.6b"},
@@ -210,8 +211,15 @@ def test_spec_json_is_shared():
     {"optimizer": "adam"},
     {"optimizer": "sgd"},
     {"agg_mode": "all_to_all"},
+    ("optimizer", "adam"),
+    ("arch", "qwen3-1.7b"),
 ])
 def test_unported_components_raise(override):
+    if isinstance(override, tuple):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1, item 12"):
+            registry.resolve(*override)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(RunSpec(**{**SPEC, **override}), device="cpu")
 
