@@ -41,7 +41,13 @@ warm-up step (equal bit for bit), a sweep of cm, RFA and Krum over two
 seeds through ``run_sweep`` and two worker subprocesses pinned to the
 card, with an injected crash and hang retried (each artifact equal to an
 in-process run), resumed after an artifact is lost (the summary's bytes
-kept), and a gspmd seed group equal to its serial runs.
+kept), and a gspmd seed group equal to its serial runs; and the serve
+phase: every fused kernel with the streaming service's staleness weights
+in W, timed beside the same call unweighted, and the service (``ServeSpec(...).run()``) with cm, traced and
+untraced Krum, the K = 256 cell on the blocked kernels, the sync limit
+(bit for bit with ``api.run``) and a killed run resumed from its
+checkpoint, each with its launches per fire and its first fires against
+the CPU run.
 The masked kernels (``valid`` in the
 load, the masked coordinate rule) are held to their plain versions beside
 the unmasked ones, and so is every load (dense float32 or bfloat16, the
@@ -440,12 +446,15 @@ def timing_text(t) -> str:
     return f"call {t['ms']:.4f} ms, {dev}"
 
 
-def make_inputs(n, d, k, base_rows, s, dev, kind=None):
+def make_inputs(n, d, k, base_rows, s, dev, kind=None, weighted=False):
     """(x, w, mask, mean, std) of one kernel call, made on the card from a
     fixed seed, and the bytes of x: the dense stack (float32, or bfloat16
     for ``kind="dense_bf16"``), or the wire payload (sparse when k is
     given, else of ``kind``: int8, sign or bf16, packed from random rows;
-    the int8 levels counted over d, their padding unread) and its base."""
+    the int8 levels counted over d, their padding unread) and its base.
+    ``weighted``: W carries the streaming service's staleness weights,
+    W_bucket · diag(w), or diag(w) (m = n) without bucketing, as
+    ``sharded_agg._bucket_operator`` builds it."""
     from repro_torch import random as R
     from repro_torch.kernels import norm_agg, quantize
     g = torch.Generator(device=dev).manual_seed(n * 7919 + d)
@@ -482,13 +491,18 @@ def make_inputs(n, d, k, base_rows, s, dev, kind=None):
     if s > 1:
         perm = R.permutation(R.PRNGKey(n, device=dev), n)
         w = norm_agg.bucket_matrix(perm, n, s)
+    if weighted:
+        from repro_torch.serve import staleness_weights
+        tau = np.random.default_rng(n * 7919 + d).integers(0, 6, size=n)
+        stale = torch.as_tensor(staleness_weights(tau), device=dev)
+        w = torch.diag(stale) if w is None else w * stale[None, :]
     return (x, w, mask, mean, std), in_bytes
 
 
-def make_case(n, d, k, base_rows, s, rule, dev, kind=None):
+def make_case(n, d, k, base_rows, s, rule, dev, kind=None, weighted=False):
     """Inputs of one robust_agg call, its bytes and operations."""
     from repro_torch.core.attacks import CoordAttack
-    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev, kind)
+    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev, kind, weighted)
     w = args[1]
     m = n if w is None else w.shape[0]
     kw = dict(rule=rule, trim=1, attack=CoordAttack("ALIE", 1.06))
@@ -534,18 +548,18 @@ def mask_inputs(args, n, s, invalid):
     return x, w, mask, mean, std, valid, bvalid
 
 
-def kernel_case(case, dev):
+def kernel_case(case, dev, weighted=False):
     """``robust_agg`` on one case against its plain version, timed beside
     it and a library call. A masked case (a last element naming invalid
     workers) must equal its plain version (``torch.equal``: both read a
     rank as 0 + v); an unmasked one agree to KERNEL_TOL, since its W·x
-    sums in another order."""
+    sums in another order. ``weighted`` as in ``make_inputs``."""
     from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
     from repro_torch.kernels.norm_agg import stack
     kind, label, n, d, k, base_rows, s, rule, *rest = case
     invalid = rest[0] if rest else ()
     args, kw, bytes_moved, ops = make_case(n, d, k, base_rows, s, rule, dev,
-                                           kind)
+                                           kind, weighted)
     if invalid:
         args = mask_inputs(args, n, s, invalid)
         bytes_moved += 4 * (n + (n if args[1] is None else args[1].shape[0]))
@@ -573,6 +587,8 @@ def kernel_case(case, dev):
     bound_ms, bound_by = bound_of(bytes_moved, ops)
     row = {"kernel": "robust_agg", "kind": kind, "label": label, "n": n,
            "d": d, "k": k, "base_rows": base_rows, "s": s, "rule": rule,
+           "weighted": weighted, "m": n if args[1] is None
+           else args[1].shape[0],
            "invalid": list(invalid), "max_abs_err": err, "err_limit": limit,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
@@ -580,7 +596,9 @@ def kernel_case(case, dev):
     check = ("equal to the plain version" if invalid else
              f"max abs err {err:.3e} (limit {limit:.3e})")
     print(f"[kernel] {kind:11s} {label}: n={n} d={d} k={k} s={s} {rule}"
-          f"{' masked' if invalid else ''} | {check} | kernel "
+          f"{' masked' if invalid else ''}"
+          f"{' weighted m=' + str(row['m']) if weighted else ''} | {check} "
+          f"| kernel "
           f"{timing_text(t)}; plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
           f"({row['bound_by']}) library(rule step alone) "
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}",
@@ -600,15 +618,16 @@ def bound_of(bytes_moved, ops, rate=FP32_OPS_PER_S):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def norm_case(case, dev):
+def norm_case(case, dev, weighted=False):
     """Each norm kernel on one case: against its plain version, twice for
     bit-for-bit repeatability, and timed beside its plain version and a
-    library call. Returns one row per kernel."""
+    library call. Returns one row per kernel. ``weighted`` as in
+    ``make_inputs``."""
     from repro_torch.core.attacks import CoordAttack
     from repro_torch.kernels import norm_agg as N
     kind, label, n, d, k, base_rows, s, *rest = case
     invalid = rest[0] if rest else ()
-    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev, kind)
+    args, in_bytes = make_inputs(n, d, k, base_rows, s, dev, kind, weighted)
     valid = None
     if invalid:
         x, w, mask, mean, std, valid, _ = mask_inputs(args, n, s, invalid)
@@ -679,8 +698,8 @@ def norm_case(case, dev):
         library_ms = None if lib is None else cuda_ms(lib)
         bound_ms, bound_by = bound_of(bytes_moved, ops)
         row = {"kernel": name, "kind": kind, "label": label, "n": n, "d": d,
-               "k": k, "base_rows": base_rows, "s": s,
-               "invalid": list(invalid),
+               "k": k, "base_rows": base_rows, "s": s, "weighted": weighted,
+               "m": m, "invalid": list(invalid),
                "max_abs_err": max(errs), "errs": errs, "err_limits": limits,
                "bitwise_repeat": repeat, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -704,7 +723,8 @@ def norm_case(case, dev):
         rows.append(row)
         lib_txt = ("n/a" if library_ms is None else f"{library_ms:.4f} ms")
         print(f"[kernel] {name:12s} {kind:11s} {label}: n={n} d={d} k={k} "
-              f"s={s}{' masked' if invalid else ''} | errs {', '.join(f'{e:.3e}' for e in errs)} (limits "
+              f"s={s}{' masked' if invalid else ''}"
+              f"{f' weighted m={m}' if weighted else ''} | errs {', '.join(f'{e:.3e}' for e in errs)} (limits "
               f"{', '.join(f'{v:.3e}' for v in limits)}) repeat bitwise | "
               f"kernel {timing_text(t)}; plain {plain_ms:.4f} ms bound "
               f"{bound_ms:.4f} ms ({bound_by}) library {lib_txt}{sq_txt}",
@@ -1855,6 +1875,225 @@ def exec_phase(dev, card) -> dict:
     return got
 
 
+# the streaming service (repro_torch.serve): a9a-shaped clients under the
+# reference tests' chaos (a quarter of the clients 4x slower, 10% of the
+# updates lost, 25% delivered twice), every fire through the kernels
+SERVE_FIRES = 60
+SERVE_SPEC = dict(
+    task="logreg", method="sgd", n_clients=32, n_byz=4, attack="ALIE",
+    aggregator="cm", bucket_size=2, agg_mode="pallas", buffer_size=8,
+    rounds=SERVE_FIRES, lr=0.5, arrival="exp", seed=0,
+    arrival_kwargs={"mean_latency": 1.0, "straggler_frac": 0.25,
+                    "straggler_factor": 4.0, "dropout": 0.1,
+                    "duplicate": 0.25},
+    data_kwargs=dict(MAIN_SPEC["data_kwargs"]))
+SERVE_TRACED_FIRES = 20
+# benchmarks/bench_serve.py's Krum K = 256 cell: the buffer bucketed to
+# m = 128 rows takes the blocked tier
+SERVE_GIANT_SPEC = dict(
+    task="logreg", method="sgd", n_clients=512, n_byz=16, attack="ALIE",
+    aggregator="krum", bucket_size=2, agg_mode="pallas", buffer_size=256,
+    rounds=12, lr=0.1, arrival="exp", arrival_kwargs={"mean_latency": 1.0},
+    data_kwargs={"dim": 1024, "n_samples": 128, "batch_size": 8})
+# the sync limit: K = n, const latency, no chaos
+SERVE_SYNC_SPEC = dict(SERVE_SPEC, n_clients=5, n_byz=1, buffer_size=5,
+                       arrival="const", arrival_kwargs={}, rounds=20)
+SERVE_RESUME_FIRES = 20
+SERVE_KILL_EVENTS = 100          # the killed run's events: some 8 fires
+SERVE_CHECK_FIRES = 12
+SERVE_HOST = ("round", "t_virtual", "staleness_mean", "staleness_max",
+              "byz_in_buffer", "delta_active", "cursor")
+# the weighted operator on the card: W = W_bucket · diag(w) at the serve
+# paths' shapes (8 buffered rows of a9a's packed b+w, 124 wide), W =
+# diag(w) (m = n, unbucketed Krum) there, and both at n = 64, where the
+# fused kernels' shared memory holds x, W x and W (64 x 64) together
+SERVE_W_CASES = [
+    ("dense", "serve cm: W_bucket·diag(w), 8 rows", 8, 124, None, 0, 2,
+     "median"),
+    ("dense", "serve krum: W = diag(w), 8 rows", 8, 124, None, 0, 1,
+     "median"),
+    ("dense", "W_bucket·diag(w), 64 rows, 2^18 wide", 64, 1 << 18, None, 0,
+     2, "median"),
+    ("dense", "W = diag(w), m = n = 64, 2^18 wide", 64, 1 << 18, None, 0, 1,
+     "median"),
+]
+
+
+def _serve_counts(per_fire: dict, fires: int) -> dict:
+    counts = dict.fromkeys(COUNTED, 0)
+    for k, v in per_fire.items():
+        counts[k] = v * fires
+    return counts
+
+
+def _serve_run(dev, spec, tag, per_fire, card, **run_kw):
+    """One service run on the card, the counts set to 0 just before; its
+    launches against ``per_fire`` times its fires."""
+    from repro_torch.api import ServeSpec
+    reset_counts()
+    t0 = time.time()
+    res = ServeSpec(**spec).run(device=dev, sync_each_fire=True, **run_kw)
+    wall = time.time() - t0
+    counts = read_counts()
+    fires = len(res.history)
+    want = _serve_counts(per_fire, fires)
+    if counts != want:
+        raise AssertionError(f"serve {tag}: launches {nonzero(counts)} "
+                             f"for {fires} fires, expected {nonzero(want)}")
+    losses = [m["loss"] for m in res.history]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"serve {tag}: non-finite loss")
+    lat = [t * 1e3 for t in res.fire_latencies_s]
+    row = {"fires": fires, "launches": counts, "run_wall_s": wall,
+           "wall_ms_per_fire": res.wall_s / max(fires, 1) * 1e3,
+           "fire_ms_p50": statistics.median(lat) if lat else None,
+           "fire_ms_mean": statistics.mean(lat) if lat else None,
+           "updates_per_s": res.updates_per_s, "stats": res.stats,
+           "first_loss": losses[0] if losses else None,
+           "final_loss": losses[-1] if losses else None}
+    print(f"[serve {tag}] {fires} fires; fire {row['fire_ms_p50']:.3f} ms "
+          f"p50, {row['fire_ms_mean']:.3f} ms mean (host clock around the "
+          f"fire, the card synchronized after it); "
+          f"{row['wall_ms_per_fire']:.3f} ms of the loop a fire (ingest, "
+          f"client rounds and fire); run() {wall:.2f} s incl. data and "
+          f"init; {res.updates_per_s:.1f} updates/s; launches "
+          f"{nonzero(counts)}; stats {res.stats} [{card}]", flush=True)
+    return res, row
+
+
+def _serve_vs_cpu(tag, spec, res, traced=False):
+    """The card run's first SERVE_CHECK_FIRES fires against the CPU run of
+    the same spec: host fields equal, loss and |g| to TRAJ_TOL (and a
+    traced run's influence, to TRAJ_TOL of its largest entry)."""
+    from repro_torch.api import ServeSpec
+    cpu = ServeSpec(**{**spec, "rounds": SERVE_CHECK_FIRES}).run(
+        device="cpu")
+    n = SERVE_CHECK_FIRES
+    host = [{k: m[k] for k in SERVE_HOST} for m in res.history[:n]]
+    if host != [{k: m[k] for k in SERVE_HOST} for m in cpu.history]:
+        raise AssertionError(f"serve {tag}: host fields differ from the "
+                             "CPU run")
+    diff = max(abs(a[k] - b[k]) for a, b in zip(res.history, cpu.history)
+               for k in ("loss", "g_norm"))
+    if traced:
+        for a, b in zip(res.traces, cpu.traces):
+            top = max(max(abs(v) for v in b["influence"]), 1e-30)
+            diff = max(diff, max(abs(x - y) for x, y in
+                                 zip(a["influence"], b["influence"])) / top)
+    print(f"[serve {tag}] first {n} fires vs the CPU run: host fields "
+          f"equal, max |loss or |g| diff|{' or influence' if traced else ''}"
+          f" {diff:.3e} (limit {TRAJ_TOL})", flush=True)
+    if diff > TRAJ_TOL:
+        raise AssertionError(f"serve {tag}: differs from the CPU run by "
+                             f"{diff}")
+    return diff
+
+
+def _ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def serve_phase(dev, card) -> dict:
+    """The streaming service on the card (module docstring): the weighted
+    bucket operator in each fused kernel against its plain version, timed
+    beside the same call unweighted, then the serve paths, each with its
+    launches per fire and its first fires against the CPU run."""
+    import shutil
+    from repro_torch.api import RunSpec, ServeSpec, run
+    from repro_torch.serve import params_digest
+    t0 = time.time()
+    rows, unweighted = [], []
+    for c in SERVE_W_CASES:
+        rows.append(kernel_case(c, dev, weighted=True))
+        rows.extend(norm_case(c[:7], dev, weighted=True))
+        # the same call with W the bucket operator alone (None unbucketed):
+        # what the staleness weights cost the kernel
+        unweighted.append(kernel_case(c, dev))
+        unweighted.extend(norm_case(c[:7], dev))
+    for a, b in zip(rows, unweighted):
+        dm = [r["device_ms"] for r in (a, b)]
+        print(f"[serve] {a['kernel']:12s} {a['label']}: weighted m={a['m']}"
+              f" {a['ms']:.4f} ms (device {_ms_text(dm[0])}) against "
+              f"unweighted m={b['m']} {b['ms']:.4f} ms (device "
+              f"{_ms_text(dm[1])}): x{a['ms'] / b['ms']:.2f} [{card}]",
+              flush=True)
+    paths, checks = {}, {}
+    cm = {"robust_agg/dense": 1}
+    krum = {"pair_gram/dense": 1, "weighted_sum/dense": 1}
+    res, paths["serve cm"] = _serve_run(dev, SERVE_SPEC, "cm", cm, card)
+    checks["cm_vs_cpu"] = _serve_vs_cpu("cm", SERVE_SPEC, res)
+    weighted = sum(m["staleness_max"] > 0 for m in res.history)
+    if not weighted:
+        raise AssertionError("serve cm: no fire carried staleness weights")
+    spec = {**SERVE_SPEC, "aggregator": "krum", "bucket_size": 0,
+            "rounds": SERVE_TRACED_FIRES}
+    plain, paths["serve krum"] = _serve_run(dev, spec, "krum", krum, card)
+    traced, paths["serve krum traced"] = _serve_run(
+        dev, {**spec, "trace": True}, "krum traced", krum, card)
+    same = (_states_equal(plain.params, traced.params)
+            and [(m["loss"], m["g_norm"]) for m in plain.history]
+            == [(m["loss"], m["g_norm"]) for m in traced.history])
+    print(f"[serve krum traced] equal to its untraced twin bit for bit: "
+          f"{same}; influence sums "
+          f"{[round(sum(t['influence']), 4) for t in traced.traces[:8]]} "
+          f"... [{card}]", flush=True)
+    if not same:
+        raise AssertionError("serve krum: the traced run differs from its "
+                             "untraced twin")
+    checks["krum_traced_vs_cpu"] = _serve_vs_cpu(
+        "krum traced", {**spec, "trace": True}, traced, traced=True)
+    giant, paths["serve giant"] = _serve_run(
+        dev, SERVE_GIANT_SPEC, "giant krum K=256",
+        {"pair_gram_blocked": 2, "weighted_sum_blocked": 2}, card)
+    checks["giant_vs_cpu"] = _serve_vs_cpu("giant krum K=256",
+                                           SERVE_GIANT_SPEC, giant)
+    sync, paths["serve sync"] = _serve_run(dev, SERVE_SYNC_SPEC, "sync", cm,
+                                           card)
+    eng = run(ServeSpec(**SERVE_SYNC_SPEC).to_run_spec(), device=dev,
+              log_every=1)
+    sync_same = (_states_equal(sync.params, eng.state["params"])
+                 and [m["loss"] for m in sync.history]
+                 == [m["loss"] for m in eng.history])
+    print(f"[serve sync] K = n = 5, const latency: equal to the synchronous "
+          f"run (api.run of to_run_spec()) bit for bit: {sync_same} "
+          f"[{card}]", flush=True)
+    if not sync_same:
+        raise AssertionError("serve sync: differs from the synchronous run")
+    checks["sync_vs_cpu"] = _serve_vs_cpu("sync", SERVE_SYNC_SPEC, sync)
+    out = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    spec = {**SERVE_SPEC, "rounds": SERVE_RESUME_FIRES}
+    full, paths["serve resume uninterrupted"] = _serve_run(
+        dev, spec, "resume: uninterrupted", cm, card)
+    prefix = [(m["loss"], m["g_norm"]) for m in res.history[
+        :SERVE_RESUME_FIRES]]
+    if [(m["loss"], m["g_norm"]) for m in full.history] != prefix:
+        raise AssertionError("serve resume: the uninterrupted run does not "
+                             "repeat the cm path's first fires")
+    killed, paths["serve resume killed"] = _serve_run(
+        dev, spec, "resume: killed", cm, card, checkpoint=str(out / "ck"),
+        checkpoint_every=5, stop_after_events=SERVE_KILL_EVENTS)
+    resumed, paths["serve resume resumed"] = _serve_run(
+        dev, spec, "resume: resumed", cm, card, resume=str(out / "ck"))
+    digests = [params_digest(r.params) for r in (full, resumed)]
+    print(f"[serve resume] killed after {SERVE_KILL_EVENTS} events at "
+          f"{killed.stats['rounds']} fires, resumed from the checkpoint of "
+          f"fire {resumed.history[0]['round']}: params_digest "
+          f"{digests[1]} against the uninterrupted run's {digests[0]} "
+          f"[{card}]", flush=True)
+    if digests[0] != digests[1] or resumed.stats != full.stats:
+        raise AssertionError("serve resume: the resumed run ends apart "
+                             "from the uninterrupted one")
+    got = {"weighted_cases": rows, "unweighted_cases": unweighted,
+           "paths": paths, "checks": checks,
+           "cm_weighted_fires": weighted,
+           "wall_s": time.time() - t0}
+    print(f"[serve] the phase took {got['wall_s']:.1f} s [{card}]",
+          flush=True)
+    return got
+
+
 def share_cpu_data():
     """The paths' CPU checks build the same few datasets (a9a width at 5
     and 256 workers, gisette width) again for every path, some 2.4 s of
@@ -1878,7 +2117,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", choices=("all", "kernels", "tracer",
-                                         "zoo_obs", "exec"),
+                                         "zoo_obs", "exec", "serve"),
                     default="all",
                     help="'kernels': the kernel phases alone (no paths, "
                          "no kernels line), e.g. to time another tree's "
@@ -1890,7 +2129,8 @@ def main(argv=None) -> int:
                          "alone (no kernels line); 'exec': the build and "
                          "the checkpoint, resume, warm-up, worker-pool "
                          "sweep and seed-group checks alone (no kernels "
-                         "line)")
+                         "line); 'serve': the build and the streaming "
+                         "service's phase alone (no kernels line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1925,6 +2165,14 @@ def main(argv=None) -> int:
              "wall_s": time.time() - t_start}, indent=1, default=str))
         print(f"[done] the zoo_obs paths alone, "
               f"{time.time() - t_start:.1f} s", flush=True)
+        return 0
+    if args.phases == "serve":
+        got = serve_phase(dev, card)
+        (out_dir / "chip_smoke_serve.json").write_text(json.dumps(
+            {"card": card, "torch": torch.__version__, **got,
+             "wall_s": time.time() - t_start}, indent=1, default=str))
+        print(f"[done] the serve phase alone, {time.time() - t_start:.1f} s",
+              flush=True)
         return 0
     if args.phases == "exec":
         got = exec_phase(dev, card)
@@ -2072,6 +2320,9 @@ def main(argv=None) -> int:
     exec_got = exec_phase(dev, card)
     paths.update(exec_got["paths"])
     mark("exec phase done")
+    serve_got = serve_phase(dev, card)
+    paths.update(serve_got["paths"])
+    mark("serve phase done")
     path_specs = {"cm": MAIN_SPEC, "rfa": {**MAIN_SPEC, "aggregator": "rfa"},
                   "krum": {**MAIN_SPEC, "aggregator": "krum"},
                   "cm chaos": {**MAIN_SPEC, **CHAOS_SPEC},
@@ -2142,6 +2393,7 @@ def main(argv=None) -> int:
          "main_paths": paths, "traced_paths": zoo_obs["traced"],
          "profile_trace": zoo_obs["profile_trace"], "path_profiles": profiles,
          "exec": {k: v for k, v in exec_got.items() if k != "paths"},
+         "serve": {k: v for k, v in serve_got.items() if k != "paths"},
          "phase_marks_s": marks,
          "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))

@@ -20,8 +20,13 @@ the same kernel-driver calls with the rules' own intermediates returned,
 and builds a RoundTrace after them, which the metrics gain as
 ``"trace"``; one code path, so the trajectory is the untraced step's, bit
 for bit. Estimators that own their message phase take the flag as an
-argument, as ``sampled``, and call ``phase_with_trace``. The
-buffered-ingest phase is not ported yet (ROADMAP queue 1, item 10).
+argument, as ``sampled``, and call ``phase_with_trace``.
+
+``ingest_message_phase`` is the streaming service's entry to the message
+phase (``serve.service``): it aggregates a buffer of K updates, with the
+byzantine mask over the buffered entries given per call and the
+service's staleness weights scaling the sent rows before bucketing (on
+the kernels, inside the bucket operator W).
 """
 from __future__ import annotations
 
@@ -38,14 +43,17 @@ AGG_BACKENDS = ("gspmd", "all_to_all", "sparse_support", "pallas")
 PORTED_BACKENDS = ("gspmd", "sparse_support", "pallas")
 
 
-def apply_attack(cfg, key, cand: dict, stats_valid=None) -> dict:
+def apply_attack(cfg, key, cand: dict, stats_valid=None,
+                 mask=None) -> dict:
     """The vectors actually sent: byzantine rows replaced by the attack,
     computed from the good workers' per-coordinate mean/std.
     ``stats_valid`` (fault guard, participation) restricts the statistics
-    to valid rows."""
-    if cfg.attack.name in ("NA", "LF") or cfg.n_byz == 0:
+    to valid rows. ``mask`` (the streaming service: which buffered
+    entries came from byzantine clients) replaces ``cfg.byz_mask()``."""
+    if cfg.attack.name in ("NA", "LF") or (mask is None and cfg.n_byz == 0):
         return cand
-    mask = cfg.byz_mask(tu.leaves(cand)[0].device)
+    if mask is None:
+        mask = cfg.byz_mask(tu.leaves(cand)[0].device)
     good = ~mask if stats_valid is None else ~mask & stats_valid
     means, stds = tu.masked_mean_std(cand, good,
                                      sanitize=stats_valid is not None)
@@ -68,14 +76,21 @@ def stacked_grads(loss_fn, params: dict, batches: dict, keys):
     return losses.mean(), grads
 
 
-def aggregate(cfg, key, sent: dict, valid=None, return_info: bool = False):
+def aggregate(cfg, key, sent: dict, valid=None, return_info: bool = False,
+              weights=None):
     """Backend dispatch for g = ARAgg(sent_1, ..., sent_n); ``valid``
     (n,) gives invalid rows zero weight through the masked twins.
     ``sparse_support`` changes only MARINA's VR rounds (the estimator
     aggregates the shared support itself); every other aggregation under
     it is the gspmd one. ``return_info`` (the telemetry twin) returns
-    ``(agg, info)``, the rules' intermediates, from the same calls."""
+    ``(agg, info)``, the rules' intermediates, from the same calls.
+    ``weights`` (n,) scale each sent row before bucketing and the rule
+    (the streaming service's staleness weights): the kernels carry them
+    in the bucket operator, the plain backend scales the tree (the
+    reference for both)."""
     if cfg.agg_mode in ("gspmd", "sparse_support"):
+        if weights is not None:
+            sent = _scaled(sent, weights)
         if valid is not None:
             return cfg.aggregator.tree_masked(key, sent, valid,
                                               return_info=return_info)
@@ -85,7 +100,8 @@ def aggregate(cfg, key, sent: dict, valid=None, return_info: bool = False):
     if cfg.agg_mode == "pallas":
         from repro_torch.core.sharded_agg import tree_aggregate_pallas
         return tree_aggregate_pallas(cfg, key, sent, valid=valid,
-                                     return_info=return_info)
+                                     return_info=return_info,
+                                     weights=weights)
     raise NotImplementedError(
         f"agg_mode {cfg.agg_mode!r} is not ported yet (ROADMAP queue 1, "
         "item 11)")
@@ -123,29 +139,34 @@ def sampled_worker_mask(cfg, step_key):
     return rank < cfg.n_active
 
 
-def _fusable(cfg) -> bool:
+def _fusable(cfg, mask=None) -> bool:
     """The pallas backend with no attack, or one that rides into the
     kernels' load."""
     return cfg.agg_mode == "pallas" and (
-        clean_attack(cfg) or cfg.attack.coord_apply is not None)
+        clean_attack(cfg, mask) or cfg.attack.coord_apply is not None)
 
 
-def clean_attack(cfg) -> bool:
-    """No byzantine row is forged: no byzantines, or NA / LF."""
-    return cfg.n_byz == 0 or cfg.attack.name in ("NA", "LF")
+def clean_attack(cfg, mask=None) -> bool:
+    """No byzantine row is forged: NA / LF, or no byzantines and no
+    per-call ``mask``."""
+    return cfg.attack.name in ("NA", "LF") or (mask is None
+                                               and cfg.n_byz == 0)
 
 
-def _fused_phase(cfg, agg_key, cand, valid=None, return_info: bool = False):
+def _fused_phase(cfg, agg_key, cand, valid=None, return_info: bool = False,
+                 mask=None, weights=None):
     """Attack and aggregation in the kernels (``_fusable`` configs), the
-    attack's statistics and the aggregate over the ``valid`` rows."""
+    attack's statistics and the aggregate over the ``valid`` rows;
+    ``mask`` replaces ``cfg.byz_mask()``, ``weights`` ride in W."""
     from repro_torch.core.sharded_agg import tree_aggregate_pallas
-    if clean_attack(cfg):
-        return tree_aggregate_pallas(cfg, agg_key, cand, valid=valid,
-                                     return_info=return_info)
-    mask = cfg.byz_mask(tu.leaves(cand)[0].device)
-    ctx = fusable_attack_ctx(cfg, cand, mask, stats_valid=valid)
+    ctx = None
+    if not clean_attack(cfg, mask):
+        if mask is None:
+            mask = cfg.byz_mask(tu.leaves(cand)[0].device)
+        ctx = fusable_attack_ctx(cfg, cand, mask, stats_valid=valid)
     return tree_aggregate_pallas(cfg, agg_key, cand, attack_ctx=ctx,
-                                 valid=valid, return_info=return_info)
+                                 valid=valid, return_info=return_info,
+                                 weights=weights)
 
 
 def _fault_mask(cfg, attack_key, trace, n, kinds):
@@ -238,7 +259,7 @@ def guarded_message_phase(cfg, attack_key, agg_key, cand, trace=False,
 
 
 def message_phase(cfg, attack_key, agg_key, cand, sampled=None,
-                  trace=False):
+                  trace=False, byz_mask=None, weights=None):
     """Lines 9-10 of the round: omniscient attack, then robust
     aggregation. ``cand`` is a stacked dense tree or, on the wire path, a
     ``wire.WireCandidates`` payload. A fault plan injects its message
@@ -247,9 +268,13 @@ def message_phase(cfg, attack_key, agg_key, cand, sampled=None,
     ``participating_message_phase``. ``trace`` (the telemetry twin)
     returns ``(agg, RoundTrace)``: the same calls, with the backends'
     ``return_info``, and the trace built after them
-    (``obs.trace._build_trace``)."""
+    (``obs.trace._build_trace``). ``byz_mask`` and ``weights`` are the
+    streaming service's (``ingest_message_phase``), over dense
+    candidates at full participation: the attack's mask in place of
+    ``cfg.byz_mask()``, and each sent row's scale before bucketing and
+    the rule (on the kernels, inside W)."""
     from repro_torch.core import wire
-    from repro_torch.faults import inject
+    from repro_torch.faults import guard as fguard, inject
     if sampled is not None:
         return participating_message_phase(cfg, attack_key, agg_key, cand,
                                            sampled, trace)
@@ -274,17 +299,55 @@ def message_phase(cfg, attack_key, agg_key, cand, sampled=None,
     fault_mask = _fault_mask(cfg, attack_key, trace,
                              tu.leaves(cand)[0].shape[0],
                              inject.TENSOR_FAULTS)
-    if cfg.fault_guard:
+    ingest = byz_mask is not None or weights is not None
+    if cfg.fault_guard and not ingest:
         return guarded_message_phase(cfg, attack_key, agg_key, cand, trace,
                                      fault_mask)
-    if _fusable(cfg):
-        out = _fused_phase(cfg, agg_key, cand, return_info=trace)
+    kw = dict(fault_mask=fault_mask, byz_mask=byz_mask, weights=weights)
+    if cfg.fault_guard:
+        # the reference's guarded ingest: the attack is materialized and
+        # the rows it leaves not finite get zero weight
+        valid_pre = fguard.finite_row_mask(cand)
+        sent = apply_attack(cfg, attack_key, cand, stats_valid=valid_pre,
+                            mask=byz_mask)
+        valid = fguard.finite_row_mask(sent)
+        out = aggregate(cfg, agg_key, sent, valid=valid, return_info=trace,
+                        weights=weights)
+        return _result(cfg, agg_key, out, trace, sent, valid=valid, **kw)
+    if _fusable(cfg, byz_mask):
+        out = _fused_phase(cfg, agg_key, cand, return_info=trace,
+                           mask=byz_mask, weights=weights)
         return _result(cfg, agg_key, out, trace,
-                       lambda: apply_attack(cfg, attack_key, cand),
-                       fault_mask=fault_mask)
-    sent = apply_attack(cfg, attack_key, cand)
-    out = aggregate(cfg, agg_key, sent, return_info=trace)
-    return _result(cfg, agg_key, out, trace, sent, fault_mask=fault_mask)
+                       lambda: apply_attack(cfg, attack_key, cand,
+                                            mask=byz_mask), **kw)
+    sent = apply_attack(cfg, attack_key, cand, mask=byz_mask)
+    out = aggregate(cfg, agg_key, sent, return_info=trace, weights=weights)
+    return _result(cfg, agg_key, out, trace, sent, **kw)
+
+
+def _scaled(sent: dict, weights) -> dict:
+    """Each row times its weight, in float32, back in the leaf's dtype:
+    what the kernels' W = W_bucket · diag(w) applies in their load."""
+    w = weights.float()
+    return tu.tree_map(lambda a: (a.float() * w.reshape(
+        (-1,) + (1,) * (a.dim() - 1))).to(a.dtype), sent)
+
+
+def ingest_message_phase(cfg, attack_key, agg_key, cand, *, byz_mask=None,
+                         weights=None, trace=False):
+    """Lines 9-10 over a buffer of K updates (the streaming service):
+    ``message_phase`` with ``byz_mask`` (K,) bool, which buffered entries
+    came from byzantine clients, and ``weights`` (K,) float32, the
+    service's staleness weights (so that ``mean`` gives the FedBuff
+    weighted mean). With both omitted this is ``message_phase``. Wire
+    payloads raise ``TypeError``: the buffer holds dense updates."""
+    from repro_torch.core import wire
+    if isinstance(cand, wire.WireCandidates):
+        raise TypeError(
+            "ingest_message_phase aggregates dense buffered updates; decode "
+            "wire payloads at ingest (serve/buffer.py) before firing")
+    return message_phase(cfg, attack_key, agg_key, cand, trace=trace,
+                         byz_mask=byz_mask, weights=weights)
 
 
 def phase_with_trace(cfg, attack_key, agg_key, cand, sampled=None,

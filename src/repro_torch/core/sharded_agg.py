@@ -24,13 +24,21 @@ valid members), and the rules track the (m,) bucket validity ``bvalid``.
 The giant-n tier zeroes the rows before bucketing and hands ``bvalid`` to
 the drivers.
 
+``weights`` ((n,) float32: the streaming service's staleness weights,
+``engine.ingest_message_phase``) scale each sent row after the attack and
+the guard's select and before bucketing. On the fused kernels the scale
+rides in the operator W = W_bucket · diag(w) (W = diag(w), m = n, where
+nothing is bucketed), so the scaled stack is never materialized; each
+entry of W is one product, as the reference's ``w_mat @ diag(w)`` gives
+it. The giant-n tier scales its flat rows. ``Aggregator.tree`` over the
+scaled candidates is the reference.
+
 ``return_info=True`` (the telemetry twin, ``obs.trace``) returns
 ``(tree, info)``: the RFA / Krum drivers' own intermediates (see
 ``kernels.norm_agg``), ``{}`` for the coordinate rules, from the same
 launches as ``return_info=False``.
 
-The ``all_to_all`` backend and staleness weights are not ported yet
-(ROADMAP queue 1, items 10 and 11).
+The ``all_to_all`` backend is not ported yet (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -61,17 +69,25 @@ class AttackCtx:
     stds: object = None
 
 
-def _bucket_operator(agg, key, n, device, valid=None):
+def _bucket_operator(agg, key, n, device, valid=None, weights=None):
     """(W, bvalid): the (nb, n) bucket operator (None without bucketing)
     and the bucket validity (None unguarded). Under ``valid`` W is the
-    masked operator, or, without bucketing, bvalid is ``valid`` itself."""
+    masked operator, or, without bucketing, bvalid is ``valid`` itself.
+    ``weights`` (n,) scale W's columns: W · diag(w), or diag(w) where
+    nothing is bucketed."""
     bucketed = agg.bucket_size > 1 and agg.rule != "mean"
-    if not bucketed:
-        return None, valid
-    perm = R.permutation(key, n).to(device)
-    if valid is None:
-        return norm_agg.bucket_matrix(perm, n, agg.bucket_size), None
-    return masked_bucket_matrix(perm, n, agg.bucket_size, valid)
+    w_mat, bvalid = None, valid
+    if bucketed:
+        perm = R.permutation(key, n).to(device)
+        if valid is None:
+            w_mat = norm_agg.bucket_matrix(perm, n, agg.bucket_size)
+        else:
+            w_mat, bvalid = masked_bucket_matrix(perm, n, agg.bucket_size,
+                                                 valid)
+    if weights is not None:
+        w = weights.to(device=device, dtype=torch.float32)
+        w_mat = torch.diag(w) if w_mat is None else w_mat * w[None, :]
+    return w_mat, bvalid
 
 
 def _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds, valid=None,
@@ -154,13 +170,13 @@ def _materialize_attack_flat(flats, dtypes, attack_ctx):
 
 
 def _tree_aggregate_large_n(cfg, key, sent: dict, attack_ctx=None,
-                            valid=None):
+                            valid=None, weights=None):
     """Giant-n tier of ``tree_aggregate_pallas`` (more than
     ``MAX_FUSED_WORKERS`` workers): bucket first, so that no kernel holds
     the whole worker axis, then run the rule on the m bucketed rows of
     each leaf (module docstring). ``Aggregator.tree`` (``tree_masked``
-    under ``valid``) over the attacked candidates is its reference.
-    -> (tree, the drivers' info)."""
+    under ``valid``) over the attacked (and ``weights``-scaled)
+    candidates is its reference. -> (tree, the drivers' info)."""
     agg = cfg.aggregator
     leaves = tu.leaves(sent)
     n = leaves[0].shape[0]
@@ -170,6 +186,9 @@ def _tree_aggregate_large_n(cfg, key, sent: dict, attack_ctx=None,
     if valid is not None:
         # select-zero, never multiply (0·NaN = NaN)
         flats = [torch.where(valid[:, None], xf, 0.0) for xf in flats]
+    if weights is not None:
+        w = weights.float().reshape(n, 1)
+        flats = [xf * w for xf in flats]
     bvalid = valid
     if agg.bucket_size > 1 and agg.rule != "mean":
         perm = R.permutation(key, n)
@@ -201,19 +220,21 @@ def _tree_aggregate_large_n(cfg, key, sent: dict, attack_ctx=None,
 
 
 def tree_aggregate_pallas(cfg, key, sent: dict, attack_ctx=None,
-                          valid=None, return_info: bool = False):
+                          valid=None, return_info: bool = False,
+                          weights=None):
     """Aggregate the stacked candidate tree through the kernels, leaf-wise
     by segment, with one shared bucket operator; more than
-    ``MAX_FUSED_WORKERS`` workers take the giant-n tier. ``valid`` and
-    ``return_info`` as in the module docstring."""
+    ``MAX_FUSED_WORKERS`` workers take the giant-n tier. ``valid``,
+    ``return_info`` and ``weights`` as in the module docstring."""
     agg = cfg.aggregator
     leaves = tu.leaves(sent)
     n = leaves[0].shape[0]
     if n > MAX_FUSED_WORKERS:
         tree, info = _tree_aggregate_large_n(cfg, key, sent, attack_ctx,
-                                             valid)
+                                             valid, weights)
         return (tree, info) if return_info else tree
-    w_mat, bvalid = _bucket_operator(agg, key, n, leaves[0].device, valid)
+    w_mat, bvalid = _bucket_operator(agg, key, n, leaves[0].device, valid,
+                                     weights)
     attack_fn = mask = None
     ctx = None
     if attack_ctx is not None:

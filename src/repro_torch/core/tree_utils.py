@@ -80,7 +80,9 @@ def masked_mean_std(xs: dict, good_mask: torch.Tensor,
         if sanitize:
             af = torch.where(w > 0.0, af, m[None])
         var = ((af - m[None]).square() * w).sum(0) / cnt
-        return torch.sqrt(torch.clamp(var, min=0.0))
+        # float64, rounded once: the correctly rounded float32 root (XLA's
+        # and CUDA's), which torch's vectorized CPU sqrt misses by an ulp
+        return torch.sqrt(torch.clamp(var, min=0.0).double()).float()
 
     return means, tree_map(std_leaf, xs, means)
 

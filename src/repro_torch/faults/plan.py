@@ -27,8 +27,9 @@ Fault registry (``FAULTS``):
 
 Kinds are grouped by injection site: TENSOR + WIRE kinds act inside
 ``engine.message_phase`` (message faults); PROCESS kinds act in
-``exec.worker`` (``exec.scheduler.process_fault`` picks the cells) and,
-in the reference, ``serve.arrivals`` (ROADMAP queue 1, item 10).
+``exec.worker`` (``exec.scheduler.process_fault`` picks the cells) and
+``serve.arrivals`` (the ``crash`` and ``hang`` knobs of a client's
+dispatch).
 """
 from __future__ import annotations
 

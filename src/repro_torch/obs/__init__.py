@@ -14,10 +14,13 @@
 from repro_torch.obs.detect import detection_metrics, filtered_mask, summarize
 from repro_torch.obs.sink import (FanoutSink, JsonlSink, MetricSink, NullSink,
                                   RingSink, TagSink, span, verify_jsonl)
-from repro_torch.obs.trace import RoundTrace, to_host, traced_message_phase
+from repro_torch.obs.trace import (RoundTrace, to_host,
+                                   traced_ingest_message_phase,
+                                   traced_message_phase)
 
 __all__ = [
-    "RoundTrace", "traced_message_phase", "to_host", "detection_metrics", "filtered_mask", "summarize",
+    "RoundTrace", "traced_message_phase", "traced_ingest_message_phase",
+    "to_host", "detection_metrics", "filtered_mask", "summarize",
     "MetricSink", "JsonlSink", "RingSink", "FanoutSink", "NullSink",
     "TagSink", "span", "verify_jsonl",
 ]

@@ -20,7 +20,8 @@ attacked stack ``sent``, materialized for the trace alone:
                        fractions averaged over coordinates for cm / tm
                        (ranks of ranks of the bucketed stack, ties in
                        ``jnp.argsort``'s stable order).
-* ``byz_mask``       — (n,) ground truth: the first n_byz workers.
+* ``byz_mask``       — (n,) ground truth: the first n_byz workers, or the
+                       service's per-fire mask.
 * ``krum_scores`` / ``krum_selected`` / ``rfa_weights`` / ``rfa_residual``
                      — rule intermediates (None for the other rules).
                        RFA's distances to its output are taken here from
@@ -34,10 +35,13 @@ attacked stack ``sent``, materialized for the trace alone:
 * ``sampled_mask``   — (n,) this round's cohort; None at full
                        participation.
 
-The cohort comes in as an argument, as the engine passes it. The
-buffered-ingest phase's byzantine mask and staleness weights belong to
-the streaming service (ROADMAP queue 1, item 10) and are not taken here.
-Nothing of the trace flows into the aggregate.
+The cohort comes in as an argument, as the engine passes it, and so do
+the streaming service's per-fire byzantine mask (over the buffered
+entries, in place of the first n_byz workers) and staleness weights
+(``traced_ingest_message_phase``): the rule saw the scaled rows, so its
+weights are pushed back through the scale, and the influence sums to the
+weighted rows' total rather than to 1. Nothing of the trace flows into
+the aggregate.
 """
 from __future__ import annotations
 
@@ -100,6 +104,15 @@ def traced_message_phase(cfg, attack_key, agg_key, cand, sampled=None):
                                 trace=True)
 
 
+def traced_ingest_message_phase(cfg, attack_key, agg_key, cand, *,
+                                byz_mask=None, weights=None):
+    """``engine.ingest_message_phase`` with ``trace=True``: ``(agg,
+    RoundTrace)``, ``agg`` equal bit for bit to the untraced phase's."""
+    return engine.ingest_message_phase(cfg, attack_key, agg_key, cand,
+                                       byz_mask=byz_mask, weights=weights,
+                                       trace=True)
+
+
 def _bucket_rows(w_b, x):
     """(m, n) W @ (n, D) x as the reference's compiled dot takes it: one
     fused multiply-add a row, in row order, for every bucket at once (the
@@ -113,14 +126,17 @@ def _bucket_rows(w_b, x):
 
 
 def _build_trace(cfg, agg_key, sent, agg, *, info, valid=None,
-                 fault_mask=None, sampled=None,
-                 record_guard=True) -> RoundTrace:
+                 fault_mask=None, sampled=None, record_guard=True,
+                 byz_mask=None, weights=None) -> RoundTrace:
     """The RoundTrace from the backend's intermediates and the attacked
     stack, in float32, diagnostics only. ``valid`` select-zeroes the
     rejected rows before any reduction (0·NaN is NaN) and swaps in the
     masked bucket operator, so rejected rows read zero influence and a
     finite distance. The bucketing permutation is ``info["perm"]`` or,
-    where the kernels held the operator, recomputed from ``agg_key``."""
+    where the kernels held the operator, recomputed from ``agg_key``.
+    ``weights`` (the service's staleness scale) scale the rows the rule
+    saw and the influence; ``byz_mask`` is the ground truth where given.
+    """
     from repro_torch.core.aggregators import xla_sum_lanes
     from repro_torch.faults.guard import masked_bucket_matrix
     from repro_torch.kernels.norm_agg import bucket_matrix
@@ -131,6 +147,8 @@ def _build_trace(cfg, agg_key, sent, agg, *, info, valid=None,
     x = torch.cat([a.reshape(n, -1).float() for a in leaves], dim=1)
     if valid is not None:
         x = torch.where(valid[:, None], x, torch.zeros((), device=dev))
+    w_row = None if weights is None else weights.float().to(dev)
+    xs = x if w_row is None else x * w_row[:, None]
 
     w_b = None
     if agg_obj.bucket_size > 1 and agg_obj.rule != "mean":
@@ -150,7 +168,7 @@ def _build_trace(cfg, agg_key, sent, agg, *, info, valid=None,
     if rule == "mean":
         bw = torch.full((m,), 1.0 / m, dtype=torch.float32, device=dev)
     elif rule in ("cm", "tm"):
-        y = x if w_b is None else _bucket_rows(w_b, x)
+        y = xs if w_b is None else _bucket_rows(w_b, xs)
         r = torch.argsort(torch.argsort(y, dim=0, stable=True), dim=0,
                           stable=True)
         if rule == "cm":
@@ -169,7 +187,7 @@ def _build_trace(cfg, agg_key, sent, agg, *, info, valid=None,
         bw = rfa_weights = info["bucket_weights"]
         sq = info.get("rfa_sq")
         if sq is None:
-            y = x if w_b is None else w_b @ x
+            y = xs if w_b is None else w_b @ xs
             sq = ((y - agg_flat[None]) ** 2).sum(1)
         rfa_residual = torch.sqrt(sq + agg_obj.eps).mean()
     else:                            # krum
@@ -178,11 +196,15 @@ def _build_trace(cfg, agg_key, sent, agg, *, info, valid=None,
         krum_selected = info["krum_selected"]
 
     infl = bw if w_b is None else bw @ w_b
+    if w_row is not None:
+        infl = infl * w_row
     if valid is not None:
         infl = torch.where(valid, infl, torch.zeros((), device=dev))
     dist = torch.sqrt(((x - agg_flat[None]) ** 2).sum(1))
-    mask = (cfg.byz_mask(dev) if cfg.n_byz
-            else torch.zeros(n, dtype=torch.bool, device=dev))
+    mask = byz_mask
+    if mask is None:
+        mask = (cfg.byz_mask(dev) if cfg.n_byz
+                else torch.zeros(n, dtype=torch.bool, device=dev))
     return RoundTrace(rule=rule, influence=infl, dist_to_agg=dist,
                       bucket_weights=bw, byz_mask=mask,
                       krum_scores=krum_scores, krum_selected=krum_selected,
