@@ -47,7 +47,14 @@ in W, timed beside the same call unweighted, and the service (``ServeSpec(...).r
 untraced Krum, the K = 256 cell on the blocked kernels, the sync limit
 (bit for bit with ``api.run``) and a killed run resumed from its
 checkpoint, each with its launches per fire and its first fires against
-the CPU run.
+the CPU run; and the LM phase: robust_agg's bfloat16 load at the LM
+leaves' widths (8 x 352 M, past 2^31 elements, and the path's 5-worker
+leaves) against its plain version, the reduced float32 qwen3-1.7b twin
+against the CPU path, and qwen3-1.7b at full width (28 layers, bfloat16,
+5 workers x 4 x 128 tokens, MARINA + RandK + ALIE + cm) through
+``api.run`` and ``launch.train.main``: its launches a round, ms a round,
+tokens a second and peak memory, its first rounds again bit for bit, and
+one round's aggregation held leaf by leaf to the plain versions.
 The masked kernels (``valid`` in the
 load, the masked coordinate rule) are held to their plain versions beside
 the unmasked ones, and so is every load (dense float32 or bfloat16, the
@@ -323,13 +330,14 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn) -> float:
-    """Median over REPS runs of CUDA-event time, after a warm-up."""
+def cuda_ms(fn, reps=None) -> float:
+    """Median over ``reps`` (REPS) runs of CUDA-event time, after a
+    warm-up."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps or REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -548,12 +556,14 @@ def mask_inputs(args, n, s, invalid):
     return x, w, mask, mean, std, valid, bvalid
 
 
-def kernel_case(case, dev, weighted=False):
+def kernel_case(case, dev, weighted=False, slow_reps=None):
     """``robust_agg`` on one case against its plain version, timed beside
     it and a library call. A masked case (a last element naming invalid
     workers) must equal its plain version (``torch.equal``: both read a
     rank as 0 + v); an unmasked one agree to KERNEL_TOL, since its W·x
-    sums in another order. ``weighted`` as in ``make_inputs``."""
+    sums in another order. ``weighted`` as in ``make_inputs``;
+    ``slow_reps`` times the plain version and the library call over fewer
+    runs than REPS."""
     from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
     from repro_torch.kernels.norm_agg import stack
     kind, label, n, d, k, base_rows, s, rule, *rest = case
@@ -581,9 +591,9 @@ def kernel_case(case, dev, weighted=False):
         raise AssertionError(f"robust_agg {label}: max abs err {err:.3e} > "
                              f"limit {limit:.3e} (or non-finite output)")
     t = timing(lambda: robust_agg(*args, **kw))
-    plain_ms = cuda_ms(lambda: robust_agg_plain(*args, **kw))
+    plain_ms = cuda_ms(lambda: robust_agg_plain(*args, **kw), slow_reps)
     lib = None if invalid else library_call(args, kw)
-    library_ms = None if lib is None else cuda_ms(lib)
+    library_ms = None if lib is None else cuda_ms(lib, slow_reps)
     bound_ms, bound_by = bound_of(bytes_moved, ops)
     row = {"kernel": "robust_agg", "kind": kind, "label": label, "n": n,
            "d": d, "k": k, "base_rows": base_rows, "s": s, "rule": rule,
@@ -2094,6 +2104,264 @@ def serve_phase(dev, card) -> dict:
     return got
 
 
+# the LM phase: Byz-VR-MARINA + RandK + ALIE + cm (s = 2) on qwen3-1.7b at
+# full width (bfloat16, 28 layers), 5 workers, 4 sequences of 128 tokens a
+# worker, through api.run and launch.train
+LM_SPEC = dict(task="lm", arch="qwen3-1.7b", method="marina", p=0.1,
+               n_workers=5, n_byz=1, attack="ALIE", aggregator="cm",
+               bucket_size=2, compressor="randk",
+               compressor_kwargs={"ratio": 0.1}, agg_mode="pallas", lr=3e-3,
+               data_kwargs={"seq_len": 128, "per_worker_batch": 4})
+LM_TOKENS = 5 * 4 * 128            # tokens a round
+LM_STEPS = 9                       # a warm round, then 8 timed
+LM_REPEAT_STEPS = 3                # rounds run twice, equal bit for bit
+LM_TWIN_STEPS = 6                  # the reduced float32 twin against the CPU
+LM_CLI_STEPS = 1
+LM_SLOW_REPS = 5                   # timed calls of the plain versions
+LM_LEAVES = 14                     # leaves, each wider than SMALL_LEAF_D
+LM_PLAIN_BLOCK = 1 << 24           # columns a plain-version comparison takes
+# robust_agg's dense bf16 load at the LM leaves' widths: (kind, label, n,
+# d, k, base rows, s, rule); the 8-worker case crosses 2^31 elements
+LM_KERNEL_CASES = [
+    ("dense_bf16", "qwen3-1.7b stacked ffn w1 28x2048x6144, bf16, 8 "
+     "workers", 8, 352_321_536, None, 0, 2, "median"),
+    ("dense_bf16", "qwen3-1.7b stacked ffn w1 28x2048x6144, bf16 (the LM "
+     "path's widest leaf)", 5, 352_321_536, None, 0, 2, "median"),
+    ("dense_bf16", "qwen3-1.7b stacked q_proj 28x2048x2048, bf16 (the LM "
+     "path's)", 5, 117_440_512, None, 0, 2, "median"),
+]
+
+
+def _lm_counts(aggregations: int, segments: int, load: str,
+               wire_rounds: int = 0, leaves: int = 0) -> dict:
+    """Launches of an LM run: each dense aggregation (the init's, and a
+    round's) is one robust_agg launch a segment (a leaf, or the packed
+    leaves under SMALL_LEAF_D); a VR round on the RandK wire (every leaf
+    of at most 2^22 coordinates: the reduced twin) one launch a leaf. At
+    full width RandK's block selection keeps every round off the wire."""
+    counts = dict.fromkeys(COUNTED, 0)
+    _add(counts, "robust_agg", load, segments * aggregations)
+    _add(counts, "robust_agg", "sparse", leaves * wire_rounds)
+    return counts
+
+
+class _PlainCheck:
+    """While ``on``, every robust_agg call of the LM path is held to
+    robust_agg_plain on the same inputs, LM_PLAIN_BLOCK columns at a time
+    (the plain version's float32 copies of a 5 x 352 M stack would not fit
+    beside the round's own); the kernel's launch is the round's own."""
+
+    def __init__(self):
+        from repro_torch.core import sharded_agg
+        self.mod, self.real = sharded_agg, sharded_agg.robust_agg
+        self.on, self.rows = False, []
+
+    def __enter__(self):
+        self.mod.robust_agg = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.robust_agg = self.real
+
+    def __call__(self, x, w_mat, mask, mu, sd, valid, bvalid, **kw):
+        from repro_torch.kernels.robust_agg import robust_agg_plain
+        got = self.real(x, w_mat, mask, mu, sd, valid, bvalid, **kw)
+        if not self.on:
+            return got
+        n, d = x.shape
+        err, scale = 0.0, 1.0
+        for c in range(0, d, LM_PLAIN_BLOCK):
+            sl = slice(c, c + LM_PLAIN_BLOCK)
+            xs = x[:, sl]
+            want = robust_agg_plain(xs, w_mat, mask, mu[sl], sd[sl], valid,
+                                    bvalid, **kw)
+            err = max(err, float((got[sl] - want).abs().max()))
+            scale = max(scale, float(xs.abs().max()),
+                        float(mu[sl].abs().max())
+                        + kw["attack"].param * float(sd[sl].max()))
+            del xs, want
+        self.rows.append({"n": n, "d": d, "dtype": str(x.dtype),
+                          "max_abs_err": err, "limit": KERNEL_TOL * scale})
+        return got
+
+
+def _lm_run(dev, spec, steps, tag, card, keep_at=None, plain=None,
+            plain_from=None):
+    """``api.run`` of an LM spec on the card, each round's host time taken
+    in the callback (every round's metrics are read, so each ends on a
+    device sync); ``keep_at``: the round after which params and g are
+    copied to the host; ``plain``: a _PlainCheck turned on for round
+    ``plain_from``. -> (result, round ms, counts, kept, peak bytes)."""
+    from repro_torch.api import RunSpec, run
+    marks, kept = [], {}
+
+    def cb(it, state, m):
+        marks.append(time.perf_counter())
+        if it == keep_at:
+            kept.update({f"{part}/{k}": v.cpu() for part in ("params", "g")
+                         for k, v in state[part].items()})
+        if plain is not None:
+            plain.on = it + 1 == plain_from
+        return False
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run(RunSpec(**{**spec, "steps": steps}), device=dev, log_every=1,
+              callback=cb, callback_every=1)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    round_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    losses = [h["loss"] for h in res.history]
+    full, vr = _rounds(res.history)
+    print(f"[lm {tag}] {len(losses)} rounds ({full} full, {vr} VR), run() "
+          f"wall {wall:.2f} s incl. init; losses "
+          f"{[round(v, 6) for v in losses]}; peak "
+          f"{peak / 2**30:.2f} GiB allocated; launches {nonzero(counts)} "
+          f"[{card}]", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"lm {tag}: a loss is not finite: {losses}")
+    return res, round_ms, counts, kept, peak
+
+
+def lm_phase(dev, card) -> dict:
+    """The LM slice on the card: robust_agg's bf16 load at the LM leaves'
+    widths against its plain version; the reduced float32 twin against the
+    CPU path; qwen3-1.7b at full width through api.run (launches a round
+    exact, ms a round, tokens a second, peak memory), its first rounds
+    again, bit for bit, with one round's aggregation held to the plain
+    versions leaf by leaf; and launch.train.main in process."""
+    from repro_torch.api import RunSpec, run
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    t_phase = time.time()
+    # the plain versions and torch.median take 0.1-0.3 s a call at these
+    # widths: fewer timed calls of those
+    out = {"kernel_rows": [kernel_case(c, dev, slow_reps=LM_SLOW_REPS)
+                           for c in LM_KERNEL_CASES]}
+
+    # the reduced float32 twin, on the card and on the CPU
+    twin = {**LM_SPEC, "data_kwargs": {**LM_SPEC["data_kwargs"],
+                                       "reduced": True}}
+    acfg = get_config("qwen3-1.7b").reduced()
+    from repro_torch.core.sharded_agg import SMALL_LEAF_D
+    from repro_torch.models import param_shapes
+    sizes = [math.prod(s) for s in param_shapes(acfg).values()]
+    small = sum(1 for d in sizes if d < SMALL_LEAF_D)
+    twin_segs = len(sizes) - small + (1 if small >= 2 else 0)
+    res, _, counts, _, _ = _lm_run(dev, twin, LM_TWIN_STEPS, "reduced twin",
+                                   card)
+    full, vr = _rounds(res.history)
+    want = _lm_counts(1 + full, twin_segs, "dense", vr, len(sizes))
+    if counts != want:
+        raise AssertionError(f"lm reduced twin: launches {nonzero(counts)}, "
+                             f"expected {nonzero(want)}")
+    cpu = run(RunSpec(**{**twin, "steps": LM_TWIN_STEPS}), device="cpu",
+              log_every=1)
+    ck = [int(h["c_k"]) for h in res.history]
+    cpu_ck = [int(h["c_k"]) for h in cpu.history]
+    diff = float(np.max(np.abs(np.array([h["loss"] for h in res.history])
+                               - np.array([h["loss"] for h in
+                                           cpu.history]))))
+    print(f"[lm reduced twin] {LM_TWIN_STEPS} rounds vs the CPU plain "
+          f"path: c_k {ck} (CPU {cpu_ck}), max |loss diff| {diff:.3e} "
+          f"(limit {TRAJ_TOL}) [{card}]", flush=True)
+    if ck != cpu_ck or not diff <= TRAJ_TOL:
+        raise AssertionError(f"lm reduced twin: differs from the CPU path "
+                             f"by {diff}")
+    out["paths"] = {"lm reduced twin": {"launches": counts,
+                                        "cpu_loss_diff": diff}}
+    del res, cpu
+
+    # qwen3-1.7b at full width
+    full_cfg = get_config("qwen3-1.7b")
+    res, round_ms, counts, kept, peak = _lm_run(dev, LM_SPEC, LM_STEPS,
+                                                "qwen3-1.7b", card,
+                                                keep_at=LM_REPEAT_STEPS - 1)
+    want = _lm_counts(1 + LM_STEPS, LM_LEAVES, "dense_bf16")
+    if counts != want:
+        raise AssertionError(f"lm qwen3-1.7b: launches {nonzero(counts)}, "
+                             f"expected {nonzero(want)}: an aggregation "
+                             "bypassed its kernel")
+    timed = round_ms[-(LM_STEPS - 1):]
+    p50 = statistics.median(timed)
+    full, vr = _rounds(res.history)
+    row = {"arch": "qwen3-1.7b", "num_layers": full_cfg.num_layers,
+           "n_params": res.n_params, "rounds": LM_STEPS,
+           "full_rounds": full, "vr_rounds": vr, "round_ms": round_ms,
+           "ms_per_round_p50": p50, "tokens_per_s": LM_TOKENS / p50 * 1e3,
+           "peak_bytes": peak, "launches": counts,
+           "launches_per_round": LM_LEAVES,
+           "losses": [h["loss"] for h in res.history]}
+    print(f"[lm qwen3-1.7b] full width, {full_cfg.num_layers} layers (no "
+          f"depth cut), {res.n_params} parameters, bfloat16; {full} full "
+          f"and {vr} VR rounds; ms per round p50 {p50:.3f} over "
+          f"{len(timed)} timed rounds after a warm one (host clock, each "
+          f"round ending on a device read; all "
+          f"{[round(t, 3) for t in round_ms]}); {row['tokens_per_s']:.1f} "
+          f"tokens/s ({LM_TOKENS} a round); peak "
+          f"{peak / 2**30:.2f} GiB allocated (torch.cuda."
+          f"max_memory_allocated); launches {LM_LEAVES} robust_agg (dense "
+          f"bf16) a round, {counts['robust_agg/dense_bf16']} in all [{card}]",
+          flush=True)
+    del res
+    with _PlainCheck() as plain:
+        res, _, counts, _, peak2 = _lm_run(
+            dev, LM_SPEC, LM_REPEAT_STEPS, "qwen3-1.7b repeat", card,
+            plain=plain, plain_from=LM_REPEAT_STEPS - 1)
+    same = all(torch.equal(kept[f"{part}/{k}"], v.cpu())
+               for part in ("params", "g") for k, v in res.state[part].items())
+    if not same:
+        raise AssertionError("lm qwen3-1.7b: the first rounds do not repeat "
+                             "bit for bit")
+    if counts != _lm_counts(1 + LM_REPEAT_STEPS, LM_LEAVES, "dense_bf16"):
+        raise AssertionError(f"lm repeat: launches {nonzero(counts)}")
+    bad = [r for r in plain.rows if not r["max_abs_err"] <= r["limit"]]
+    if len(plain.rows) != LM_LEAVES or bad:
+        raise AssertionError(f"lm qwen3-1.7b: round {LM_REPEAT_STEPS - 1}'s "
+                             f"aggregation against the plain versions: "
+                             f"{len(plain.rows)} leaves, off {bad}")
+    worst = max(r["max_abs_err"] / r["limit"] for r in plain.rows)
+    print(f"[lm qwen3-1.7b] the first {LM_REPEAT_STEPS} rounds again: "
+          f"params and g equal bit for bit; round {LM_REPEAT_STEPS - 1}'s "
+          f"{len(plain.rows)} leaves ({sum(r['d'] for r in plain.rows)} "
+          f"columns) held to robust_agg_plain on the card, worst err "
+          f"{worst:.3e} of KERNEL_TOL x scale [{card}]", flush=True)
+    row.update(repeat_bitwise=True, plain_rows=plain.rows,
+               repeat_peak_bytes=peak2, repeat_launches=counts)
+    del res, kept
+
+    # the training CLI, in process
+    args = ["--arch", "qwen3-1.7b", "--method", "marina", "--p", "0.1",
+            "--n-workers", "5", "--n-byz", "1", "--attack", "ALIE", "--agg",
+            "cm", "--bucket-size", "2", "--compressor", "randk",
+            "--compressor-kwargs", '{"ratio": 0.1}', "--agg-mode", "pallas",
+            "--lr", "3e-3", "--seq-len", "128", "--per-worker-batch", "4",
+            "--steps", str(LM_CLI_STEPS), "--log-every", "1"]
+    torch.cuda.empty_cache()
+    reset_counts()
+    hist = train.main(args)
+    counts = read_counts()
+    if counts != _lm_counts(1 + LM_CLI_STEPS, LM_LEAVES, "dense_bf16") or \
+            not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"lm launch.train: launches {nonzero(counts)}, "
+                             f"losses {[h['loss'] for h in hist]}")
+    print(f"[lm launch.train] {len(hist)} rounds in process, losses "
+          f"{[round(h['loss'], 6) for h in hist]}, launches "
+          f"{nonzero(counts)} [{card}]", flush=True)
+    out["paths"]["lm qwen3-1.7b"] = {"launches": row["launches"]}
+    out["paths"]["lm qwen3-1.7b repeat"] = {"launches": row.pop(
+        "repeat_launches")}
+    out["paths"]["lm launch.train"] = {"launches": counts}
+    out["full_width"] = row
+    out["phase_s"] = time.time() - t_phase
+    print(f"[lm] phase {out['phase_s']:.1f} s [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def share_cpu_data():
     """The paths' CPU checks build the same few datasets (a9a width at 5
     and 256 workers, gisette width) again for every path, some 2.4 s of
@@ -2117,7 +2385,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", choices=("all", "kernels", "tracer",
-                                         "zoo_obs", "exec", "serve"),
+                                         "zoo_obs", "exec", "serve", "lm"),
                     default="all",
                     help="'kernels': the kernel phases alone (no paths, "
                          "no kernels line), e.g. to time another tree's "
@@ -2130,7 +2398,9 @@ def main(argv=None) -> int:
                          "the checkpoint, resume, warm-up, worker-pool "
                          "sweep and seed-group checks alone (no kernels "
                          "line); 'serve': the build and the streaming "
-                         "service's phase alone (no kernels line)")
+                         "service's phase alone (no kernels line); 'lm': "
+                         "the build and the LM phase alone (no kernels "
+                         "line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2172,6 +2442,14 @@ def main(argv=None) -> int:
             {"card": card, "torch": torch.__version__, **got,
              "wall_s": time.time() - t_start}, indent=1, default=str))
         print(f"[done] the serve phase alone, {time.time() - t_start:.1f} s",
+              flush=True)
+        return 0
+    if args.phases == "lm":
+        got = lm_phase(dev, card)
+        (out_dir / "chip_smoke_lm.json").write_text(json.dumps(
+            {"card": card, "torch": torch.__version__, **got,
+             "wall_s": time.time() - t_start}, indent=1, default=str))
+        print(f"[done] the LM phase alone, {time.time() - t_start:.1f} s",
               flush=True)
         return 0
     if args.phases == "exec":
@@ -2323,6 +2601,9 @@ def main(argv=None) -> int:
     serve_got = serve_phase(dev, card)
     paths.update(serve_got["paths"])
     mark("serve phase done")
+    lm_got = lm_phase(dev, card)
+    paths.update(lm_got["paths"])
+    mark("lm phase done")
     path_specs = {"cm": MAIN_SPEC, "rfa": {**MAIN_SPEC, "aggregator": "rfa"},
                   "krum": {**MAIN_SPEC, "aggregator": "krum"},
                   "cm chaos": {**MAIN_SPEC, **CHAOS_SPEC},
@@ -2368,13 +2649,18 @@ def main(argv=None) -> int:
                 n_launch = launches(f"{name}/{load}{tag}")
                 if not n_launch:
                     continue
+                # the LM path's leaves are its rows too
+                lm_rows = (lm_got["kernel_rows"][1:]
+                           if (name, load, tag) == ("robust_agg",
+                                                    "dense_bf16", "")
+                           else [])
                 src = ("robust_agg.cu" if name == "robust_agg"
                        else "norm_agg.cu")
                 kernels.append(kernel_entry(
                     f"{name} ({load} load{',' if tag else ''}{tag})",
                     f"src/repro_torch/kernels/csrc/{src}", REPLACES[load],
                     n_launch, [r for r in rows if r["kind"] == load
-                               and r["kernel"] == name]))
+                               and r["kernel"] == name] + lm_rows))
     for name in BLOCKED_KERNELS:
         kernels.append(kernel_entry(
             name, "src/repro_torch/kernels/csrc/norm_agg_blocked.cu",
@@ -2394,6 +2680,7 @@ def main(argv=None) -> int:
          "profile_trace": zoo_obs["profile_trace"], "path_profiles": profiles,
          "exec": {k: v for k, v in exec_got.items() if k != "paths"},
          "serve": {k: v for k, v in serve_got.items() if k != "paths"},
+         "lm": {k: v for k, v in lm_got.items() if k != "paths"},
          "phase_marks_s": marks,
          "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))

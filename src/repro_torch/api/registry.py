@@ -10,10 +10,10 @@ enumerate from one source of truth:
     resolve("compressor", "randk", ratio=0.1) -> Compressor instance
     check("aggregator", "krun")     -> ValueError: ... did you mean 'krum'?
 
-The names and descriptions are the reference's. Two kinds wait for the
-LM workload (ROADMAP queue 1, item 12): ``arch`` raises
-``NotImplementedError`` for every query, and ``optimizer`` names the
-reference's choices but resolves only ``"none"``.
+The names and descriptions are the reference's. ``arch`` lists all ten
+registered configs; ``check`` and ``resolve`` succeed for the dense
+attention decoders and raise ``NotImplementedError`` for the configs
+whose blocks are not ported yet, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,7 +25,6 @@ from repro_torch.core import attacks as _attacks
 from repro_torch.core import compressors as _compressors
 from repro_torch.core.engine import AGG_BACKENDS
 
-_ITEM_12 = "ROADMAP queue 1, item 12"
 
 _METHOD_DESCRIPTIONS = {
     "marina": "Byz-VR-MARINA (Alg. 1): geometric coin between anchor "
@@ -134,13 +133,29 @@ def _resolve_method(name, **kw):
 def _resolve_optimizer(name, **kw):
     if name == "none":
         return None
-    raise NotImplementedError(
-        f"optimizer {name!r} is not ported yet ({_ITEM_12})")
+    from repro_torch.optim import get_optimizer
+    return get_optimizer(name, **kw)
 
 
-def _no_arch(*args, **kw):
-    raise NotImplementedError(
-        f"model architectures are not ported yet ({_ITEM_12})")
+def _arch_names():
+    from repro_torch.configs import list_configs
+    return tuple(list_configs())
+
+
+def _describe_arch(name):
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return f"{cfg.family}: {cfg.citation}"
+
+
+def _resolve_arch(name, **kw):
+    """The ``ArchConfig``; raises ``NotImplementedError`` for a config
+    whose blocks are not ported yet."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import check_supported
+    cfg = get_config(name)
+    check_supported(cfg)
+    return cfg
 
 
 # kind -> (component enumerator, describe fn, resolver)
@@ -163,7 +178,7 @@ _KINDS = {
     "agg_mode": (lambda: tuple(AGG_BACKENDS),
                  lambda n: _AGG_MODE_DESCRIPTIONS.get(n, ""),
                  lambda n, **kw: n),
-    "arch": (_no_arch, _no_arch, _no_arch),
+    "arch": (_arch_names, _describe_arch, _resolve_arch),
     "task": (lambda: TASKS,
              lambda n: _TASK_DESCRIPTIONS.get(n, ""),
              lambda n, **kw: n),
@@ -197,6 +212,8 @@ def check(kind: str, name: str) -> str:
     known = components(kind)
     if name not in known:
         raise ValueError(_unknown(kind, name, known))
+    if kind == "arch":
+        _resolve_arch(name)
     return name
 
 

@@ -57,7 +57,8 @@ class Experiment:
     minibatch: Callable
     anchor: Callable
     device: torch.device
-    data: Any = None
+    data: Any = None                     # LogRegData (logreg task)
+    arch_cfg: Any = None                 # ArchConfig (lm task)
 
     def run(self, **run_kw) -> "RunResult":
         return _run_experiment(self, **run_kw)
@@ -65,10 +66,15 @@ class Experiment:
 
 def build(spec, device=None) -> Experiment:
     """Assemble (method, data, loss, corrupt_fn) for ``spec``."""
-    from repro_torch.data import (corrupt_labels_logreg, init_logreg_params,
-                                  logreg_loss, make_logreg_data)
     device = resolve_device(device)
     cfg = spec.build_config()
+    builder = _build_logreg if spec.task == "logreg" else _build_lm
+    return builder(spec, cfg, device)
+
+
+def _build_logreg(spec, cfg, device) -> Experiment:
+    from repro_torch.data import (corrupt_labels_logreg, init_logreg_params,
+                                  logreg_loss, make_logreg_data)
     dk = spec.data_kwargs
     dim = int(dk.get("dim", 30))
     lam = float(dk.get("lam", 0.01))
@@ -98,6 +104,45 @@ def build(spec, device=None) -> Experiment:
         init_params=lambda key: init_logreg_params(dim, device=device),
         minibatch=minibatch,
         anchor=lambda it: anchor, device=device, data=data)
+
+
+def _build_lm(spec, cfg, device) -> Experiment:
+    """The LM task: a registered ``ArchConfig`` (``reduced()`` under
+    ``data_kwargs["reduced"]``), its ``TokenStream`` on ``device``, and
+    the model's sequence-chunked cross entropy over the flat parameter
+    dict. Tokens do not depend on the round key."""
+    from repro_torch.api import registry
+    from repro_torch.data import TokenStream, corrupt_labels_lm
+    from repro_torch.models import init_params as model_init
+    from repro_torch.models import loss_fn as model_loss
+    dk = spec.data_kwargs
+    acfg = registry.resolve("arch", spec.arch)
+    if dk.get("reduced", False):
+        acfg = acfg.reduced()
+    stream = TokenStream(
+        vocab_size=acfg.vocab_size, seq_len=int(dk.get("seq_len", 128)),
+        n_workers=spec.n_workers,
+        per_worker_batch=int(dk.get("per_worker_batch", 4)),
+        num_codebooks=acfg.num_codebooks,
+        frontend_tokens=acfg.frontend_tokens, d_model=acfg.d_model,
+        heterogeneous=bool(dk.get("heterogeneous", False)), seed=spec.seed,
+        device=device)
+    remat = bool(dk.get("remat", False))
+
+    def loss(params, batch, key):
+        return model_loss(params, acfg, batch, remat=remat)
+
+    # one worker's activations at a time (engine.worker_vmap): at full
+    # width n workers' would not fit beside the gradient stacks
+    loss.worker_chunk = 1
+    return Experiment(
+        spec=spec, cfg=cfg,
+        method=make_method(spec.method, cfg, loss, corrupt_labels_lm,
+                           **spec.method_kwargs),
+        loss_fn=loss, corrupt_fn=corrupt_labels_lm,
+        init_params=lambda key: model_init(key, acfg),
+        minibatch=lambda it, key: stream.minibatch(it),
+        anchor=stream.anchor, device=device, arch_cfg=acfg)
 
 
 @dataclasses.dataclass

@@ -3,10 +3,9 @@ and ``ServeSpec``, its streaming twin (port of ``repro/api/spec.py``).
 
 The fields, defaults and JSON form are the reference's, so one
 ``to_dict()`` drives both packages. Names are validated through
-``api.registry``, as in the reference; components this slice has not
-ported are accepted by ``RunSpec`` and raise ``NotImplementedError`` from
-``build_config`` (``arch`` is not validated: the port has no model
-configs yet); ``ServeSpec`` raises it at construction for ``task="lm"``.
+``api.registry``, as in the reference; an ``arch`` whose blocks are not
+ported yet raises ``NotImplementedError`` there, naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -159,6 +158,8 @@ class RunSpec(_JSONSpec):
     def __post_init__(self):
         for kind in _CHECKED:
             registry.check(kind, getattr(self, kind))
+        if self.arch is not None:
+            registry.check("arch", self.arch)
         if self.agg_mode not in AGG_BACKENDS:
             hint = (" — pass 'auto' through api.spec.resolve_agg_mode() "
                     "first" if self.agg_mode == "auto" else "")
@@ -207,7 +208,9 @@ class RunSpec(_JSONSpec):
         if self.steps < 0:
             raise ValueError(f"steps={self.steps} must be >= 0")
         if self.task == "lm" and self.arch is None:
-            raise ValueError("task='lm' needs arch=<name>")
+            raise ValueError(
+                "task='lm' needs arch=<name>; registered: "
+                + ", ".join(registry.components("arch")))
         if self.method == "saga" and self.task == "lm":
             raise ValueError(
                 "method='saga' needs a FIXED anchor set (its per-sample "
@@ -289,20 +292,12 @@ class RunSpec(_JSONSpec):
 
     # -- builders -----------------------------------------------------------
     def build_config(self):
-        """Resolve the named components into a ``ByzVRMarinaConfig``; raises
-        ``NotImplementedError`` for what this slice has not ported."""
+        """Resolve the named components into a ``ByzVRMarinaConfig``."""
         from repro_torch.core.byz_vr_marina import ByzVRMarinaConfig
-        unported = [
-            (self.task != "logreg", "task='lm' (ROADMAP queue 1, item 12)"),
-            (self.optimizer != "none",
-             "optimizers (ROADMAP queue 1, item 12)"),
-        ]
-        for hit, what in unported:
-            if hit:
-                raise NotImplementedError(f"{what} is not ported yet")
         agg_kw = {"n_byz": self.n_byz, **self.aggregator_kwargs}
         if self.aggregator == "mean":
             agg_kw.pop("n_byz")
+        opt_kw = {"lr": self.lr, **self.optimizer_kwargs}
         n_active = self.resolved_participation()
         return ByzVRMarinaConfig(
             n_workers=self.n_workers, n_byz=self.n_byz,
@@ -316,7 +311,9 @@ class RunSpec(_JSONSpec):
                                         **self.compressor_kwargs),
             attack=registry.resolve("attack", self.attack,
                                     **self.attack_kwargs),
-            agg_mode=self.agg_mode)
+            agg_mode=self.agg_mode,
+            optimizer=registry.resolve("optimizer", self.optimizer,
+                                       **opt_kw))
 
     def build(self, device=None):
         """-> ``runner.Experiment`` (method, data, loss, corrupt_fn)."""
@@ -393,8 +390,7 @@ class ServeSpec(_JSONSpec):
     def __post_init__(self):
         for kind in ("task", "method", "attack", "aggregator", "compressor"):
             registry.check(kind, getattr(self, kind))
-        if self.arch is not None or self.task == "lm":
-            # raises NotImplementedError: no arch is ported (item 12)
+        if self.arch is not None:
             registry.check("arch", self.arch)
         if not streamable(self.method):
             raise ValueError(
@@ -435,6 +431,10 @@ class ServeSpec(_JSONSpec):
             raise ValueError(f"rounds={self.rounds} must be >= 0")
         if self.bucket_size < 0:
             raise ValueError(f"bucket_size={self.bucket_size} must be >= 0")
+        if self.task == "lm" and self.arch is None:
+            raise ValueError(
+                "task='lm' needs arch=<name>; registered: "
+                + ", ".join(registry.components("arch")))
         # the byzantine fraction the aggregator sees is over the BUFFER
         # (the service's active set): in the worst case every byzantine
         # client lands in one buffer of size K

@@ -10,7 +10,10 @@ unsigned-integer views under their own dtype name.
 
 A state is nested dicts (lists and tuples index as ``[i]``) of tensors;
 ``None`` is an empty subtree and writes nothing, as an empty pytree does
-in the reference. A Python ``int`` leaf (the engine's host ``step``) is
+in the reference. A flat model dict's ``/``-joined key is its path in
+the reference's nested tree, whose tuple indices are its number parts:
+``params`` / ``groups/0/mixer/wq`` is written as
+``params/groups/[0]/mixer/wq``, the reference's key. A Python ``int`` leaf (the engine's host ``step``) is
 written as the reference's 0-d int32 and read back as an ``int``.
 Tensors are copied to the host, never aliased.
 """
@@ -31,20 +34,27 @@ _EXOTIC = {
 _EXOTIC_BY_NAME = {v[0]: (dt,) + v[1:] for dt, v in _EXOTIC.items()}
 
 
+def _key_path(key) -> tuple:
+    """A dict key's parts in the reference's tree: a ``/``-joined flat
+    key splits, its number parts being tuple indices."""
+    return tuple(f"[{p}]" if p.isdigit() else p
+                 for p in str(key).split("/"))
+
+
 def _flatten_with_paths(tree, prefix=()) -> dict:
     """{"a/b/[0]": leaf} in the reference's tree order (dict keys
     sorted)."""
     if tree is None:
         return {}
     if isinstance(tree, dict):
-        items = [(str(k), tree[k]) for k in sorted(tree)]
+        items = [(_key_path(k), tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (list, tuple)):
-        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+        items = [((f"[{i}]",), v) for i, v in enumerate(tree)]
     else:
         return {"/".join(prefix): tree}
     out = {}
-    for name, sub in items:
-        out.update(_flatten_with_paths(sub, prefix + (name,)))
+    for path, sub in items:
+        out.update(_flatten_with_paths(sub, prefix + path))
     return out
 
 
@@ -103,7 +113,7 @@ def _rebuild(like, restored: dict, prefix=()):
     if like is None:
         return None
     if isinstance(like, dict):
-        return {k: _rebuild(v, restored, prefix + (str(k),))
+        return {k: _rebuild(v, restored, prefix + _key_path(k))
                 for k, v in like.items()}
     if isinstance(like, (list, tuple)):
         return type(like)(_rebuild(v, restored, prefix + (f"[{i}]",))

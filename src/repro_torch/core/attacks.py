@@ -98,13 +98,20 @@ def ipm(eps: float = 0.1) -> Attack:
 
 
 def random_noise(scale: float = 10.0) -> Attack:
-    """scale · N(0, 1) in every coordinate, one key for every leaf."""
+    """scale · N(0, 1) in every coordinate, one key for every leaf, drawn
+    in the candidates' dtype as the reference draws it: float32 with
+    scale·sqrt(2) folded into one constant (compiled XLA), bfloat16 as
+    JAX's bfloat16 normal times the scale rounded to bfloat16 (a weakly
+    typed Python scalar takes the array's dtype), the product rounded."""
     def apply(key, h, m, s):
+        from repro_torch import random as R
+        if h.dtype == torch.bfloat16:
+            sc = float(torch.tensor(scale).to(torch.bfloat16))
+            return (R.normal_bf16(key, h.shape).float() * sc).to(h.dtype)
         if h.dtype != torch.float32:
             raise NotImplementedError(
-                f"attack 'RN' on {h.dtype} candidates is not ported yet "
-                "(ROADMAP queue 1, item 12)")
-        from repro_torch import random as R
+                f"attack 'RN' on {h.dtype} candidates: the reference's "
+                "draw in that dtype is not ported")
         return R.normal(key, h.shape, scale)
 
     return Attack("RN", apply)

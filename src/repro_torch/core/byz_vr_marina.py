@@ -5,10 +5,9 @@ Per iteration: c_k ~ Be(p); x^{k+1} = x^k - γ g^k; good workers send
 ∇f_i(x^{k+1}) when c_k = 1 and g^k + Q(Δ̂_i(x^{k+1}, x^k)) otherwise;
 byzantine workers send the attack; g^{k+1} = ARAgg(g_1, ..., g_n). The
 round itself lives in ``engine`` and ``estimators.MarinaEstimator``.
-Partial participation (``n_active``) and the fault layer (``fault_plan``,
-``fault_guard``) are fields here; optimizers are not ported yet (ROADMAP
-queue 1, item 12): the config has no such field, and ``RunSpec`` raises
-``NotImplementedError`` for them.
+Partial participation (``n_active``), the fault layer (``fault_plan``,
+``fault_guard``) and the optimizer over g^k (``optimizer``, None for the
+plain step x - γ g) are fields here.
 """
 from __future__ import annotations
 
@@ -40,6 +39,7 @@ class ByzVRMarinaConfig:
     agg_mode: str = "gspmd"              # gspmd | sparse_support | pallas
     fault_plan: Optional[object] = None  # faults.FaultPlan or None
     fault_guard: bool = False            # fail-closed non-finite masking
+    optimizer: Optional[object] = None   # optim.SGD / optim.Adam, or None
 
     def __post_init__(self):
         if self.agg_mode not in AGG_BACKENDS:

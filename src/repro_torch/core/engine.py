@@ -65,14 +65,22 @@ def apply_attack(cfg, key, cand: dict, stats_valid=None,
     return tu.tree_map(leaf, cand, means, stds)
 
 
+def worker_vmap(loss_fn, fn):
+    """``torch.func.vmap`` of ``fn`` over the worker axis, in chunks of
+    ``loss_fn.worker_chunk`` workers where the loss sets one (the LM
+    task's 1: a model's activations a worker, not n at once; the outputs
+    are the same stacks)."""
+    return vmap(fn, chunk_size=getattr(loss_fn, "worker_chunk", None))
+
+
 def stacked_grads(loss_fn, params: dict, batches: dict, keys):
     """Per-worker (loss, grad) over the leading axis of ``batches``:
-    ``torch.func.vmap`` over ``grad_and_value``. -> (mean loss, grads)."""
+    ``worker_vmap`` over ``grad_and_value``. -> (mean loss, grads)."""
     def one(batch, key):
         grads, loss = grad_and_value(loss_fn)(params, batch, key)
         return loss, grads
 
-    losses, grads = vmap(one)(batches, keys)
+    losses, grads = worker_vmap(loss_fn, one)(batches, keys)
     return losses.mean(), grads
 
 
@@ -383,10 +391,12 @@ def carry_unsampled_state(state: dict, updates: dict, sampled,
 
 
 def param_update(cfg, params: dict, g: dict, opt_state):
-    """x <- x - γ g (dtype-preserving, float32 math); optimizers are not
-    ported yet."""
-    return tu.tree_map(lambda x, gg: (x.float() - cfg.lr * gg.float())
-                       .to(x.dtype), params, g), opt_state
+    """x <- x - γ g (dtype-preserving, float32 math) or
+    ``cfg.optimizer.update``."""
+    if cfg.optimizer is None:
+        return tu.tree_map(lambda x, gg: (x.float() - cfg.lr * gg.float())
+                           .to(x.dtype), params, g), opt_state
+    return cfg.optimizer.update(g, opt_state, params)
 
 
 def maybe_corrupt(cfg, corrupt_fn, batch):
@@ -445,8 +455,10 @@ def make_engine_init(cfg, loss_fn, estimator: GradientEstimator,
         if anchor is not None:
             anchor = maybe_corrupt(cfg, corrupt_fn, anchor)
         g0, extras = estimator.init_extras(cfg, loss_fn, params, anchor, key)
-        return {"params": params, "g": g0, "opt_state": None, "step": 0,
-                **extras}
+        opt_state = (cfg.optimizer.init(params)
+                     if cfg.optimizer is not None else None)
+        return {"params": params, "g": g0, "opt_state": opt_state,
+                "step": 0, **extras}
 
     return init
 

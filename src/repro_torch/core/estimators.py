@@ -35,14 +35,15 @@ import dataclasses
 from typing import Optional
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import grad_and_value
 
 from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
 from repro_torch.core.aggregators import mean0, xla_sum_rows
 from repro_torch.core.engine import (GradientEstimator, RoundOutput,
                                      apply_attack, message_phase,
-                                     phase_with_trace, stacked_grads)
+                                     phase_with_trace, stacked_grads,
+                                     worker_vmap)
 
 
 class CompressedUploadBits:
@@ -53,6 +54,19 @@ class CompressedUploadBits:
 
     def expected_bits(self, cfg, d):
         return float(cfg.compressor.bits_per_vector(d))
+
+
+def _grad_delta(loss_fn, params, old_params):
+    """(batch, key) -> (loss at params, ∇f(params) − ∇f(old_params)): the
+    difference taken in place, each old gradient dropped as it is used,
+    so at most two model-sized gradient stacks are alive under vmap."""
+    def one(b, kg):
+        gn, ln = grad_and_value(loss_fn)(params, b, kg)
+        go, _ = grad_and_value(loss_fn)(old_params, b, kg)
+        for k in sorted(gn):
+            gn[k] = gn[k].sub_(go.pop(k))
+        return ln, gn
+    return one
 
 
 def _zeros_like_f32(params):
@@ -89,12 +103,9 @@ class MarinaEstimator(GradientEstimator):
             qkeys = tu.per_worker_keys(
                 keys["q"], n, common=cfg.compressor.common_randomness)
 
-            def one(b, kg):
-                gn, ln = grad_and_value(loss_fn)(params, b, kg)
-                go, _ = grad_and_value(loss_fn)(old_params, b, kg)
-                return ln, tu.tree_sub(gn, go)
-
-            losses, deltas = vmap(one)(batch, wkeys)
+            losses, deltas = worker_vmap(
+                loss_fn, _grad_delta(loss_fn, params, old_params))(batch,
+                                                                    wkeys)
             loss = losses.mean()
             if wire.wire_supported(cfg, deltas):
                 # candidate = g^k + Q(delta): g^k rides as the shared (1, d)
@@ -102,8 +113,9 @@ class MarinaEstimator(GradientEstimator):
                 cand = wire.pack_candidates(cfg.compressor, qkeys, deltas,
                                             base=state["g"], base_shared=True)
             else:
-                qs = tu.compress_stacked(cfg.compressor, qkeys, deltas)
-                cand = {k: state["g"][k][None] + qs[k] for k in sorted(qs)}
+                cand = tu.compress_stacked(cfg.compressor, qkeys, deltas,
+                                           base=state["g"], consume=True)
+            del deltas
             g, rt = phase_with_trace(cfg, keys["attack"], keys["agg"], cand,
                                      sampled, trace)
         dims = [p.numel() for p in tu.leaves(params)]
@@ -172,12 +184,8 @@ class MarinaSparseEstimator(MarinaEstimator):
             idx = R.permutation(R.fold_in(keys["q"], i), n_units)[:k_units]
             meta.append((blk, idx, n_units / k_units))
 
-        def one(b, kg):
-            gn, ln = grad_and_value(loss_fn)(params, b, kg)
-            go, _ = grad_and_value(loss_fn)(old_params, b, kg)
-            return ln, tu.tree_sub(gn, go)
-
-        losses, deltas = vmap(one)(batch, wkeys)
+        losses, deltas = worker_vmap(
+            loss_fn, _grad_delta(loss_fn, params, old_params))(batch, wkeys)
         # the candidates on the support: g^k's units plus the scaled
         # delta's, one leaf per name (the reference's tuple, in its order)
         cand = {}
@@ -292,7 +300,7 @@ class DianaEstimator(CompressedUploadBits, GradientEstimator):
             g, ln = grad_and_value(loss_fn)(params, b, kg)
             return ln, tu.tree_sub(g, h_i)
 
-        losses, diffs = vmap(one)(batch, wkeys, h)
+        losses, diffs = worker_vmap(loss_fn, one)(batch, wkeys, h)
         metrics = {"wire_bits": wire.tree_wire_bits(cfg.compressor, diffs)}
         if wire.wire_supported(cfg, diffs):
             cand = wire.pack_candidates(cfg.compressor, qkeys, diffs)
@@ -339,7 +347,8 @@ class MVREstimator(GradientEstimator):
                 lambda g, vv, go: g.float() + (1 - alpha) * (vv - go.float()),
                 gx, v_i, gp)
 
-        losses, v = vmap(one)(batch, wkeys, state["worker_v"])
+        losses, v = worker_vmap(loss_fn, one)(batch, wkeys,
+                                              state["worker_v"])
         return RoundOutput(loss=losses.mean(), cand=v,
                            updates={"prev_params": params, "worker_v": v})
 
@@ -373,7 +382,7 @@ class SVRGEstimator(GradientEstimator):
             gw, _ = grad_and_value(loss_fn)(w, b, kg)
             return ln, tu.tree_add(tu.tree_sub(gx, gw), full_i)
 
-        losses, cand = vmap(one)(batch, wkeys, fulls)
+        losses, cand = worker_vmap(loss_fn, one)(batch, wkeys, fulls)
         return RoundOutput(loss=losses.mean(), cand=cand,
                            updates={"snapshot": w, "worker_full": fulls})
 
@@ -411,7 +420,8 @@ class ByzEF21Estimator(CompressedUploadBits, GradientEstimator):
             g, ln = grad_and_value(loss_fn)(params, b, kg)
             return ln, tu.tree_map(lambda a, gi: a.float() - gi, g, g_i)
 
-        losses, diffs = vmap(one)(anchor, wkeys, state["worker_g"])
+        losses, diffs = worker_vmap(loss_fn, one)(anchor, wkeys,
+                                                  state["worker_g"])
         metrics = {"wire_bits": wire.tree_wire_bits(cfg.compressor, diffs)}
         if wire.wire_supported(cfg, diffs):
             cand = wire.pack_candidates(cfg.compressor, qkeys, diffs,
@@ -460,8 +470,8 @@ class CMFilterEstimator(CompressedUploadBits, GradientEstimator):
                                 + beta * mm, g, m_i)
             return ln, m_new, tu.tree_sub(m_new, u_i)
 
-        losses, m_new, diffs = vmap(one)(batch, wkeys, state["worker_m"],
-                                         state["worker_u"])
+        losses, m_new, diffs = worker_vmap(loss_fn, one)(
+            batch, wkeys, state["worker_m"], state["worker_u"])
         metrics = {"wire_bits": wire.tree_wire_bits(cfg.compressor, diffs)}
         if wire.wire_supported(cfg, diffs):
             cand = wire.pack_candidates(cfg.compressor, qkeys, diffs,
@@ -550,7 +560,7 @@ class SAGAEstimator(GradientEstimator):
             g, ln = grad_and_value(loss_fn)(params, sample, kl)
             return ln, g
 
-        losses, g_new = vmap(g_of)(samples, lkeys)
+        losses, g_new = worker_vmap(loss_fn, g_of)(samples, lkeys)
         v, tables, means = {}, {}, {}
         for k in sorted(table):
             gn = g_new[k].float().reshape((n, b) + tuple(g_new[k].shape[1:]))

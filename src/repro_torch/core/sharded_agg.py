@@ -112,9 +112,11 @@ def _rule_outs(agg, srcs, w_mat, attack_fn, mask, means, stds, valid=None,
 
 def _segments(leaves, attack_ctx):
     """Kernel launch units: (segs, means, stds, splits). Small leaves pack
-    into one (n, sum d_j) segment (with their stats packed alike); each
-    other leaf is its own (n, d_j) segment. splits[j] maps segment j back
-    to [(leaf_index, offset, size)]."""
+    into one float32 (n, sum d_j) segment (with their stats packed
+    alike); each other leaf is its own (n, d_j) segment in its dtype, as
+    the reference's, so a bfloat16 leaf takes the kernels' bfloat16 load
+    (its forged rows rounded through bfloat16, never a float32 copy).
+    splits[j] maps segment j back to [(leaf_index, offset, size)]."""
     n = leaves[0].shape[0]
     m_leaves = (attack_ctx.means if attack_ctx is not None
                 and attack_ctx.means is not None else [None] * len(leaves))
@@ -138,7 +140,10 @@ def _segments(leaves, attack_ctx):
     for i, x in enumerate(leaves):
         if i in packed:
             continue
-        segs.append(x.reshape(n, -1).float().contiguous())
+        seg = x.reshape(n, -1)
+        if seg.dtype != torch.bfloat16:
+            seg = seg.float()
+        segs.append(seg.contiguous())
         means.append(None if m_leaves[i] is None
                      else m_leaves[i].reshape(-1).float().contiguous())
         stds.append(None if s_leaves[i] is None

@@ -54,6 +54,12 @@ def tree_broadcast_leading(a, n: int):
     return tree_map(lambda x: x.expand((n,) + tuple(x.shape)).contiguous(), a)
 
 
+# masked_mean_std takes leaves wider than this many coordinates a column
+# block at a time: its float32 temporaries then stay small beside a
+# model-sized stack (every coordinate's arithmetic is the same)
+STATS_BLOCK = 1 << 24
+
+
 def masked_mean_std(xs: dict, good_mask: torch.Tensor,
                     sanitize: bool = False):
     """Per-coordinate mean/std over the good workers of a stacked tree
@@ -65,6 +71,19 @@ def masked_mean_std(xs: dict, good_mask: torch.Tensor,
     g = good_mask.float()
     cnt = torch.clamp(g.sum(), min=1.0)
 
+    def blocked(fn, a, *rest):
+        """fn over column blocks of the leaf's flat (n, d) rows."""
+        d = a[0].numel()
+        if d <= STATS_BLOCK:
+            return fn(a, *rest)
+        flat = a.reshape(a.shape[0], d)
+        rest = [r.reshape(d) for r in rest]
+        out = torch.empty(d, dtype=torch.float32, device=a.device)
+        for c in range(0, d, STATS_BLOCK):
+            sl = slice(c, c + STATS_BLOCK)
+            out[sl] = fn(flat[:, sl], *(r[sl] for r in rest))
+        return out.reshape(a.shape[1:])
+
     def mean_leaf(a):
         w = g.reshape((-1,) + (1,) * (a.dim() - 1))
         af = a.float()
@@ -72,7 +91,7 @@ def masked_mean_std(xs: dict, good_mask: torch.Tensor,
             af = torch.where(w > 0.0, af, 0.0)
         return (af * w).sum(0) / cnt
 
-    means = tree_map(mean_leaf, xs)
+    means = tree_map(lambda a: blocked(mean_leaf, a), xs)
 
     def std_leaf(a, m):
         w = g.reshape((-1,) + (1,) * (a.dim() - 1))
@@ -84,7 +103,7 @@ def masked_mean_std(xs: dict, good_mask: torch.Tensor,
         # and CUDA's), which torch's vectorized CPU sqrt misses by an ulp
         return torch.sqrt(torch.clamp(var, min=0.0).double()).float()
 
-    return means, tree_map(std_leaf, xs, means)
+    return means, tree_map(lambda a, m: blocked(std_leaf, a, m), xs, means)
 
 
 def per_worker_keys(key, n: int, *, common: bool = False):
@@ -100,10 +119,20 @@ def compress_tree(compressor, key, tree: dict) -> dict:
                             for i, leaf in enumerate(leaves(tree))])
 
 
-def compress_stacked(compressor, qkeys, stacked: dict) -> dict:
+def compress_stacked(compressor, qkeys, stacked: dict, base=None,
+                     consume: bool = False) -> dict:
     """``compress_tree`` of every worker's row of a stacked tree under its
-    own key (the reference's ``vmap(compress_tree)``)."""
-    qs = [compress_tree(compressor, qkeys[i],
-                        {k: v[i] for k, v in stacked.items()})
-          for i in range(qkeys.shape[0])]
-    return {k: torch.stack([q[k] for q in qs]) for k in sorted(stacked)}
+    own key (the reference's ``vmap(compress_tree)``), leaf by leaf: leaf
+    i of worker w compresses under fold_in(qkeys[w], i). ``base`` (a tree
+    of unstacked leaves) is added to each leaf's rows, base[None] + Q, as
+    soon as the leaf is made; ``consume`` pops each input leaf from
+    ``stacked`` once compressed, so that a model-sized stack is not held
+    three times over (input, compressed rows, candidates)."""
+    out = {}
+    for i, k in enumerate(sorted(stacked)):
+        leaf = stacked.pop(k) if consume else stacked[k]
+        q = torch.stack([compressor.compress(R.fold_in(qkeys[w], i), leaf[w])
+                         for w in range(qkeys.shape[0])])
+        del leaf
+        out[k] = q if base is None else base[k][None] + q
+    return out

@@ -1,11 +1,13 @@
-"""The logistic-regression data of the paper's experiments (port of the
-logreg part of ``repro/data/synthetic.py``).
+"""The synthetic data of the two tasks (port of
+``repro/data/synthetic.py``).
 
-``LogRegData`` is the a9a-like synthetic dataset; minibatches are drawn
-with ``repro_torch.random.randint`` (uniform) or ``random.choice``
-(importance sampling) so they equal the reference's index for index.
-``TokenStream`` and the LM label corruption are not ported yet (ROADMAP
-queue 1, item 12).
+``LogRegData`` is the a9a-like synthetic dataset of the paper's
+experiments; minibatches are drawn with ``repro_torch.random.randint``
+(uniform) or ``random.choice`` (importance sampling) so they equal the
+reference's index for index. ``TokenStream`` is the LM task's token
+stream, drawn with the same generator, so its tokens, labels and
+frontend embeddings equal the reference's; ``corrupt_labels_lm`` is its
+label-flipping attack.
 """
 from __future__ import annotations
 
@@ -237,3 +239,77 @@ def corrupt_labels_logreg(batch, byz_mask):
     """LF attack: y -> 1 - y on byzantine workers."""
     m = byz_mask.reshape((-1,) + (1,) * (batch["y"].dim() - 1))
     return {**batch, "y": torch.where(m, 1.0 - batch["y"], batch["y"])}
+
+
+# ---------------------------------------------------------------------------
+# synthetic LM token stream
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """Per-round (n_workers, batch, seq_len[, num_codebooks]) token
+    batches: ``minibatch(step)`` from fold_in(PRNGKey(seed), step),
+    ``anchor(step)`` (``anchor_batches`` times the minibatch) from
+    fold_in(PRNGKey(seed + 1), step), on ``device``."""
+    vocab_size: int
+    seq_len: int
+    n_workers: int
+    per_worker_batch: int
+    num_codebooks: int = 1
+    frontend_tokens: int = 0
+    d_model: int = 0
+    anchor_batches: int = 2
+    seed: int = 0
+    heterogeneous: bool = False  # shift each worker's token distribution
+    device: str = "cpu"
+
+    def _tokens(self, key, batch):
+        shape = (self.n_workers, batch, self.seq_len)
+        if self.num_codebooks > 1:
+            shape = shape + (self.num_codebooks,)
+        toks = R.randint(key, shape, 0, self.vocab_size)
+        if self.heterogeneous:
+            # a worker-dependent vocabulary shift: heterogeneity ζ² > 0
+            shift = (torch.arange(self.n_workers, device=toks.device)
+                     * 17)[:, None, None]
+            if self.num_codebooks > 1:
+                shift = shift[..., None]
+            toks = (toks + shift) % self.vocab_size
+        return toks
+
+    def _with_extras(self, key, toks):
+        batch = {"tokens": toks, "labels": _shifted_labels(toks)}
+        if self.frontend_tokens:
+            kf = R.fold_in(key, 7)
+            batch["frontend"] = 0.02 * R.normal(
+                kf, tuple(toks.shape[:2])
+                + (self.frontend_tokens, self.d_model))
+        return batch
+
+    def _key(self, seed: int, step: int):
+        return R.fold_in(R.PRNGKey(seed, device=self.device), step)
+
+    def minibatch(self, step: int) -> dict:
+        key = self._key(self.seed, step)
+        return self._with_extras(key, self._tokens(key,
+                                                   self.per_worker_batch))
+
+    def anchor(self, step: int) -> dict:
+        key = self._key(self.seed + 1, step)
+        toks = self._tokens(key, self.per_worker_batch * self.anchor_batches)
+        return self._with_extras(key, toks)
+
+
+def _shifted_labels(toks):
+    """Next-token labels; the last position masked with -1."""
+    lab = torch.roll(toks, -1, dims=2)
+    lab[:, :, -1] = -1
+    return lab
+
+
+def corrupt_labels_lm(batch, byz_mask):
+    """LF for LM data: byzantine workers train on labels rolled by 3."""
+    lab = batch["labels"]
+    m = byz_mask.reshape((-1,) + (1,) * (lab.dim() - 1))
+    wrong = torch.roll(lab, 3, dims=2)
+    return {**batch, "labels": torch.where(m & (lab >= 0), wrong, lab)}

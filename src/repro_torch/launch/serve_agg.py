@@ -34,7 +34,7 @@ from repro_torch.api import ServeSpec, components
 from repro_torch.api.spec import (ARRIVAL_MODES, SERVE_AGG_MODES,
                                   STALENESS_MODES)
 
-_CHOICE_KINDS = {"method": "method", "attack": "attack",
+_CHOICE_KINDS = {"arch": "arch", "method": "method", "attack": "attack",
                  "aggregator": "aggregator", "compressor": "compressor"}
 _STATIC_CHOICES = {"agg_mode": SERVE_AGG_MODES, "arrival": ARRIVAL_MODES,
                    "staleness": STALENESS_MODES, "task": ("logreg", "lm")}
@@ -64,14 +64,12 @@ def build_parser() -> argparse.ArgumentParser:
         flag = "--" + f.name.replace("_", "-")
         if f.name in _CHOICE_KINDS:
             ap.add_argument(flag, default=f.default,
-                            choices=components(_CHOICE_KINDS[f.name]))
+                            choices=(components(_CHOICE_KINDS[f.name])
+                                     if f.name != "arch"
+                                     else (None,) + components("arch")))
         elif f.name in _STATIC_CHOICES:
             ap.add_argument(flag, default=f.default,
                             choices=_STATIC_CHOICES[f.name])
-        elif f.name == "arch":
-            # no architecture is ported (ROADMAP queue 1, item 12): any
-            # name reaches ServeSpec, which raises NotImplementedError
-            ap.add_argument(flag, default=None)
         elif f.name.endswith("_kwargs"):
             alias = ("--chaos",) if f.name == "arrival_kwargs" else ()
             ap.add_argument(flag, *alias, type=_parse_kv,

@@ -25,7 +25,9 @@ Layout follows JAX 0.9.0 with ``jax_threefry_partitionable=True``:
   the blocked order of XLA's CPU code (``cumsum``);
 * ``normal`` is sqrt(2)·erfinv(u) with XLA's single-precision erfinv
   polynomial (Giles) and XLA's own ``log-plus-one`` (``xla_math``), so
-  the normals equal JAX's bit for bit.
+  the normals equal JAX's bit for bit; ``normal_bf16`` is JAX's
+  bfloat16 draw (8 random bits a value, the float32 erfinv rounded, the
+  product by bfloat16's sqrt(2) rounded again).
 """
 from __future__ import annotations
 
@@ -249,3 +251,20 @@ def normal(key, shape: Sequence[int] = (), scale: float = 1.0) -> torch.Tensor:
     u = uniform(key, shape, lo, 1.0)
     return erfinv(u) * float(np.float32(np.float32(scale)
                                         * np.float32(np.sqrt(2))))
+
+
+def normal_bf16(key, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.normal(key, shape, jnp.bfloat16)``: u from the low 8
+    bits of each word (7 mantissa bits of [1, 2), minus 1), mapped onto
+    [lo, 1) with lo = nextafter(-1, 0) = -(1 - 2⁻⁸) in bfloat16, whose
+    span 1 - lo rounds to 2 there, so the map is exact; erfinv(u) in
+    float32 rounded to bfloat16, then times bfloat16(sqrt(2)), rounded
+    again."""
+    bits = random_bits(key, shape) & 0xFF
+    fb = ((bits >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16)
+    lo = -0.99609375
+    u = torch.maximum(torch.tensor(lo, device=key.device),
+                      (fb.float() - 1.0) * 2.0 + lo)
+    sqrt2 = float(torch.tensor(math.sqrt(2)).to(torch.bfloat16))
+    e = erfinv(u).to(torch.bfloat16)
+    return (e.float() * sqrt2).to(torch.bfloat16)

@@ -65,10 +65,6 @@ def test_sweep_ids_and_specs_are_the_references():
 def test_registry_is_the_references():
     assert registry.kinds() == jax_registry.kinds()
     for kind in registry.kinds():
-        if kind == "arch":                  # the LM workload, item 12
-            with pytest.raises(NotImplementedError, match="item 12"):
-                registry.components(kind)
-            continue
         assert registry.components(kind) == jax_registry.components(kind)
         assert registry.describe(kind) == jax_registry.describe(kind)
     for kind, name in (("aggregator", "krun"), ("method", "marnia"),

@@ -195,32 +195,40 @@ def test_spec_json_is_shared():
 # .py), every method and the RN attack (tests/test_torch_estimators.py),
 # the rest of the zoo (sparse support, dither, natural compression,
 # importance sampling: tests/test_torch_zoo_rest.py) and tracing
-# (tests/test_torch_obs.py); the cases that named them now name what is
-# still unported: the language-model task on each model family of the
-# reference (dense, MoE, MLA + MoE, state-space, recurrent, vision and
-# audio), each optimizer, and the all_to_all backend; and, through the
-# registry, resolving an optimizer other than "none" or an arch
+# (tests/test_torch_obs.py), and so are the dense decoders' LM task and
+# the optimizers (tests/test_torch_lm_model.py, test_torch_lm_train.py);
+# the cases that named them now name what is still unported: the LM task
+# on the MoE, MLA + MoE, state-space and recurrent configs, and the
+# all_to_all backend on either task; and, through the registry,
+# resolving those four archs
+_UNPORTED_ARCHS = {"phi3.5-moe-42b-a6.6b": 14, "deepseek-v2-lite-16b": 14,
+                   "mamba2-130m": 15, "recurrentgemma-2b": 15}
+
+
 @pytest.mark.parametrize("override", [
-    {"task": "lm", "arch": "qwen3-1.7b"},
     {"task": "lm", "arch": "phi3.5-moe-42b-a6.6b"},
     {"task": "lm", "arch": "deepseek-v2-lite-16b"},
     {"task": "lm", "arch": "mamba2-130m"},
     {"task": "lm", "arch": "recurrentgemma-2b"},
-    {"task": "lm", "arch": "qwen2-vl-2b"},
-    {"task": "lm", "arch": "musicgen-medium"},
-    {"optimizer": "adam"},
-    {"optimizer": "sgd"},
     {"agg_mode": "all_to_all"},
-    ("optimizer", "adam"),
-    ("arch", "qwen3-1.7b"),
+    {"task": "lm", "arch": "qwen3-1.7b", "agg_mode": "all_to_all"},
+    {"task": "lm", "arch": "qwen2-vl-2b", "agg_mode": "all_to_all"},
+    {"task": "lm", "arch": "musicgen-medium", "agg_mode": "all_to_all"},
+    ("arch", "phi3.5-moe-42b-a6.6b"),
+    ("arch", "deepseek-v2-lite-16b"),
+    ("arch", "mamba2-130m"),
+    ("arch", "recurrentgemma-2b"),
 ])
 def test_unported_components_raise(override):
     if isinstance(override, tuple):
+        item = _UNPORTED_ARCHS[override[1]]
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 12"):
+                           match=f"ROADMAP queue 1, item {item}"):
             registry.resolve(*override)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = _UNPORTED_ARCHS.get(override.get("arch"), 11)
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue 1, item {item}"):
         build(RunSpec(**{**SPEC, **override}), device="cpu")
 
 

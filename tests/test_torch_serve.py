@@ -384,10 +384,15 @@ def test_serve_spec_json_and_lm():
     assert spec.to_run_spec().to_dict() == ref.to_run_spec().to_dict()
     with pytest.raises(ValueError, match="kind"):
         ServeSpec.from_dict({**spec.to_dict(), "kind": "run"})
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        ServeSpec(task="lm", arch="qwen3-1.7b")
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+    lm = dict(task="lm", arch="qwen3-1.7b")
+    assert ServeSpec(**lm).to_dict() == JaxServeSpec(**lm).to_dict()
+    with pytest.raises(NotImplementedError, match="queue 1, item 15"):
+        ServeSpec(task="lm", arch="mamba2-130m")
+    with pytest.raises(ValueError, match="needs arch") as err:
         ServeSpec(task="lm")
+    with pytest.raises(ValueError, match="needs arch") as ref_err:
+        JaxServeSpec(task="lm")
+    assert str(err.value) == str(ref_err.value)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the CPU-only "
