@@ -54,7 +54,13 @@ against the CPU path, and qwen3-1.7b at full width (28 layers, bfloat16,
 5 workers x 4 x 128 tokens, MARINA + RandK + ALIE + cm) through
 ``api.run`` and ``launch.train.main``: its launches a round, ms a round,
 tokens a second and peak memory, its first rounds again bit for bit, and
-one round's aggregation held leaf by leaf to the plain versions.
+one round's aggregation held leaf by leaf to the plain versions; and the
+MLA and MoE phase: robust_agg's bfloat16 load at the widest expert
+stacks (5 x 553,648,128, past 2^31 elements, and 5 x 419,430,400), the
+reduced float32 twins of deepseek-v2-lite-16b and phi3.5-moe-42b-a6.6b
+against the CPU path, and deepseek-v2-lite-16b at its published widths,
+cut to 3 of its 27 layers (registered here as deepseek-v2-lite-16b-3l),
+checked as qwen3-1.7b is.
 The masked kernels (``valid`` in the
 load, the masked coordinate rule) are held to their plain versions beside
 the unmasked ones, and so is every load (dense float32 or bfloat16, the
@@ -88,6 +94,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 rate of the tensor cores
 REPS = 21                        # timed runs per measurement (median taken)
+# the plain versions and library calls of a case of SLOW_ELEMENTS stacked
+# elements or more (0.03-0.5 s a call) are timed over SLOW_REPS runs; the
+# kernels' own calls always over REPS
+SLOW_ELEMENTS = 1 << 28
+SLOW_REPS = 3
 # idle time on each side of a profiled window: the tracer stamps device
 # activity on a clock that sits up to milliseconds off the host's (3.6 ms
 # early seen on the H100) and drops what falls outside its window, which
@@ -98,9 +109,13 @@ PROFILE_PAD_S = 0.05
 # every event, so windows four and five bought little and cost some 40 s
 PROFILE_TRIES = 3
 # rounds of each main path: with the kernel phases, the paths and their
-# CPU checks, the script has to end inside 1200 s on a slow host too
-MAIN_STEPS = 60
-CPU_CHECK_STEPS = 12
+# CPU checks, the script has to end inside 1200 s on a slow host too. The
+# CPU checks cost most at 256 workers (the logistic loss over the whole
+# a9a anchor at the init and at each full round); their 4 rounds are 3 VR
+# rounds and the first full round (the main spec's coin first comes up at
+# round 3), which a MARINA path's check must hold
+MAIN_STEPS = 20
+CPU_CHECK_STEPS = 4
 TRAJ_TOL = 2e-5
 # the paths of a compressor that rounds (int8 levels, signs, bf16): the
 # card's gradients and its sums over d take another order than the CPU's,
@@ -330,14 +345,13 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=None) -> float:
-    """Median over ``reps`` (REPS) runs of CUDA-event time, after a
-    warm-up."""
+def cuda_ms(fn, reps=REPS) -> float:
+    """Median over ``reps`` runs of CUDA-event time, after a warm-up."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps or REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -346,6 +360,12 @@ def cuda_ms(fn, reps=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def plain_reps(elements) -> int:
+    """Timed runs of a plain version or library call over ``elements``
+    stacked elements: SLOW_REPS from SLOW_ELEMENTS on, else REPS."""
+    return SLOW_REPS if elements >= SLOW_ELEMENTS else REPS
 
 
 def device_profile(fn):
@@ -556,14 +576,12 @@ def mask_inputs(args, n, s, invalid):
     return x, w, mask, mean, std, valid, bvalid
 
 
-def kernel_case(case, dev, weighted=False, slow_reps=None):
+def kernel_case(case, dev, weighted=False):
     """``robust_agg`` on one case against its plain version, timed beside
     it and a library call. A masked case (a last element naming invalid
     workers) must equal its plain version (``torch.equal``: both read a
     rank as 0 + v); an unmasked one agree to KERNEL_TOL, since its W·x
-    sums in another order. ``weighted`` as in ``make_inputs``;
-    ``slow_reps`` times the plain version and the library call over fewer
-    runs than REPS."""
+    sums in another order. ``weighted`` as in ``make_inputs``."""
     from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
     from repro_torch.kernels.norm_agg import stack
     kind, label, n, d, k, base_rows, s, rule, *rest = case
@@ -591,9 +609,10 @@ def kernel_case(case, dev, weighted=False, slow_reps=None):
         raise AssertionError(f"robust_agg {label}: max abs err {err:.3e} > "
                              f"limit {limit:.3e} (or non-finite output)")
     t = timing(lambda: robust_agg(*args, **kw))
-    plain_ms = cuda_ms(lambda: robust_agg_plain(*args, **kw), slow_reps)
+    reps = plain_reps(n * d)
+    plain_ms = cuda_ms(lambda: robust_agg_plain(*args, **kw), reps)
     lib = None if invalid else library_call(args, kw)
-    library_ms = None if lib is None else cuda_ms(lib, slow_reps)
+    library_ms = None if lib is None else cuda_ms(lib, reps)
     bound_ms, bound_by = bound_of(bytes_moved, ops)
     row = {"kernel": "robust_agg", "kind": kind, "label": label, "n": n,
            "d": d, "k": k, "base_rows": base_rows, "s": s, "rule": rule,
@@ -704,8 +723,9 @@ def norm_case(case, dev, weighted=False):
                 f"finite {ok}, bitwise repeat (and the Gram symmetric) "
                 f"{repeat}")
         t = timing(kern)
-        plain_ms = cuda_ms(plain)
-        library_ms = None if lib is None else cuda_ms(lib)
+        plain_ms = cuda_ms(plain, plain_reps(n * d))
+        library_ms = (None if lib is None
+                      else cuda_ms(lib, plain_reps(n * d)))
         bound_ms, bound_by = bound_of(bytes_moved, ops)
         row = {"kernel": name, "kind": kind, "label": label, "n": n, "d": d,
                "k": k, "base_rows": base_rows, "s": s, "weighted": weighted,
@@ -797,8 +817,8 @@ def blocked_case(case, dev, card):
                 f"{name} {label}: error {err} vs limit {limit}, finite {ok},"
                 f" bitwise repeat {repeat}, symmetric {symmetric}")
         t = timing(kern)
-        plain_ms = cuda_ms(plain)
-        library_ms = cuda_ms(lib)
+        plain_ms = cuda_ms(plain, plain_reps(m * d))
+        library_ms = cuda_ms(lib, plain_reps(m * d))
         gram = name == "pair_gram_blocked"
         bound_ms, bound_by = bound_of(
             bytes_moved, ops, TF32_OPS_PER_S if gram else FP32_OPS_PER_S)
@@ -860,9 +880,10 @@ def topk_case(case, dev, card):
         del inp, first, again, sel, want, want_sel
     t = timing(lambda: Q.topk_support(x, k))
     whole = timing(lambda: Q.topk_select(x, k))
-    plain_ms = cuda_ms(lambda: Q.topk_support_plain(x, k))
-    plain_select_ms = cuda_ms(lambda: Q.topk_select_plain(x, k))
-    library_ms = cuda_ms(lambda: torch.topk(x.abs(), k, dim=-1))
+    reps = plain_reps(rows * d)
+    plain_ms = cuda_ms(lambda: Q.topk_support_plain(x, k), reps)
+    plain_select_ms = cuda_ms(lambda: Q.topk_select_plain(x, k), reps)
+    library_ms = cuda_ms(lambda: torch.topk(x.abs(), k, dim=-1), reps)
     bytes_moved = 4 * rows * d + 4 * rows * k
     bound_ms, bound_by = bound_of(bytes_moved, 0)
     cp = min(2048, max(128, -(-min(k, 2048) // 128) * 128))
@@ -934,7 +955,7 @@ def ops_path(dev, card):
         entry_ms = cuda_ms(lambda: ops.block_quantize(x, key,
                                                       levels=QUANT_LEVELS))
         plain_ms = cuda_ms(lambda: Q.block_quantize_plain(
-            x, u, levels=QUANT_LEVELS))
+            x, u, levels=QUANT_LEVELS), plain_reps(d))
         bound_ms, bound_by = bound_of(12 * d, 0)
         rows.append({"kernel": "block_quantize", "label": label, "d": d,
                      "levels": QUANT_LEVELS, "max_abs_err": err,
@@ -1138,6 +1159,9 @@ def main_path(dev, card, tag, spec, want_counts, diverges=False,
     if cpu_ck != ck[:CPU_CHECK_STEPS]:
         raise AssertionError(f"{tag}: c_k differs from the CPU path: "
                              f"{cpu_ck} vs {ck[:CPU_CHECK_STEPS]}")
+    if coin and 1 not in cpu_ck:
+        raise AssertionError(f"{tag}: no full round (c_k=1) among the "
+                             f"{CPU_CHECK_STEPS} rounds held to the CPU path")
     got = np.array(losses[:CPU_CHECK_STEPS])
     ref = np.array([h["loss"] for h in cpu.history])
     if diverges:
@@ -1166,7 +1190,7 @@ def main_path(dev, card, tag, spec, want_counts, diverges=False,
             "cpu_loss_diff": diff, "diverges": diverges}
 
 
-PROFILE_STEPS = 20                 # rounds of each profiled path
+PROFILE_STEPS = 5                  # rounds of each profiled path
 PROFILED_PATHS = ("cm", "rfa", "krum", "cm chaos", "byz_ef21 topk")
 
 
@@ -1371,7 +1395,7 @@ def kernel_entry(name, source, replaces, launches, rows):
         "device_ops": max((r["device_ops"] or 0) for r in rows)}
 
 
-TRACED_STEPS = 20                # rounds of each traced twin
+TRACED_STEPS = 10                # rounds of each traced twin
 # the traced twins: (tag, spec, the untraced path's launches)
 TRACED_PATHS = [
     ("cm", MAIN_SPEC, lambda f, v, r: expected_counts("cm", f, v)),
@@ -1499,6 +1523,10 @@ def traced_path(dev, card, tag, spec, want_counts):
               device="cpu", log_every=1)
     if [int(h.get("c_k", 1)) for h in cpu.history] != ck[:CPU_CHECK_STEPS]:
         raise AssertionError(f"traced {tag}: c_k differs from the CPU path")
+    if "c_k" in cpu.history[0] and 1 not in ck[:CPU_CHECK_STEPS]:
+        raise AssertionError(f"traced {tag}: no full round (c_k=1) among "
+                             f"the {CPU_CHECK_STEPS} traces held to the CPU "
+                             "path")
     vs_cpu, rebuilt = {}, {}
     for a, b, h in zip(tr.traces, cpu.traces, cpu.history):
         _merge_max(vs_cpu, trace_errors(a, b, h["g_norm"], ranked=False))
@@ -2113,11 +2141,10 @@ LM_SPEC = dict(task="lm", arch="qwen3-1.7b", method="marina", p=0.1,
                compressor_kwargs={"ratio": 0.1}, agg_mode="pallas", lr=3e-3,
                data_kwargs={"seq_len": 128, "per_worker_batch": 4})
 LM_TOKENS = 5 * 4 * 128            # tokens a round
-LM_STEPS = 9                       # a warm round, then 8 timed
+LM_STEPS = 4                       # a warm round, then 3 timed
 LM_REPEAT_STEPS = 3                # rounds run twice, equal bit for bit
 LM_TWIN_STEPS = 6                  # the reduced float32 twin against the CPU
 LM_CLI_STEPS = 1
-LM_SLOW_REPS = 5                   # timed calls of the plain versions
 LM_LEAVES = 14                     # leaves, each wider than SMALL_LEAF_D
 LM_PLAIN_BLOCK = 1 << 24           # columns a plain-version comparison takes
 # robust_agg's dense bf16 load at the LM leaves' widths: (kind, label, n,
@@ -2130,6 +2157,33 @@ LM_KERNEL_CASES = [
     ("dense_bf16", "qwen3-1.7b stacked q_proj 28x2048x2048, bf16 (the LM "
      "path's)", 5, 117_440_512, None, 0, 2, "median"),
 ]
+# the lm_moe phase: the same spec on deepseek-v2-lite-16b at its published
+# widths (MLA, 64 routed experts of 1408 with top-6 and 2 shared, vocab
+# 102,400, bfloat16), its 27 layers cut to 3 (2,173,976,064 parameters;
+# the 27 layers' 16.2e9 do not fit on one 80 GB card), registered here
+# under a name that states the cut
+LM_MOE_ARCH = "deepseek-v2-lite-16b-3l"
+LM_MOE_LAYERS = 3
+LM_MOE_SPEC = dict(LM_SPEC, arch=LM_MOE_ARCH)
+LM_MOE_STEPS = 6                   # a warm round, then 5 timed
+LM_MOE_LEAVES = 19                 # leaves, each wider than SMALL_LEAF_D
+LM_MOE_TWINS = ("deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b")
+LM_MOE_KERNEL_CASES = [
+    ("dense_bf16", "deepseek-v2-lite-16b-3l stacked expert w1 "
+     "3x64x2048x1408, bf16 (the lm_moe path's widest leaf)", 5,
+     553_648_128, None, 0, 2, "median"),
+    ("dense_bf16", "phi3.5-moe-42b-a6.6b expert w1 at one layer "
+     "1x16x4096x6400, bf16", 5, 419_430_400, None, 0, 2, "median"),
+]
+
+
+def register_moe_cut():
+    """Register deepseek-v2-lite-16b cut to LM_MOE_LAYERS layers as
+    LM_MOE_ARCH (widths, experts and routing as published)."""
+    import dataclasses
+    from repro_torch.configs import get_config, register
+    register(dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                                 name=LM_MOE_ARCH, num_layers=LM_MOE_LAYERS))
 
 
 def _lm_counts(aggregations: int, segments: int, load: str,
@@ -2226,38 +2280,27 @@ def _lm_run(dev, spec, steps, tag, card, keep_at=None, plain=None,
     return res, round_ms, counts, kept, peak
 
 
-def lm_phase(dev, card) -> dict:
-    """The LM slice on the card: robust_agg's bf16 load at the LM leaves'
-    widths against its plain version; the reduced float32 twin against the
-    CPU path; qwen3-1.7b at full width through api.run (launches a round
-    exact, ms a round, tokens a second, peak memory), its first rounds
-    again, bit for bit, with one round's aggregation held to the plain
-    versions leaf by leaf; and launch.train.main in process."""
+def _lm_twin(dev, card, arch) -> dict:
+    """The reduced float32 twin of ``arch`` under LM_SPEC on the card,
+    its launches exact, and its first LM_TWIN_STEPS rounds against the
+    CPU path (c_k equal, losses within TRAJ_TOL)."""
     from repro_torch.api import RunSpec, run
     from repro_torch.configs import get_config
-    from repro_torch.launch import train
-    t_phase = time.time()
-    # the plain versions and torch.median take 0.1-0.3 s a call at these
-    # widths: fewer timed calls of those
-    out = {"kernel_rows": [kernel_case(c, dev, slow_reps=LM_SLOW_REPS)
-                           for c in LM_KERNEL_CASES]}
-
-    # the reduced float32 twin, on the card and on the CPU
-    twin = {**LM_SPEC, "data_kwargs": {**LM_SPEC["data_kwargs"],
-                                       "reduced": True}}
-    acfg = get_config("qwen3-1.7b").reduced()
     from repro_torch.core.sharded_agg import SMALL_LEAF_D
     from repro_torch.models import param_shapes
-    sizes = [math.prod(s) for s in param_shapes(acfg).values()]
+    tag = f"lm {arch} reduced twin"
+    twin = {**LM_SPEC, "arch": arch,
+            "data_kwargs": {**LM_SPEC["data_kwargs"], "reduced": True}}
+    sizes = [math.prod(s)
+             for s in param_shapes(get_config(arch).reduced()).values()]
     small = sum(1 for d in sizes if d < SMALL_LEAF_D)
-    twin_segs = len(sizes) - small + (1 if small >= 2 else 0)
-    res, _, counts, _, _ = _lm_run(dev, twin, LM_TWIN_STEPS, "reduced twin",
-                                   card)
+    segs = len(sizes) - small + (1 if small >= 2 else 0)
+    res, _, counts, _, _ = _lm_run(dev, twin, LM_TWIN_STEPS, tag[3:], card)
     full, vr = _rounds(res.history)
-    want = _lm_counts(1 + full, twin_segs, "dense", vr, len(sizes))
+    want = _lm_counts(1 + full, segs, "dense", vr, len(sizes))
     if counts != want:
-        raise AssertionError(f"lm reduced twin: launches {nonzero(counts)}, "
-                             f"expected {nonzero(want)}")
+        raise AssertionError(f"{tag}: launches {nonzero(counts)}, expected "
+                             f"{nonzero(want)}")
     cpu = run(RunSpec(**{**twin, "steps": LM_TWIN_STEPS}), device="cpu",
               log_every=1)
     ck = [int(h["c_k"]) for h in res.history]
@@ -2265,76 +2308,83 @@ def lm_phase(dev, card) -> dict:
     diff = float(np.max(np.abs(np.array([h["loss"] for h in res.history])
                                - np.array([h["loss"] for h in
                                            cpu.history]))))
-    print(f"[lm reduced twin] {LM_TWIN_STEPS} rounds vs the CPU plain "
-          f"path: c_k {ck} (CPU {cpu_ck}), max |loss diff| {diff:.3e} "
-          f"(limit {TRAJ_TOL}) [{card}]", flush=True)
+    print(f"[{tag}] {LM_TWIN_STEPS} rounds vs the CPU plain path: c_k {ck} "
+          f"(CPU {cpu_ck}), max |loss diff| {diff:.3e} (limit {TRAJ_TOL}) "
+          f"[{card}]", flush=True)
     if ck != cpu_ck or not diff <= TRAJ_TOL:
-        raise AssertionError(f"lm reduced twin: differs from the CPU path "
-                             f"by {diff}")
-    out["paths"] = {"lm reduced twin": {"launches": counts,
-                                        "cpu_loss_diff": diff}}
-    del res, cpu
+        raise AssertionError(f"{tag}: differs from the CPU path by {diff}")
+    return {"launches": counts, "cpu_loss_diff": diff}
 
-    # qwen3-1.7b at full width
-    full_cfg = get_config("qwen3-1.7b")
-    res, round_ms, counts, kept, peak = _lm_run(dev, LM_SPEC, LM_STEPS,
-                                                "qwen3-1.7b", card,
+
+def _lm_full_width(dev, card, spec, steps, leaves, cut) -> tuple:
+    """``spec``'s arch at full width through api.run: ``steps`` rounds
+    (the launches exact: ``leaves`` dense-bf16 robust_agg launches an
+    aggregation, the init's included; ms a round p50 over the rounds
+    after the first, tokens a second, peak memory), then the first
+    LM_REPEAT_STEPS rounds again, equal bit for bit (params and g), with
+    the last of them held to the plain versions leaf by leaf. ``cut``
+    states the depth. -> (row, {path: launches})."""
+    arch = spec["arch"]
+    res, round_ms, counts, kept, peak = _lm_run(dev, spec, steps, arch, card,
                                                 keep_at=LM_REPEAT_STEPS - 1)
-    want = _lm_counts(1 + LM_STEPS, LM_LEAVES, "dense_bf16")
+    want = _lm_counts(1 + steps, leaves, "dense_bf16")
     if counts != want:
-        raise AssertionError(f"lm qwen3-1.7b: launches {nonzero(counts)}, "
+        raise AssertionError(f"lm {arch}: launches {nonzero(counts)}, "
                              f"expected {nonzero(want)}: an aggregation "
                              "bypassed its kernel")
-    timed = round_ms[-(LM_STEPS - 1):]
+    timed = round_ms[-(steps - 1):]
     p50 = statistics.median(timed)
     full, vr = _rounds(res.history)
-    row = {"arch": "qwen3-1.7b", "num_layers": full_cfg.num_layers,
-           "n_params": res.n_params, "rounds": LM_STEPS,
-           "full_rounds": full, "vr_rounds": vr, "round_ms": round_ms,
-           "ms_per_round_p50": p50, "tokens_per_s": LM_TOKENS / p50 * 1e3,
-           "peak_bytes": peak, "launches": counts,
-           "launches_per_round": LM_LEAVES,
+    row = {"arch": arch, "depth": cut, "n_params": res.n_params,
+           "rounds": steps, "full_rounds": full, "vr_rounds": vr,
+           "round_ms": round_ms, "ms_per_round_p50": p50,
+           "tokens_per_s": LM_TOKENS / p50 * 1e3, "peak_bytes": peak,
+           "launches_per_round": leaves,
            "losses": [h["loss"] for h in res.history]}
-    print(f"[lm qwen3-1.7b] full width, {full_cfg.num_layers} layers (no "
-          f"depth cut), {res.n_params} parameters, bfloat16; {full} full "
-          f"and {vr} VR rounds; ms per round p50 {p50:.3f} over "
-          f"{len(timed)} timed rounds after a warm one (host clock, each "
-          f"round ending on a device read; all "
+    print(f"[lm {arch}] full width, {cut}, {res.n_params} parameters, "
+          f"bfloat16; {full} full and {vr} VR rounds; ms per round p50 "
+          f"{p50:.3f} over {len(timed)} timed rounds after a warm one (host "
+          f"clock, each round ending on a device read; all "
           f"{[round(t, 3) for t in round_ms]}); {row['tokens_per_s']:.1f} "
           f"tokens/s ({LM_TOKENS} a round); peak "
           f"{peak / 2**30:.2f} GiB allocated (torch.cuda."
-          f"max_memory_allocated); launches {LM_LEAVES} robust_agg (dense "
+          f"max_memory_allocated); launches {leaves} robust_agg (dense "
           f"bf16) a round, {counts['robust_agg/dense_bf16']} in all [{card}]",
           flush=True)
     del res
     with _PlainCheck() as plain:
-        res, _, counts, _, peak2 = _lm_run(
-            dev, LM_SPEC, LM_REPEAT_STEPS, "qwen3-1.7b repeat", card,
-            plain=plain, plain_from=LM_REPEAT_STEPS - 1)
+        res, _, counts2, _, peak2 = _lm_run(
+            dev, spec, LM_REPEAT_STEPS, f"{arch} repeat", card, plain=plain,
+            plain_from=LM_REPEAT_STEPS - 1)
     same = all(torch.equal(kept[f"{part}/{k}"], v.cpu())
                for part in ("params", "g") for k, v in res.state[part].items())
     if not same:
-        raise AssertionError("lm qwen3-1.7b: the first rounds do not repeat "
-                             "bit for bit")
-    if counts != _lm_counts(1 + LM_REPEAT_STEPS, LM_LEAVES, "dense_bf16"):
-        raise AssertionError(f"lm repeat: launches {nonzero(counts)}")
+        raise AssertionError(f"lm {arch}: the first rounds do not repeat bit "
+                             "for bit")
+    if counts2 != _lm_counts(1 + LM_REPEAT_STEPS, leaves, "dense_bf16"):
+        raise AssertionError(f"lm {arch} repeat: launches {nonzero(counts2)}")
     bad = [r for r in plain.rows if not r["max_abs_err"] <= r["limit"]]
-    if len(plain.rows) != LM_LEAVES or bad:
-        raise AssertionError(f"lm qwen3-1.7b: round {LM_REPEAT_STEPS - 1}'s "
+    if len(plain.rows) != leaves or bad:
+        raise AssertionError(f"lm {arch}: round {LM_REPEAT_STEPS - 1}'s "
                              f"aggregation against the plain versions: "
                              f"{len(plain.rows)} leaves, off {bad}")
     worst = max(r["max_abs_err"] / r["limit"] for r in plain.rows)
-    print(f"[lm qwen3-1.7b] the first {LM_REPEAT_STEPS} rounds again: "
-          f"params and g equal bit for bit; round {LM_REPEAT_STEPS - 1}'s "
+    print(f"[lm {arch}] the first {LM_REPEAT_STEPS} rounds again: params "
+          f"and g equal bit for bit; round {LM_REPEAT_STEPS - 1}'s "
           f"{len(plain.rows)} leaves ({sum(r['d'] for r in plain.rows)} "
           f"columns) held to robust_agg_plain on the card, worst err "
           f"{worst:.3e} of KERNEL_TOL x scale [{card}]", flush=True)
     row.update(repeat_bitwise=True, plain_rows=plain.rows,
-               repeat_peak_bytes=peak2, repeat_launches=counts)
-    del res, kept
+               repeat_peak_bytes=peak2)
+    return row, {f"lm {arch}": {"launches": counts},
+                 f"lm {arch} repeat": {"launches": counts2}}
 
-    # the training CLI, in process
-    args = ["--arch", "qwen3-1.7b", "--method", "marina", "--p", "0.1",
+
+def _lm_cli(card, arch, leaves) -> dict:
+    """LM_CLI_STEPS rounds of LM_SPEC on ``arch`` through
+    ``launch.train.main`` in process, launches exact."""
+    from repro_torch.launch import train
+    args = ["--arch", arch, "--method", "marina", "--p", "0.1",
             "--n-workers", "5", "--n-byz", "1", "--attack", "ALIE", "--agg",
             "cm", "--bucket-size", "2", "--compressor", "randk",
             "--compressor-kwargs", '{"ratio": 0.1}', "--agg-mode", "pallas",
@@ -2344,21 +2394,60 @@ def lm_phase(dev, card) -> dict:
     reset_counts()
     hist = train.main(args)
     counts = read_counts()
-    if counts != _lm_counts(1 + LM_CLI_STEPS, LM_LEAVES, "dense_bf16") or \
+    if counts != _lm_counts(1 + LM_CLI_STEPS, leaves, "dense_bf16") or \
             not all(math.isfinite(h["loss"]) for h in hist):
-        raise AssertionError(f"lm launch.train: launches {nonzero(counts)}, "
-                             f"losses {[h['loss'] for h in hist]}")
-    print(f"[lm launch.train] {len(hist)} rounds in process, losses "
+        raise AssertionError(f"lm launch.train {arch}: launches "
+                             f"{nonzero(counts)}, losses "
+                             f"{[h['loss'] for h in hist]}")
+    print(f"[lm launch.train] {arch}: {len(hist)} rounds in process, losses "
           f"{[round(h['loss'], 6) for h in hist]}, launches "
           f"{nonzero(counts)} [{card}]", flush=True)
-    out["paths"]["lm qwen3-1.7b"] = {"launches": row["launches"]}
-    out["paths"]["lm qwen3-1.7b repeat"] = {"launches": row.pop(
-        "repeat_launches")}
-    out["paths"]["lm launch.train"] = {"launches": counts}
+    torch.cuda.empty_cache()
+    return {"launches": counts}
+
+
+def lm_phase(dev, card) -> dict:
+    """The LM slice on the card: robust_agg's bf16 load at the LM leaves'
+    widths against its plain version; the reduced float32 twin against the
+    CPU path; qwen3-1.7b at full width through api.run (launches a round
+    exact, ms a round, tokens a second, peak memory), its first rounds
+    again, bit for bit, with one round's aggregation held to the plain
+    versions leaf by leaf; and launch.train.main in process."""
+    t_phase = time.time()
+    out = {"kernel_rows": [kernel_case(c, dev) for c in LM_KERNEL_CASES]}
+    out["paths"] = {"lm reduced twin": _lm_twin(dev, card, "qwen3-1.7b")}
+    row, paths = _lm_full_width(dev, card, LM_SPEC, LM_STEPS, LM_LEAVES,
+                                "28 layers (no depth cut)")
+    out["paths"].update(paths)
+    out["paths"]["lm launch.train"] = _lm_cli(card, "qwen3-1.7b", LM_LEAVES)
     out["full_width"] = row
     out["phase_s"] = time.time() - t_phase
     print(f"[lm] phase {out['phase_s']:.1f} s [{card}]", flush=True)
-    torch.cuda.empty_cache()
+    return out
+
+
+def lm_moe_phase(dev, card) -> dict:
+    """The MLA and MoE slice on the card: robust_agg's bf16 load at the
+    widest expert stacks (deepseek-v2-lite-16b-3l's, phi3.5-moe's at one
+    layer) against its plain version; the reduced float32 twins of
+    deepseek-v2-lite-16b and phi3.5-moe against the CPU path; deepseek at
+    full width, cut to LM_MOE_LAYERS layers, through api.run as the LM
+    phase runs qwen3-1.7b, and through launch.train.main."""
+    t_phase = time.time()
+    register_moe_cut()
+    out = {"kernel_rows": [kernel_case(c, dev) for c in LM_MOE_KERNEL_CASES]}
+    out["paths"] = {f"lm {arch} reduced twin": _lm_twin(dev, card, arch)
+                    for arch in LM_MOE_TWINS}
+    row, paths = _lm_full_width(
+        dev, card, LM_MOE_SPEC, LM_MOE_STEPS, LM_MOE_LEAVES,
+        f"{LM_MOE_LAYERS} of 27 layers (depth cut; every width, the 64 "
+        "routed and 2 shared experts, top-6 and vocab as published)")
+    out["paths"].update(paths)
+    out["paths"][f"lm launch.train {LM_MOE_ARCH}"] = _lm_cli(
+        card, LM_MOE_ARCH, LM_MOE_LEAVES)
+    out["full_width"] = row
+    out["phase_s"] = time.time() - t_phase
+    print(f"[lm_moe] phase {out['phase_s']:.1f} s [{card}]", flush=True)
     return out
 
 
@@ -2385,7 +2474,8 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", choices=("all", "kernels", "tracer",
-                                         "zoo_obs", "exec", "serve", "lm"),
+                                         "zoo_obs", "exec", "serve", "lm",
+                                         "lm_moe"),
                     default="all",
                     help="'kernels': the kernel phases alone (no paths, "
                          "no kernels line), e.g. to time another tree's "
@@ -2400,7 +2490,8 @@ def main(argv=None) -> int:
                          "line); 'serve': the build and the streaming "
                          "service's phase alone (no kernels line); 'lm': "
                          "the build and the LM phase alone (no kernels "
-                         "line)")
+                         "line); 'lm_moe': the build and the MLA and MoE "
+                         "phase alone (no kernels line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2444,13 +2535,14 @@ def main(argv=None) -> int:
         print(f"[done] the serve phase alone, {time.time() - t_start:.1f} s",
               flush=True)
         return 0
-    if args.phases == "lm":
-        got = lm_phase(dev, card)
-        (out_dir / "chip_smoke_lm.json").write_text(json.dumps(
+    if args.phases in ("lm", "lm_moe"):
+        got = (lm_phase if args.phases == "lm" else lm_moe_phase)(dev, card)
+        (out_dir / f"chip_smoke_{args.phases}.json").write_text(json.dumps(
             {"card": card, "torch": torch.__version__, **got,
              "wall_s": time.time() - t_start}, indent=1, default=str))
-        print(f"[done] the LM phase alone, {time.time() - t_start:.1f} s",
-              flush=True)
+        print(f"[done] the {args.phases} phase alone, "
+              f"{time.time() - t_start:.1f} s", flush=True)
+        print(gpu_line(), flush=True)
         return 0
     if args.phases == "exec":
         got = exec_phase(dev, card)
@@ -2604,6 +2696,9 @@ def main(argv=None) -> int:
     lm_got = lm_phase(dev, card)
     paths.update(lm_got["paths"])
     mark("lm phase done")
+    moe_got = lm_moe_phase(dev, card)
+    paths.update(moe_got["paths"])
+    mark("lm_moe phase done")
     path_specs = {"cm": MAIN_SPEC, "rfa": {**MAIN_SPEC, "aggregator": "rfa"},
                   "krum": {**MAIN_SPEC, "aggregator": "krum"},
                   "cm chaos": {**MAIN_SPEC, **CHAOS_SPEC},
@@ -2649,8 +2744,9 @@ def main(argv=None) -> int:
                 n_launch = launches(f"{name}/{load}{tag}")
                 if not n_launch:
                     continue
-                # the LM path's leaves are its rows too
+                # the LM paths' leaves are its rows too
                 lm_rows = (lm_got["kernel_rows"][1:]
+                           + moe_got["kernel_rows"]
                            if (name, load, tag) == ("robust_agg",
                                                     "dense_bf16", "")
                            else [])
@@ -2681,6 +2777,7 @@ def main(argv=None) -> int:
          "exec": {k: v for k, v in exec_got.items() if k != "paths"},
          "serve": {k: v for k, v in serve_got.items() if k != "paths"},
          "lm": {k: v for k, v in lm_got.items() if k != "paths"},
+         "lm_moe": {k: v for k, v in moe_got.items() if k != "paths"},
          "phase_marks_s": marks,
          "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))

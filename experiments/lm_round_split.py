@@ -1,14 +1,16 @@
 """Where a full-width LM round's time goes, on one CUDA card.
 
-    python3 experiments/lm_round_split.py
+    python3 experiments/lm_round_split.py [--cell lm|lm_moe]
 
 Runs ``chip_smoke.LM_SPEC`` (qwen3-1.7b at full width, bfloat16, 5
 workers x 4 x 128 tokens, MARINA + RandK 0.1 + ALIE + cm s = 2 on the
-kernels) through ``repro_torch.api.run`` for 3 rounds and profiles the
-second one with torch.profiler (CPU and CUDA activity): the round's host
-time, the device's busy time and idle share, the device ops, and the
-ops that take most device time and most host time. Prints a JSON line
-and writes it to ``chiprun_out/lm_round_split.json``.
+kernels), or with ``--cell lm_moe`` ``chip_smoke.LM_MOE_SPEC`` (the same
+on deepseek-v2-lite-16b cut to 3 layers), through
+``repro_torch.api.run`` for 3 rounds and profiles the second one with
+torch.profiler (CPU and CUDA activity): the round's host time, the
+device's busy time and idle share, the device ops, and the ops that take
+most device time and most host time. Prints a JSON line and writes it to
+``chiprun_out/<cell>_round_split.json``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,11 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cell", choices=("lm", "lm_moe"), default="lm")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("lm_round_split: no CUDA device", file=sys.stderr)
         return 2
@@ -39,6 +45,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     _build.build()
+    spec = chip_smoke.LM_SPEC
+    if args.cell == "lm_moe":
+        chip_smoke.register_moe_cut()
+        spec = chip_smoke.LM_MOE_SPEC
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     marks = {}
 
@@ -51,7 +61,7 @@ def main() -> int:
             prof.stop()
         return False
 
-    res = run(RunSpec(**{**chip_smoke.LM_SPEC, "steps": 3}), log_every=1,
+    res = run(RunSpec(**{**spec, "steps": 3}), log_every=1,
               callback=cb, callback_every=1)
     round_ms = (marks[1] - marks[0]) * 1e3
     dev = [e for e in prof.events()
@@ -66,7 +76,7 @@ def main() -> int:
                  "host_self_ms": r.self_cpu_time_total / 1e3}
                 for r in rows[:n]]
 
-    out = {"card": card, "torch": torch.__version__,
+    out = {"card": card, "torch": torch.__version__, "arch": spec["arch"],
            "c_k": [h["c_k"] for h in res.history],
            "profiled_round": 1, "round_ms": round_ms,
            "device_busy_ms": busy_ms, "device_ops": len(dev),
@@ -74,7 +84,7 @@ def main() -> int:
            "top_device": top("device_time_total"),
            "top_host": top("self_cpu_time_total")}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "lm_round_split.json").write_text(
+    (ROOT / "chiprun_out" / f"{args.cell}_round_split.json").write_text(
         json.dumps(out, indent=1))
     print(json.dumps(out))
     return 0

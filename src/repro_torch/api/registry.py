@@ -11,9 +11,9 @@ enumerate from one source of truth:
     check("aggregator", "krun")     -> ValueError: ... did you mean 'krum'?
 
 The names and descriptions are the reference's. ``arch`` lists all ten
-registered configs; ``check`` and ``resolve`` succeed for the dense
-attention decoders and raise ``NotImplementedError`` for the configs
-whose blocks are not ported yet, naming their ROADMAP item.
+registered configs; ``check`` and ``resolve`` succeed for the attention
+decoders (dense, MLA, MoE) and raise ``NotImplementedError`` for the
+configs whose blocks are not ported yet, naming their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -18,11 +18,7 @@ import torch.nn.functional as F
 from repro_torch import random as R
 from repro_torch.core import tree_utils as tu
 from repro_torch.core.attacks import fma_f32
-
-
-# XLA on the CPU rewrites a reduction over more rows than this into
-# windows of this many rows (its tree-reduction rewrite)
-XLA_REDUCE_WINDOW = 32
+from repro_torch.xla_math import XLA_REDUCE_WINDOW, xla_sum_lanes
 
 
 def xla_sum_rows(rows):
@@ -42,24 +38,6 @@ def xla_sum_rows(rows):
     cuts = ([0] + [XLA_REDUCE_WINDOW * j - lo for j in range(1, k)] + [m])
     return xla_sum_rows([xla_sum_rows(rows[a:b])
                          for a, b in zip(cuts, cuts[1:])])
-
-
-def xla_sum_lanes(x):
-    """Σ over the last axis of a float32 tensor in ``xla_sum_rows``'s
-    order (XLA on the CPU reduces a lane axis in the same windows of 32),
-    vectorized over the windows, so a leaf of millions of coordinates
-    sums in a few passes."""
-    width = x.shape[-1]
-    if width > XLA_REDUCE_WINDOW:
-        k = -(-width // XLA_REDUCE_WINDOW)
-        lo = (k * XLA_REDUCE_WINDOW - width) // 2
-        x = F.pad(x, (lo, k * XLA_REDUCE_WINDOW - width - lo))
-        x = xla_sum_lanes(x.reshape(x.shape[:-1] + (k, XLA_REDUCE_WINDOW)))
-        return xla_sum_lanes(x)
-    acc = x[..., 0]
-    for i in range(1, width):
-        acc = acc + x[..., i]
-    return acc
 
 
 def mean0(x, dim: int = 0):

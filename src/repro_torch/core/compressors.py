@@ -11,7 +11,7 @@ wire (``fallback_only``): their candidates reach the kernels dense.
 
 The float32 arithmetic is the reference's compiled code's: a sum over a
 leaf or a block follows XLA's windows of 32 lanes
-(``aggregators.xla_sum_lanes``), a division by a constant is a product
+(``xla_math.xla_sum_lanes``), a division by a constant is a product
 with its rounded reciprocal, the dithers' ``scaled·s + u`` is one fused
 multiply-add, and XLA's code runs with subnormals flushed to zero.
 """
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch import random as R
 from repro_torch import xla_math as X
-from repro_torch.core.aggregators import xla_sum_lanes
+from repro_torch.xla_math import xla_sum_lanes
 from repro_torch.core.attacks import fma_f32
 
 

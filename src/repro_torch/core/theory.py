@@ -201,7 +201,7 @@ def comm_bits_per_round(method: str, compressor, d: int, *,
 def _row_sq(features):
     """(m,) float32 ‖a_j‖²: the squares summed over each row's lanes in
     XLA's order."""
-    from repro_torch.core.aggregators import xla_sum_lanes
+    from repro_torch.xla_math import xla_sum_lanes
     x = torch.as_tensor(features).float()
     return xla_sum_lanes(x * x)
 
@@ -209,7 +209,7 @@ def _row_sq(features):
 def _mean(v):
     """float32 mean of a 1-D tensor as ``jnp.mean`` compiles it: the sum in
     XLA's lane order times the rounded 1/m."""
-    from repro_torch.core.aggregators import xla_sum_lanes
+    from repro_torch.xla_math import xla_sum_lanes
     rcp = torch.ones((), dtype=torch.float32) / v.shape[0]
     return xla_sum_lanes(v) * rcp.to(v.device)
 
@@ -230,6 +230,6 @@ def logreg_constants(features, lam: float, *, n_workers: int,
 def importance_weights(features, lam: float):
     """Example E.2 importance sampling, P(j) ∝ L_j = ‖a_j‖²/4 + 2λ, in
     float32. Returns (probs (m,), L̄)."""
-    from repro_torch.core.aggregators import xla_sum_lanes
+    from repro_torch.xla_math import xla_sum_lanes
     L_j = _row_sq(features) / 4 + 2 * lam
     return L_j / xla_sum_lanes(L_j), float(_mean(L_j))

@@ -149,7 +149,7 @@ class _XlaLogisticCE(torch.autograd.Function):
 
     @staticmethod
     def forward(x, w, b, y):
-        from repro_torch.core.aggregators import xla_sum_lanes
+        from repro_torch.xla_math import xla_sum_lanes
         logits = (x @ w[..., :, None])[..., 0] + b[..., None]
         sp = xla_softplus(logits)
         ce = xla_sum_lanes(sp - y * logits) * (1.0 / y.shape[-1])
@@ -180,7 +180,7 @@ class _XlaLogisticGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(x, y, logits, sp, g):
-        from repro_torch.core.aggregators import xla_sum_lanes
+        from repro_torch.xla_math import xla_sum_lanes
         g_logits = xla_softplus_cotangent(
             logits, sp, y, (g * (1.0 / y.shape[-1]))[..., None])
         return (g_logits[..., None, :] @ x)[..., 0, :], xla_sum_lanes(g_logits)
@@ -210,7 +210,7 @@ def logreg_loss(lam: float = 0.01, nonconvex: bool = False):
         w = params["w"]
         y = batch["y"]
         if w.device.type == "cpu" and "w" not in batch:
-            from repro_torch.core.aggregators import xla_sum_lanes
+            from repro_torch.xla_math import xla_sum_lanes
             ce = _XlaLogisticCE.apply(batch["x"], w, params["b"], y)[0]
             sq = w * w
             if nonconvex:

@@ -58,10 +58,10 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregators import (MAX_FUSED_WORKERS,
-                                          XLA_REDUCE_WINDOW, weighted_rows,
+from repro_torch.core.aggregators import (MAX_FUSED_WORKERS, weighted_rows,
                                           xla_sum_rows)
 from repro_torch.kernels import _build, _launch, quantize
+from repro_torch.xla_math import XLA_REDUCE_WINDOW
 
 DEFAULT_TILE_D = 2048     # the reference's column tile
 DEFAULT_TILE_N = 64       # worker tile of the blocked weighted sum

@@ -1,7 +1,8 @@
-"""Model building blocks of the dense decoders: init helpers, RMSNorm,
-RoPE / M-RoPE, GQA causal attention (optionally sliding-window) with its
-query-chunked and online-softmax forms, and the gated MLP (port of the
-dense part of ``repro/models/layers.py``).
+"""Model building blocks of the attention decoders: init helpers,
+RMSNorm, RoPE / M-RoPE, GQA causal attention (optionally sliding-window)
+with its query-chunked and online-softmax forms, multi-head latent
+attention (MLA), the gated MLP and the sort-based MoE FFN (port of the
+attention and FFN parts of ``repro/models/layers.py``).
 
 Everything is a plain function of a flat ``dict[str, Tensor]``. The
 operations are the reference's, in its order and dtypes: projections in
@@ -9,8 +10,8 @@ the parameters' dtype, attention scores and softmax in float32, norms in
 float32 and cast back. Initializers draw with ``repro_torch.random``,
 so a leaf equals the reference's bit for bit.
 
-MLA, MoE, the Mamba2 SSD and RG-LRU blocks and the decode caches are not
-ported yet (``models.transformer`` names their ROADMAP items).
+The Mamba2 SSD and RG-LRU blocks and the decode caches are not ported
+yet (``models.transformer`` names their ROADMAP items).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as R
+from repro_torch import xla_math as X
 
 # the query-chunk length of ``attention`` (the reference's module cell)
 Q_CHUNK = [1024]
@@ -32,6 +34,13 @@ ATTN_IMPL = ["chunked"]
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
+
+def subtree(params: dict, prefix: str) -> dict:
+    """The leaves of a flat dict under ``prefix`` ("mixer/", "shared/"),
+    the prefix stripped."""
+    return {k[len(prefix):]: v for k, v in params.items()
+            if k.startswith(prefix)}
+
 
 def _dense_init(key, shape, dtype, scale=None):
     """normal · 1/sqrt(fan_in), rounded once to ``dtype``; the normal and
@@ -218,6 +227,60 @@ def attention(params, cfg, x, positions, *, window=None, q_chunk=None):
 
 
 # ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2, arXiv:2405.04434)
+# ---------------------------------------------------------------------------
+
+def mla_shapes(cfg) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, r, rd = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
+    return {"wq": (d, nq * (hd + rd)), "w_dkv": (d, r), "w_uk": (r, nq * hd),
+            "w_uv": (r, nq * hd), "w_kr": (d, rd), "wo": (nq * hd, d),
+            "kv_norm": (r,)}
+
+
+def init_mla(key, cfg) -> dict:
+    """The key split 7 ways, the first six drawn in the reference's order
+    (query, KV down, K up, V up, shared RoPE key, output); ``kv_norm``
+    zeros."""
+    ks = R.split(key, 7)
+    shapes = mla_shapes(cfg)
+    p = {name: _dense_init(ks[i], shapes[name], cfg.torch_dtype)
+         for i, name in enumerate(("wq", "w_dkv", "w_uk", "w_uv", "w_kr",
+                                   "wo"))}
+    p["kv_norm"] = torch.zeros(shapes["kv_norm"], dtype=cfg.torch_dtype,
+                               device=key.device)
+    return p
+
+
+def mla_attention(params, cfg, x, positions, *, q_chunk=1024):
+    """Train / prefill MLA: per-head K and V materialized from the normed
+    latent; one RoPE'd key head shared by every head. q and k carry
+    hd + rd dims (the softmax scale 1/sqrt(hd + rd)), v hd. Like the
+    reference it ignores ``q_chunk`` and attends in one piece."""
+    b, s, _ = x.shape
+    hd, nq = cfg.resolved_head_dim, cfg.num_heads
+    rd = cfg.qk_rope_dim
+    q = torch.einsum("bsd,de->bse", x, params["wq"]).reshape(b, s, nq,
+                                                            hd + rd)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    c_kv = rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dkv"]),
+                    params["kv_norm"], cfg.norm_eps)
+    k_nope = torch.einsum("bsr,re->bse", c_kv,
+                          params["w_uk"]).reshape(b, s, nq, hd)
+    v = torch.einsum("bsr,re->bse", c_kv, params["w_uv"]).reshape(b, s, nq,
+                                                                  hd)
+    k_rope = torch.einsum("bsd,dr->bsr", x, params["w_kr"])[:, :, None, :]
+    pos = positions if positions.dim() == 2 else positions[..., 0]
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    k_rope = apply_rope(k_rope, pos, cfg.rope_theta)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, s, nq, rd)], dim=-1)
+    out = _attend(qf, kf, v, pos, pos)
+    return torch.einsum("bse,ed->bsd", out.reshape(b, s, nq * hd),
+                        params["wo"])
+
+
+# ---------------------------------------------------------------------------
 # gated MLP
 # ---------------------------------------------------------------------------
 
@@ -237,3 +300,134 @@ def mlp(params, x):
     h = F.silu(torch.einsum("...d,df->...f", x, params["w1"]))
     h = h * torch.einsum("...d,df->...f", x, params["w3"])
     return torch.einsum("...f,fd->...d", h, params["w2"])
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN (sort-based, capacity-constrained dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_shapes(cfg) -> dict:
+    m, d = cfg.moe, cfg.d_model
+    de = m.d_expert or cfg.d_ff
+    shapes = {"router": (d, m.num_experts), "w1": (m.num_experts, d, de),
+              "w3": (m.num_experts, d, de), "w2": (m.num_experts, de, d)}
+    if m.num_shared:
+        shapes.update({f"shared/{k}": s for k, s in
+                       mlp_shapes(cfg, de * m.num_shared).items()})
+    return shapes
+
+
+def init_moe(key, cfg) -> dict:
+    """Router and the (E, ·, ·) expert stacks from a 5-way split, the
+    shared experts one gated MLP of width d_e · num_shared from the fifth
+    key. ``_dense_init`` takes fan_in = shape[0], which is E for the
+    stacks, as in the reference."""
+    m = cfg.moe
+    ks = R.split(key, 5)
+    shapes = moe_shapes(cfg)
+    p = {name: _dense_init(ks[i], shapes[name], cfg.torch_dtype)
+         for i, name in enumerate(("router", "w1", "w3", "w2"))}
+    if m.num_shared:
+        de = m.d_expert or cfg.d_ff
+        p.update({f"shared/{k}": v for k, v in
+                  init_mlp(ks[4], cfg, d_ff=de * m.num_shared).items()})
+    return p
+
+
+class _RouterSoftmax(torch.autograd.Function):
+    """float32 softmax over the last axis whose values are those of the
+    reference's compiled ``jax.nn.softmax`` (XLA's exp of x − max, the
+    lane sum in XLA's order, a true division), so that the routing and
+    its ties are the reference's; its gradient is the softmax's,
+    p · (g − Σ g·p). Under ``torch.func.vmap`` the forward runs on the
+    whole batch at once: ``xla_math``'s bit manipulations have no
+    batching rule in every PyTorch release."""
+
+    @staticmethod
+    def forward(logits):
+        ex = X.exp(logits - logits.amax(dim=-1, keepdim=True))
+        return ex / X.xla_sum_lanes(ex)[..., None]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, = ctx.saved_tensors
+        return p * (g - (g * p).sum(dim=-1, keepdim=True))
+
+    @staticmethod
+    def vmap(info, in_dims, logits):
+        if in_dims[0] is None:
+            return _RouterSoftmax.forward(logits), None
+        return _RouterSoftmax.forward(logits.movedim(in_dims[0], 0)), 0
+
+
+def moe_route(logits, k: int, cap: int) -> dict:
+    """The reference's routing of t tokens to k of e experts from float32
+    logits (t, e): the top k probabilities by a stable descending sort
+    (``lax.top_k``'s order: the lower index first among equal values),
+    the gates renormalized, the (token, expert) assignments stably sorted
+    by expert, each one's rank within its expert, and its slot
+    ``expert · cap + rank`` where the rank is under ``cap``, else the
+    overflow slot e · cap. Counts are a scatter-add into zeros (it has a
+    batching rule under ``torch.func.vmap``; ``bincount`` has none).
+    -> {probs, gate, idx, counts, se, st, sg, keep, dest}."""
+    t, e = logits.shape
+    dev = logits.device
+    probs = _RouterSoftmax.apply(logits)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = vals[:, :k], order[:, :k]
+    gate = gate / torch.clamp(X.xla_sum_lanes(gate), min=1e-9)[:, None]
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    by_expert = torch.argsort(flat_e, stable=True)
+    se, st = flat_e[by_expert], flat_t[by_expert]
+    sg = gate.reshape(-1)[by_expert]
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add(
+        0, se, torch.ones_like(se))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(t * k, device=dev) - starts[se]
+    keep = rank < cap
+    dest = torch.where(keep, se * cap + rank, e * cap)
+    return {"probs": probs, "gate": gate, "idx": idx, "counts": counts,
+            "se": se, "st": st, "sg": sg, "keep": keep, "dest": dest}
+
+
+def moe_ffn(params, cfg, x):
+    """Sort-based capacity-constrained MoE: x (B, S, d) -> (y, aux), aux
+    the Switch load-balance loss E · Σ_e f_e · P_e times the aux weight.
+    Each token's row goes to its slot of an (E · cap + 1, d) buffer (the
+    last row takes every dropped assignment and is cut off before the
+    experts, so it gets no gradient), the experts run as one batched
+    product per matrix, and each kept assignment's output, times its
+    gate, is added back to its token. The buffer and the combine are
+    ``index_put`` into fresh zeros; the combine and the backward of the
+    gathers accumulate in index order, so a round repeats on the card."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = m.num_experts, m.top_k
+    xf = x.reshape(t, d)
+    logits = torch.einsum("td,de->te", xf, params["router"]).float()
+    cap = int(m.capacity_factor * t * k / e) + 1
+    r = moe_route(logits, k, cap)
+    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype,
+                      device=xf.device).index_put((r["dest"],), xf[r["st"]])
+    ex_in = buf[:-1].reshape(e, cap, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", ex_in, params["w1"]))
+    h = h * torch.einsum("ecd,edf->ecf", ex_in, params["w3"])
+    ex_out = torch.einsum("ecf,efd->ecd", h, params["w2"])
+    picked = ex_out.reshape(e * cap, d)[torch.clamp(r["dest"],
+                                                    max=e * cap - 1)]
+    picked = picked * (r["keep"] * r["sg"])[:, None].to(picked.dtype)
+    yf = torch.zeros((t, d), dtype=xf.dtype, device=xf.device).index_put(
+        (r["st"],), picked, accumulate=True)
+    y = yf.reshape(b, s, d)
+    if m.num_shared:
+        y = y + mlp(subtree(params, "shared/"), x)
+    frac = r["counts"].float() / (t * k)
+    pmean = r["probs"].mean(dim=0)
+    aux = e * torch.sum(frac * pmean) * m.router_aux_weight
+    return y, aux

@@ -97,7 +97,8 @@ def _positions(cfg, batch, total_len, device):
 # ---------------------------------------------------------------------------
 
 def hidden(params, cfg, batch, *, remat: bool = False):
-    """Final hidden states on the text positions: (B, S_text, d)."""
+    """Final hidden states on the text positions, (B, S_text, d), and the
+    float32 auxiliary loss."""
     x = _embed(params, cfg, batch["tokens"])
     n_front = 0
     if cfg.frontend_tokens and "frontend" in batch:
@@ -105,18 +106,18 @@ def hidden(params, cfg, batch, *, remat: bool = False):
         n_front = fe.shape[1]
         x = torch.cat([fe, x], dim=1)
     positions = _positions(cfg, batch, x.shape[1], x.device)
-    x = T.apply_stack(params, cfg, x, positions, remat=remat)
+    x, aux = T.apply_stack(params, cfg, x, positions, remat=remat)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_front:
         x = x[:, n_front:, :]
-    return x
+    return x, aux
 
 
 def forward(params, cfg, batch, *, remat: bool = False):
-    """Logits on the text positions, and the auxiliary loss (0 for the
-    dense decoders)."""
-    x = hidden(params, cfg, batch, remat=remat)
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+    """Logits on the text positions, and the auxiliary loss (the MoE
+    layers' load-balance loss; 0 for the dense decoders)."""
+    x, aux = hidden(params, cfg, batch, remat=remat)
+    return _logits(params, cfg, x), aux
 
 
 def _chunk_nll(params, cfg, xc, labels_c):
@@ -136,8 +137,8 @@ def loss_fn(params, cfg, batch, *, remat: bool = False,
     add in chunk order, as the reference's scan adds them. The reference
     rematerializes each chunk in the backward pass; torch.func's grad
     refuses checkpoint hooks, so here each chunk's logits stay alive
-    until the backward pass."""
-    x = hidden(params, cfg, batch, remat=remat)
+    until the backward pass. The auxiliary loss is added in float32."""
+    x, aux = hidden(params, cfg, batch, remat=remat)
     labels = batch["labels"]
     s = x.shape[1]
     if s <= xent_chunk or s % xent_chunk:
@@ -149,7 +150,7 @@ def loss_fn(params, cfg, batch, *, remat: bool = False,
             n, m = _chunk_nll(params, cfg, x[:, c:c + xent_chunk],
                               labels[:, c:c + xent_chunk])
             nll, msk = nll + n, msk + m
-    return nll / torch.clamp(msk, min=1.0)
+    return nll / torch.clamp(msk, min=1.0) + aux.float()
 
 
 def model_logits_last(params, cfg, x):

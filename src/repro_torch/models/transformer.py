@@ -8,9 +8,11 @@ aggregation kernels see (28 × 2048 × 2048 for qwen3-1.7b's ``wq``) are
 the reference's, and the sorted keys walk the tree in
 ``jax.tree.flatten``'s order.
 
-This slice builds the attention blocks (``ATTN``, ``SWA``) with dense
-gated MLPs. MLA and MoE (ROADMAP queue 1, item 14) and the Mamba2 SSD
-and RG-LRU blocks (item 15) raise ``NotImplementedError``.
+The port builds the attention blocks (``ATTN``, ``SWA``, ``MLA``) with
+dense gated MLPs or the MoE FFN, whose load-balance loss the stack
+carries in float32 through the layers, as the reference's scan does. The
+Mamba2 SSD and RG-LRU blocks (ROADMAP queue 1, item 15) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,25 +24,20 @@ from repro_torch import random as R
 from repro_torch.configs.base import ATTN, MAMBA2, MLA, RGLRU, SWA
 from repro_torch.models import layers as L
 
-_ITEM = {MLA: 14, RGLRU: 15, MAMBA2: 15}
-_NAMES = {MLA: "MLA attention", RGLRU: "the RG-LRU block",
-          MAMBA2: "the Mamba2 SSD block"}
+_ITEM = {RGLRU: 15, MAMBA2: 15}
+_NAMES = {RGLRU: "the RG-LRU block", MAMBA2: "the Mamba2 SSD block"}
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for the block kinds and FFNs this
-    slice does not build."""
+    """Raise ``NotImplementedError`` for the block kinds the port does not
+    build yet."""
     for kind in dict.fromkeys(cfg.block_pattern):
         if kind in _ITEM:
             raise NotImplementedError(
                 f"{cfg.name}: {_NAMES[kind]} is not ported yet (ROADMAP "
                 f"queue 1, item {_ITEM[kind]})")
-        if kind not in (ATTN, SWA):
+        if kind not in (ATTN, SWA, MLA):
             raise ValueError(kind)
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP queue 1, "
-            "item 14)")
 
 
 # ---------------------------------------------------------------------------
@@ -49,16 +46,12 @@ def check_supported(cfg) -> None:
 
 def _mixer_shapes(cfg, kind: str) -> dict:
     """The mixer's leaf shapes for every block kind of the reference,
-    the kinds this slice does not build included (shapes are data)."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    nq = cfg.num_heads
+    the kinds the port does not build included (shapes are data)."""
+    d = cfg.d_model
     if kind in (ATTN, SWA):
         return L.attention_shapes(cfg)
     if kind == MLA:
-        r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
-        return {"wq": (d, nq * (hd + rd)), "w_dkv": (d, r),
-                "w_uk": (r, nq * hd), "w_uv": (r, nq * hd), "w_kr": (d, rd),
-                "wo": (nq * hd, d), "kv_norm": (r,)}
+        return L.mla_shapes(cfg)
     if kind == RGLRU:
         w = cfg.rglru_width or d
         return {"w_gate_branch": (d, w), "w_rec_branch": (d, w),
@@ -75,16 +68,7 @@ def _mixer_shapes(cfg, kind: str) -> dict:
 
 
 def _ffn_shapes(cfg) -> dict:
-    if cfg.moe is None:
-        return L.mlp_shapes(cfg)
-    m, d = cfg.moe, cfg.d_model
-    de = m.d_expert or cfg.d_ff
-    shapes = {"router": (d, m.num_experts), "w1": (m.num_experts, d, de),
-              "w3": (m.num_experts, d, de), "w2": (m.num_experts, de, d)}
-    if m.num_shared:
-        shapes.update({f"shared/{k}": s for k, s in
-                       L.mlp_shapes(cfg, de * m.num_shared).items()})
-    return shapes
+    return L.mlp_shapes(cfg) if cfg.moe is None else L.moe_shapes(cfg)
 
 
 def block_shapes(cfg, kind: str) -> dict:
@@ -99,29 +83,34 @@ def block_shapes(cfg, kind: str) -> dict:
 
 
 def _init_block(key, cfg, kind: str) -> dict:
+    """The mixer from the first of three keys, the FFN from the second."""
     check_supported(cfg)
     k1, k2, _ = R.split(key, 3)
     d = cfg.d_model
     p = {"norm1": torch.zeros((d,), dtype=cfg.torch_dtype, device=key.device),
          "norm2": torch.zeros((d,), dtype=cfg.torch_dtype, device=key.device)}
-    p.update({f"mixer/{k}": v for k, v in L.init_attention(k1, cfg).items()})
-    p.update({f"ffn/{k}": v for k, v in L.init_mlp(k2, cfg).items()})
+    mixer = L.init_mla(k1, cfg) if kind == MLA else L.init_attention(k1, cfg)
+    ffn = L.init_mlp(k2, cfg) if cfg.moe is None else L.init_moe(k2, cfg)
+    p.update({f"mixer/{k}": v for k, v in mixer.items()})
+    p.update({f"ffn/{k}": v for k, v in ffn.items()})
     return p
 
 
-def _sub(params: dict, prefix: str) -> dict:
-    """The leaves under ``prefix`` ("mixer/", "ffn/"), prefix stripped."""
-    return {k[len(prefix):]: v for k, v in params.items()
-            if k.startswith(prefix)}
-
-
-def _apply_block(params: dict, cfg, kind: str, x, positions):
+def _apply_block(params: dict, cfg, kind: str, x, positions, aux):
+    """One block -> (x, aux), the MoE FFN's load-balance loss added to
+    ``aux``."""
     h = L.rms_norm(x, params["norm1"], cfg.norm_eps)
-    window = cfg.sliding_window if kind == SWA else None
-    x = x + L.attention(_sub(params, "mixer/"), cfg, h, positions,
-                        window=window)
+    mixer = L.subtree(params, "mixer/")
+    if kind == MLA:
+        x = x + L.mla_attention(mixer, cfg, h, positions)
+    else:
+        window = cfg.sliding_window if kind == SWA else None
+        x = x + L.attention(mixer, cfg, h, positions, window=window)
     h = L.rms_norm(x, params["norm2"], cfg.norm_eps)
-    return x + L.mlp(_sub(params, "ffn/"), h)
+    if cfg.moe is None:
+        return x + L.mlp(L.subtree(params, "ffn/"), h), aux
+    y, a = L.moe_ffn(L.subtree(params, "ffn/"), cfg, h)
+    return x + y, aux + a
 
 
 # ---------------------------------------------------------------------------
@@ -176,25 +165,28 @@ def init_stack(key, cfg) -> dict:
 
 
 def apply_stack(params: dict, cfg, x, positions, *, remat: bool = False):
-    """Every group's blocks in depth order, then the tail. Each stacked
-    leaf is unbound once, so its gradient is one stack of the layers'
-    gradients."""
+    """Every group's blocks in depth order, then the tail -> (x, aux),
+    aux the float32 sum of the MoE layers' load-balance losses in layer
+    order (a zero without MoE). Each stacked leaf is unbound once, so its
+    gradient is one stack of the layers' gradients."""
     if remat:
         raise NotImplementedError(
             "remat=True: torch.utils.checkpoint does not run under "
             "torch.func's grad and vmap (they refuse saved-tensor hooks), "
             "and the round engine differentiates through them")
     pat, n_groups, tail = _split_depth(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if n_groups > 0:
         per_pos = []
         for j in range(len(pat)):
-            sub = _sub(params, f"groups/{j}/")
+            sub = L.subtree(params, f"groups/{j}/")
             rows = {k: v.unbind(0) for k, v in sub.items()}
             per_pos.append(rows)
         for r in range(n_groups):
             for j, kind in enumerate(pat):
                 block = {k: v[r] for k, v in per_pos[j].items()}
-                x = _apply_block(block, cfg, kind, x, positions)
+                x, aux = _apply_block(block, cfg, kind, x, positions, aux)
     for i, kind in enumerate(tail):
-        x = _apply_block(_sub(params, f"tail/{i}/"), cfg, kind, x, positions)
-    return x
+        x, aux = _apply_block(L.subtree(params, f"tail/{i}/"), cfg, kind, x,
+                              positions, aux)
+    return x, aux

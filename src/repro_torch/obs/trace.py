@@ -137,7 +137,7 @@ def _build_trace(cfg, agg_key, sent, agg, *, info, valid=None,
     ``weights`` (the service's staleness scale) scale the rows the rule
     saw and the influence; ``byz_mask`` is the ground truth where given.
     """
-    from repro_torch.core.aggregators import xla_sum_lanes
+    from repro_torch.xla_math import xla_sum_lanes
     from repro_torch.faults.guard import masked_bucket_matrix
     from repro_torch.kernels.norm_agg import bucket_matrix
     agg_obj = cfg.aggregator

@@ -13,15 +13,23 @@ every other product and sum is rounded on its own, and a subnormal
 result is flushed to zero as XLA's code flushes it. Where libm and XLA
 disagree by an ulp (about 1 input in 7 for ``log``, 1 in 12 for
 ``log1p``), these agree with XLA, so the port's normals and logistic
-gradients equal the reference's bit for bit.
+gradients equal the reference's bit for bit. ``xla_sum_lanes`` sums a
+lane axis in the order XLA's CPU reductions take.
 """
 from __future__ import annotations
 
 import struct
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.attacks import fma_f32
+
+# XLA on the CPU rewrites a reduction over more rows than this into
+# windows of this many rows (its tree-reduction rewrite)
+XLA_REDUCE_WINDOW = 32
+
+
 
 
 def _f32(bits64: int) -> float:
@@ -133,3 +141,22 @@ def sqrt(x):
     kernel is not correctly rounded for every input, a float64 root
     rounded to float32 is."""
     return x.double().sqrt().float()
+
+
+def xla_sum_lanes(x):
+    """Σ over the last axis of a float32 tensor in the order of
+    ``core.aggregators.xla_sum_rows`` (XLA on the CPU reduces a lane axis
+    in the same windows of XLA_REDUCE_WINDOW),
+    vectorized over the windows, so a leaf of millions of coordinates
+    sums in a few passes."""
+    width = x.shape[-1]
+    if width > XLA_REDUCE_WINDOW:
+        k = -(-width // XLA_REDUCE_WINDOW)
+        lo = (k * XLA_REDUCE_WINDOW - width) // 2
+        x = F.pad(x, (lo, k * XLA_REDUCE_WINDOW - width - lo))
+        x = xla_sum_lanes(x.reshape(x.shape[:-1] + (k, XLA_REDUCE_WINDOW)))
+        return xla_sum_lanes(x)
+    acc = x[..., 0]
+    for i in range(1, width):
+        acc = acc + x[..., i]
+    return acc

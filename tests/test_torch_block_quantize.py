@@ -25,6 +25,10 @@ from repro.kernels import ref as jref
 from repro_torch.convert import key_from_numpy
 from repro_torch.kernels import ops, quantize, ref
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 
 def _inputs(d, seed):
     rng = np.random.default_rng(seed)

@@ -42,6 +42,10 @@ from repro_torch.core import wire as twire
 from repro_torch.core.attacks import CoordAttack
 from repro_torch.kernels import norm_agg
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 SUM_REL = 1e-5         # sums over d, in another order
 AGG_TOL = 2e-5         # the reference's pallas≡gspmd tolerance
 ALIE_Z = 1.06

@@ -19,6 +19,10 @@ from repro_torch.api import RunSpec, build
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.convert import state_from_numpy
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 SPEC = dict(n_workers=5, n_byz=1, attack="ALIE", aggregator="cm",
             bucket_size=2, compressor="randk",
             compressor_kwargs={"ratio": 0.5}, p=0.3, lr=0.25, steps=4, seed=3,

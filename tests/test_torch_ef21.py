@@ -13,6 +13,7 @@ communication count agree exactly.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.api import RunSpec as JaxRunSpec
 from repro.api import run as jax_run
@@ -25,6 +26,10 @@ from repro_torch.core import compressors
 from repro_torch.core.estimators import get_estimator
 from repro_torch.kernels import norm_agg, quantize
 from repro_torch.kernels.robust_agg import robust_agg
+
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
 
 TRAJ_TOL = 2e-5
 STEPS = 8

@@ -48,6 +48,10 @@ from repro_torch.core.engine import list_methods, make_method
 from repro_torch.data import (corrupt_labels_logreg, init_logreg_params,
                               logreg_loss, make_logreg_data)
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 KEY = R.PRNGKey(11)
 DIM = 8
 N = 5

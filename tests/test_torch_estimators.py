@@ -22,6 +22,10 @@ from repro_torch.api.runner import build
 from repro_torch.convert import key_from_numpy, state_from_numpy, tree_from_numpy
 from repro_torch.core.estimators import saga_indices
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TRAJ_TOL = 2e-5
 STEPS = 5
 METHODS = ("sgd", "sgdm", "csgd", "diana", "mvr", "svrg", "cmfilter", "saga")

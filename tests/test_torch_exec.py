@@ -16,6 +16,10 @@ from repro_torch import exec as xc
 from repro_torch.api import RunSpec, Sweep, registry, resolve_agg_mode, run
 from repro_torch.exec import scheduler
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TRAJ_TOL = 2e-5
 STEPS = 6
 BASE = dict(task="logreg", method="marina", n_workers=5, n_byz=1, p=0.3,

@@ -8,12 +8,17 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro.launch import sweep as jax_sweep_cli
 from repro_torch import exec as xc
 from repro_torch.api import RunSpec, Sweep, run
 from repro_torch.faults import as_plan
 from repro_torch.launch import sweep as sweep_cli
+
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 BASE_KW = dict(task="logreg", method="marina", n_workers=5, n_byz=1, p=0.3,

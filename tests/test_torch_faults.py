@@ -32,6 +32,10 @@ from repro_torch.core import wire as twire
 from repro_torch.faults import guard, inject
 from repro_torch.faults.plan import FaultPlan, FaultSpec, as_plan
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TRAJ_TOL = 2e-5
 PLANS = [
     {"seed": 7, "faults": [{"kind": "nan_grad", "prob": 0.5,

@@ -37,6 +37,10 @@ from repro_torch.convert import tree_from_numpy
 from repro_torch.data import TokenStream, corrupt_labels_lm
 from repro_torch.models import init_params, layers, loss_fn, param_shapes
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 DENSE = ("qwen3-1.7b", "starcoder2-3b", "llama3-405b", "mistral-large-123b",
          "qwen2-vl-2b", "musicgen-medium")
 # the loss's code paths: qk-norm, GQA without it (llama3-405b and
@@ -155,13 +159,32 @@ def _one_worker_batch(cfg, seq_len=16):
     return batch, tree_from_numpy(jax.device_get(batch))
 
 
-def _value_and_grad(jcfg, cfg, xent_chunk=1024, seq_len=16):
-    jparams = jax_init(jax.random.PRNGKey(1), jcfg)
+@pytest.fixture(scope="module")
+def loss_inits():
+    """The float32 reduced init of a config from key 1 in both packages,
+    drawn once for the module's loss cases (the reference eagerly, as its
+    runner draws). A bfloat16 init is this one rounded to bfloat16: both
+    packages draw in float32 and round once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = (
+                jax_init(jax.random.PRNGKey(1),
+                         jax_get_config(name).reduced()),
+                init_params(R.PRNGKey(1), get_config(name).reduced()))
+        return cache[name]
+    return get
+
+
+def _value_and_grad(inits, jcfg, cfg, xent_chunk=1024, seq_len=16):
+    jparams, tparams = inits
+    jparams = jax.tree.map(lambda a: a.astype(jcfg.jnp_dtype), jparams)
     jbatch, batch = _one_worker_batch(cfg, seq_len)
     jl, jg = jax.jit(jax.value_and_grad(
         lambda p: jax_loss(p, jcfg, jbatch, xent_chunk=xent_chunk)))(jparams)
-    params = {k: v.requires_grad_(True) for k, v in
-              init_params(R.PRNGKey(1), cfg).items()}
+    params = {k: v.to(cfg.torch_dtype).requires_grad_(True)
+              for k, v in tparams.items()}
     loss = loss_fn(params, cfg, batch, xent_chunk=xent_chunk)
     grads = torch.autograd.grad(loss, [params[k] for k in sorted(params)])
     return (float(jl), _jax_flat(jg)), (float(loss.detach()),
@@ -179,9 +202,10 @@ def _close(ref, got, loss_tol, grad_tol):
 
 
 @pytest.mark.parametrize("name", LOSS_CONFIGS)
-def test_loss_and_grads(name):
+def test_loss_and_grads(name, loss_inits):
     jcfg, cfg = jax_get_config(name).reduced(), get_config(name).reduced()
-    _close(*_value_and_grad(jcfg, cfg), LOSS_TOL, GRAD_TOL)
+    _close(*_value_and_grad(loss_inits(name), jcfg, cfg), LOSS_TOL,
+           GRAD_TOL)
 
 
 @pytest.fixture
@@ -200,7 +224,7 @@ def attention_form():
 
 
 @pytest.mark.parametrize("form", ["chunked", "online"])
-def test_loss_and_grads_other_forms(form, attention_form):
+def test_loss_and_grads_other_forms(form, attention_form, loss_inits):
     """The query-chunked attention and the sequence-chunked cross entropy
     (two chunks each) on qwen3-1.7b; the online softmax on qwen2-vl-2b,
     whose 4 frontend rows precede the text."""
@@ -211,15 +235,17 @@ def test_loss_and_grads_other_forms(form, attention_form):
     else:
         attention_form(impl="online")
     kw = {"xent_chunk": 8} if form == "chunked" else {}
-    _close(*_value_and_grad(jcfg, cfg, **kw), LOSS_TOL, GRAD_TOL)
+    _close(*_value_and_grad(loss_inits(name), jcfg, cfg, **kw), LOSS_TOL,
+           GRAD_TOL)
 
 
-def test_loss_and_grads_bf16():
+def test_loss_and_grads_bf16(loss_inits):
     jcfg = dataclasses.replace(jax_get_config("qwen3-1.7b").reduced(),
                                dtype="bfloat16")
     cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
                               dtype="bfloat16")
-    _close(*_value_and_grad(jcfg, cfg), BF16_LOSS_TOL, BF16_GRAD_TOL)
+    _close(*_value_and_grad(loss_inits("qwen3-1.7b"), jcfg, cfg),
+           BF16_LOSS_TOL, BF16_GRAD_TOL)
 
 
 def test_online_softmax_guards_rows_with_every_key_masked():
@@ -240,9 +266,7 @@ def test_online_softmax_guards_rows_with_every_key_masked():
 
 
 def test_unported_blocks_raise_with_their_item():
-    for name, item in (("phi3.5-moe-42b-a6.6b", 14),
-                       ("deepseek-v2-lite-16b", 14), ("mamba2-130m", 15),
-                       ("recurrentgemma-2b", 15)):
+    for name, item in (("mamba2-130m", 15), ("recurrentgemma-2b", 15)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1, item {item}"):
             init_params(R.PRNGKey(0), get_config(name).reduced())

@@ -46,6 +46,10 @@ from repro_torch.launch import train
 from repro_torch.models import init_params
 from repro_torch.optim import get_optimizer
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TRAJ_TOL = 2e-5
 ADAM_TOL = 0.1
 ADAM_MOMENT_TOL = 2e-4

@@ -21,6 +21,10 @@ from repro_torch.convert import key_from_numpy, state_from_numpy, tree_from_nump
 from repro_torch.core.theory import delta_over_active_set
 from repro_torch.kernels import norm_agg
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TRAJ_TOL = 2e-5
 SPEC = dict(agg_mode="pallas", compressor="randk",
             compressor_kwargs={"ratio": 0.1}, p=0.3, steps=12,
@@ -198,33 +202,35 @@ def test_spec_json_is_shared():
 # (tests/test_torch_obs.py), and so are the dense decoders' LM task and
 # the optimizers (tests/test_torch_lm_model.py, test_torch_lm_train.py);
 # the cases that named them now name what is still unported: the LM task
-# on the MoE, MLA + MoE, state-space and recurrent configs, and the
-# all_to_all backend on either task; and, through the registry,
-# resolving those four archs
-_UNPORTED_ARCHS = {"phi3.5-moe-42b-a6.6b": 14, "deepseek-v2-lite-16b": 14,
-                   "mamba2-130m": 15, "recurrentgemma-2b": 15}
+# on the state-space and recurrent configs, and the all_to_all backend on
+# either task; and, through the registry's resolve and check, those two
+# archs. The MoE configs (deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b) are
+# ported too (tests/test_torch_lm_moe.py, test_torch_lm_moe_train.py):
+# their cases now take the all_to_all backend
+_UNPORTED_ARCHS = {"mamba2-130m": 15, "recurrentgemma-2b": 15}
 
 
 @pytest.mark.parametrize("override", [
-    {"task": "lm", "arch": "phi3.5-moe-42b-a6.6b"},
-    {"task": "lm", "arch": "deepseek-v2-lite-16b"},
+    {"task": "lm", "arch": "phi3.5-moe-42b-a6.6b", "agg_mode": "all_to_all"},
+    {"task": "lm", "arch": "deepseek-v2-lite-16b", "agg_mode": "all_to_all"},
     {"task": "lm", "arch": "mamba2-130m"},
     {"task": "lm", "arch": "recurrentgemma-2b"},
     {"agg_mode": "all_to_all"},
     {"task": "lm", "arch": "qwen3-1.7b", "agg_mode": "all_to_all"},
     {"task": "lm", "arch": "qwen2-vl-2b", "agg_mode": "all_to_all"},
     {"task": "lm", "arch": "musicgen-medium", "agg_mode": "all_to_all"},
-    ("arch", "phi3.5-moe-42b-a6.6b"),
-    ("arch", "deepseek-v2-lite-16b"),
-    ("arch", "mamba2-130m"),
-    ("arch", "recurrentgemma-2b"),
+    ("check", "arch", "mamba2-130m"),
+    ("check", "arch", "recurrentgemma-2b"),
+    ("resolve", "arch", "mamba2-130m"),
+    ("resolve", "arch", "recurrentgemma-2b"),
 ])
 def test_unported_components_raise(override):
     if isinstance(override, tuple):
-        item = _UNPORTED_ARCHS[override[1]]
+        fn, kind, name = override
+        item = _UNPORTED_ARCHS[name]
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1, item {item}"):
-            registry.resolve(*override)
+            getattr(registry, fn)(kind, name)
         return
     item = _UNPORTED_ARCHS.get(override.get("arch"), 11)
     with pytest.raises(NotImplementedError,

@@ -47,6 +47,10 @@ from repro_torch.faults import guard
 from repro_torch.kernels import norm_agg, quantize
 from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 REL = 1e-6             # through W, in another order
 SUM_REL = 1e-5         # sums over d, in another order
 AGG_TOL = 2e-5         # the reference's pallas≡gspmd tolerance

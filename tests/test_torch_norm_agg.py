@@ -33,6 +33,10 @@ from repro_torch.core import aggregators as tagg
 from repro_torch.core.attacks import CoordAttack
 from repro_torch.kernels import _build, norm_agg, quantize
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 REL = 1e-6             # through W, in another order
 SUM_REL = 1e-5         # sums over d, in another order
 RFA_TOL = 2e-5         # the reference's pallas≡gspmd tolerance

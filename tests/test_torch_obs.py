@@ -36,6 +36,10 @@ from repro_torch.kernels import norm_agg
 from repro_torch.kernels.robust_agg import robust_agg
 from repro_torch.obs import trace
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TOL = 2e-5
 STEPS = 4
 BASE = dict(n_workers=5, n_byz=1, attack="ALIE", bucket_size=2,

@@ -14,6 +14,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro.obs import detect as jax_detect
 from repro.obs import sink as jax_sink
@@ -22,6 +23,10 @@ from repro_torch.obs import detect, profile
 from repro_torch.obs.sink import (FanoutSink, JsonlSink, NullSink, RingSink,
                                   TagSink, span, verify_jsonl)
 from repro_torch.obs.sink import _main as sink_main
+
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
 
 TRACES = [
     {"influence": [0.0, 0.05, 0.475, 0.475],

@@ -24,6 +24,10 @@ from repro_torch.core import compressors as tcomp
 from repro_torch.core import wire as twire
 from repro_torch.kernels import ops, ref
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 W_TOL = 1e-6           # through W, in another order
 NORM_TOL = 2e-5        # RFA / Krum: the reference's pallas≡gspmd tolerance
 D = 300

@@ -28,6 +28,10 @@ from repro_torch.convert import key_from_numpy, state_from_numpy, \
     tree_from_numpy
 from repro_torch.core import engine
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TRAJ_TOL = 2e-5
 CHAOS = dict(
     n_workers=5, n_byz=1, attack="ALIE", aggregator="cm", bucket_size=2,

@@ -54,6 +54,10 @@ from repro_torch.core.attacks import CoordAttack
 from repro_torch.kernels import norm_agg, ops
 from repro_torch.kernels.robust_agg import robust_agg
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 W_TOL = 1e-6
 SUM_REL = 1e-5
 NORM_TOL = 2e-5

@@ -12,6 +12,10 @@ from repro_torch import random as R
 from repro_torch.convert import key_from_numpy
 from repro_torch.data.synthetic import make_logreg_data
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 # float32 erfinv through Giles' polynomial: the port evaluates each Horner
 # step as one rounding of an exact product plus a sum, as XLA's fused
 # multiply-adds do; the sqrt(2)·erfinv(u) chain then differs by at most a

@@ -24,6 +24,10 @@ from repro_torch.core.attacks import CoordAttack
 from repro_torch.kernels import norm_agg, quantize
 from repro_torch.kernels.robust_agg import robust_agg, robust_agg_plain
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 W_RTOL = 1e-6          # W @ x: float32 sums in another order
 ATTACK_PARAM = {"BF": 0.0, "ALIE": 1.06, "IPM": 0.1}
 

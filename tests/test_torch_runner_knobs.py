@@ -15,6 +15,10 @@ from repro.api import run as jax_run
 from repro_torch.api import RunSpec, run
 from repro_torch.core.estimators import ESTIMATORS
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TRAJ_TOL = 2e-5
 STEPS = 10
 KILL_AT = 5

@@ -39,6 +39,10 @@ from repro_torch.obs import trace
 from repro_torch.serve import (ArrivalProcess, DoubleBuffer,
                                staleness_weights)
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TOL = 2e-5
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,10 @@ from repro_torch.api import ServeSpec
 from repro_torch.obs.sink import RingSink
 from repro_torch.serve import params_digest
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TOL = 2e-5
 SYNC_GAP = 2.98e-8
 HOST = ("round", "t_virtual", "staleness_mean", "staleness_max",

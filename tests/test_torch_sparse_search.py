@@ -12,6 +12,10 @@ from repro_torch.kernels import _launch, quantize
 from repro_torch.kernels.quantize import (sparse_bounds, sparse_bounds_plain,
                                           sparse_range_start, wire_starts)
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 
 def _rows(kind, n, d, seed=0):
     """(n, k) ascending int32 idx rows: RandK 0.1 or TopK 0.1 of random

@@ -23,6 +23,10 @@ import torch
 
 from repro_torch.kernels import norm_agg
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 SUM_TOL = 1e-5
 
 

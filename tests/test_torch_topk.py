@@ -31,6 +31,10 @@ from repro_torch.core import tree_utils as ttu
 from repro_torch.core import wire as twire
 from repro_torch.kernels import quantize
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 STATS_TOL = 1e-6       # scatter-adds sum in another order
 N = 5
 

@@ -15,6 +15,10 @@ from repro_torch.core import compressors as tcomp
 from repro_torch.core import tree_utils as ttu
 from repro_torch.core import wire as twire
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 STATS_TOL = 1e-6
 N = 5
 

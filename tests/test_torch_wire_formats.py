@@ -37,6 +37,10 @@ from repro_torch.faults import inject as tinject
 from repro_torch.faults.plan import as_plan as tas_plan
 from repro_torch.kernels import quantize as tq
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 N = 5
 FORMATS = ("int8", "sign", "bf16")
 DIMS = (1, 123, 5000)          # leaf b, a9a's width, gisette's width

@@ -22,6 +22,10 @@ from repro_torch.core.engine import stacked_grads
 from repro_torch.data.synthetic import (logreg_loss, xla_softplus,
                                         xla_softplus_cotangent)
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 # the loss's gradient through torch.matmul's products: the logits part from
 # XLA's by an ulp or two, and the gradient by as much times the batch's
 # largest feature

@@ -30,6 +30,10 @@ from repro_torch.convert import key_from_numpy
 from repro_torch.core import compressors, theory
 from repro_torch.data import LogRegData
 
+# the test workers share the host's cores: each takes a small intra-op
+# pool, not one thread a core (oversubscribed pools spin on barriers)
+torch.set_num_threads(2)
+
 TRAJ_TOL = 2e-5
 STEPS = 4
 SPARSE = dict(agg_mode="sparse_support", compressor="randk",
