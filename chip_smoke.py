@@ -60,7 +60,13 @@ stacks (5 x 553,648,128, past 2^31 elements, and 5 x 419,430,400), the
 reduced float32 twins of deepseek-v2-lite-16b and phi3.5-moe-42b-a6.6b
 against the CPU path, and deepseek-v2-lite-16b at its published widths,
 cut to 3 of its 27 layers (registered here as deepseek-v2-lite-16b-3l),
-checked as qwen3-1.7b is.
+checked as qwen3-1.7b is; and the SSD and RG-LRU phase: robust_agg's
+bfloat16 load at recurrentgemma-2b's embedding (5 x 655,360,000), the
+reduced float32 twins of mamba2-130m and recurrentgemma-2b against the
+CPU path, mamba2-130m at full width (24 layers, no cut) through
+``api.run`` and ``launch.train.main``, and recurrentgemma-2b at its
+published widths cut to 8 of its 26 layers (registered here as
+recurrentgemma-2b-8l), checked as qwen3-1.7b is.
 The masked kernels (``valid`` in the
 load, the masked coordinate rule) are held to their plain versions beside
 the unmasked ones, and so is every load (dense float32 or bfloat16, the
@@ -608,6 +614,10 @@ def kernel_case(case, dev, weighted=False):
     if not (got.shape == (d,) and torch.isfinite(got).all() and ok):
         raise AssertionError(f"robust_agg {label}: max abs err {err:.3e} > "
                              f"limit {limit:.3e} (or non-finite output)")
+    # the plain version's float32 and float64 copies of a 5 x 655 M stack
+    # fill most of the card: nothing of the check stays alive past it
+    del got, want
+    torch.cuda.empty_cache()
     t = timing(lambda: robust_agg(*args, **kw))
     reps = plain_reps(n * d)
     plain_ms = cuda_ms(lambda: robust_agg_plain(*args, **kw), reps)
@@ -632,7 +642,7 @@ def kernel_case(case, dev, weighted=False):
           f"({row['bound_by']}) library(rule step alone) "
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}",
           flush=True)
-    del args, got, want, lib
+    del args, lib
     torch.cuda.empty_cache()
     return row
 
@@ -1153,9 +1163,8 @@ def main_path(dev, card, tag, spec, want_counts, diverges=False,
         raise AssertionError(
             f"{tag}: launches {nonzero(counts)}, expected {nonzero(want)}: "
             "an aggregation bypassed its kernel")
-    cpu = run(RunSpec(**{**spec, "steps": CPU_CHECK_STEPS}), device="cpu",
-              log_every=1)
-    cpu_ck = [int(h.get("c_k", 1)) for h in cpu.history]
+    cpu_hist = CPU_RUNS.history({**spec, "steps": CPU_CHECK_STEPS})
+    cpu_ck = [int(h.get("c_k", 1)) for h in cpu_hist]
     if cpu_ck != ck[:CPU_CHECK_STEPS]:
         raise AssertionError(f"{tag}: c_k differs from the CPU path: "
                              f"{cpu_ck} vs {ck[:CPU_CHECK_STEPS]}")
@@ -1163,7 +1172,7 @@ def main_path(dev, card, tag, spec, want_counts, diverges=False,
         raise AssertionError(f"{tag}: no full round (c_k=1) among the "
                              f"{CPU_CHECK_STEPS} rounds held to the CPU path")
     got = np.array(losses[:CPU_CHECK_STEPS])
-    ref = np.array([h["loss"] for h in cpu.history])
+    ref = np.array([h["loss"] for h in cpu_hist])
     if diverges:
         fin = np.isfinite(ref)
         same = np.array_equal(np.isnan(got), np.isnan(ref))
@@ -1602,11 +1611,11 @@ def zoo_obs_paths(dev, card) -> dict:
     # the reference aggregates this mode with the rule's plain tree, on
     # the support alone for VR rounds and densely otherwise: no kernel
     # runs, so the path must launch none
+    specs = zoo_rest_specs()
     paths["marina sparse_support cm"] = main_path(
-        dev, card, "marina sparse_support cm", SPARSE_SPEC,
+        dev, card, "marina sparse_support cm", specs[0],
         lambda f, v, r: dict.fromkeys(COUNTED, 0))
-    for tag, over in ZOO_REST_PATHS:
-        spec = {**MAIN_SPEC, **over}
+    for (tag, _), spec in zip(ZOO_REST_PATHS, specs[1:]):
         dense = spec["compressor"] != "randk"   # no wire: dense VR rounds
         paths[tag] = main_path(
             dev, card, tag, spec,
@@ -2177,6 +2186,60 @@ LM_MOE_KERNEL_CASES = [
 ]
 
 
+# the lm_ssm phase: the same spec on mamba2-130m at full width (24 SSD
+# blocks, tied embeddings, bfloat16, 128,940,480 parameters: no cut) and on
+# recurrentgemma-2b at its published widths (RG-LRU width 2560, one
+# sliding-window block of 10 heads of 256 and one KV head per group, vocab
+# 256,000, bfloat16) cut from 26 to 8 layers, 2 groups and the 2-block
+# tail (2,008,174,080 parameters; the 26 layers' 3,549,888,000 do not fit
+# on one 80 GB card at the LM path's 32 bytes a parameter)
+LM_SSM_MAMBA = "mamba2-130m"
+LM_SSM_RG_ARCH = "recurrentgemma-2b-8l"
+LM_SSM_RG_LAYERS = 8
+LM_SSM_TWINS = ("mamba2-130m", "recurrentgemma-2b")
+LM_SSM_STEPS = 4                   # a warm round, then 3 timed
+# robust_agg launches an aggregation, by load: every leaf of at least
+# SMALL_LEAF_D columns is its own bf16 segment, and leaves under it pack
+# into one float32 segment. mamba2-130m: 6 leaves of 18,432 (norm1) to
+# 61,784,064 (w_in) columns, and final_norm, a_log, d_skip, dt_bias (768,
+# 576, 576, 576) packed; recurrentgemma-2b-8l: 68 leaves of 2,560 to
+# 655,360,000, none packed. Each tree has leaves over RandK's 2^22 units,
+# so every VR round aggregates dense, off the wire.
+LM_SSM_MAMBA_SEGMENTS = {"dense_bf16": 6, "dense": 1}
+LM_SSM_RG_SEGMENTS = {"dense_bf16": 68}
+LM_SSM_KERNEL_CASES = [
+    ("dense_bf16", "recurrentgemma-2b embed and unembed 256000x2560, bf16 "
+     "(the lm_ssm path's widest leaves)", 5, 655_360_000, None, 0, 2,
+     "median"),
+]
+
+
+def register_ssm_cut():
+    """Register recurrentgemma-2b cut to LM_SSM_RG_LAYERS layers as
+    LM_SSM_RG_ARCH (widths, heads, window and vocabulary as published)."""
+    import dataclasses
+    from repro_torch.configs import get_config, register
+    register(dataclasses.replace(get_config("recurrentgemma-2b"),
+                                 name=LM_SSM_RG_ARCH,
+                                 num_layers=LM_SSM_RG_LAYERS))
+
+
+def lm_segments(arch) -> dict:
+    """{load: robust_agg launches an aggregation} of ``arch``'s tree by
+    the packing rule of ``sharded_agg._segments``, from its shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sharded_agg import SMALL_LEAF_D
+    from repro_torch.models import param_shapes
+    cfg = get_config(arch)
+    sizes = [math.prod(s) for s in param_shapes(cfg).values()]
+    small = sum(1 for d in sizes if d < SMALL_LEAF_D)
+    load = "dense_bf16" if cfg.dtype == "bfloat16" else "dense"
+    out = {load: len(sizes) - (small if small >= 2 else 0)}
+    if small >= 2:
+        out["dense"] = out.get("dense", 0) + 1
+    return out
+
+
 def register_moe_cut():
     """Register deepseek-v2-lite-16b cut to LM_MOE_LAYERS layers as
     LM_MOE_ARCH (widths, experts and routing as published)."""
@@ -2186,15 +2249,18 @@ def register_moe_cut():
                                  name=LM_MOE_ARCH, num_layers=LM_MOE_LAYERS))
 
 
-def _lm_counts(aggregations: int, segments: int, load: str,
-               wire_rounds: int = 0, leaves: int = 0) -> dict:
+def _lm_counts(aggregations: int, segments: dict, wire_rounds: int = 0,
+               leaves: int = 0) -> dict:
     """Launches of an LM run: each dense aggregation (the init's, and a
-    round's) is one robust_agg launch a segment (a leaf, or the packed
-    leaves under SMALL_LEAF_D); a VR round on the RandK wire (every leaf
-    of at most 2^22 coordinates: the reduced twin) one launch a leaf. At
-    full width RandK's block selection keeps every round off the wire."""
+    round's) is one robust_agg launch a segment (a leaf in its dtype's
+    load, or the leaves under SMALL_LEAF_D packed into one float32
+    segment): ``segments`` maps each load to its segments. A VR round on
+    the RandK wire (every leaf of at most 2^22 coordinates: the reduced
+    twins) is one launch a leaf. At full width a leaf over 2^22 takes
+    RandK's block selection, and the whole tree's VR rounds go dense."""
     counts = dict.fromkeys(COUNTED, 0)
-    _add(counts, "robust_agg", load, segments * aggregations)
+    for load, n in segments.items():
+        _add(counts, "robust_agg", load, n * aggregations)
     _add(counts, "robust_agg", "sparse", leaves * wire_rounds)
     return counts
 
@@ -2280,6 +2346,12 @@ def _lm_run(dev, spec, steps, tag, card, keep_at=None, plain=None,
     return res, round_ms, counts, kept, peak
 
 
+def _twin_spec(arch) -> dict:
+    """LM_SPEC on ``arch``'s reduced float32 twin."""
+    return {**LM_SPEC, "arch": arch,
+            "data_kwargs": {**LM_SPEC["data_kwargs"], "reduced": True}}
+
+
 def _lm_twin(dev, card, arch) -> dict:
     """The reduced float32 twin of ``arch`` under LM_SPEC on the card,
     its launches exact, and its first LM_TWIN_STEPS rounds against the
@@ -2289,25 +2361,22 @@ def _lm_twin(dev, card, arch) -> dict:
     from repro_torch.core.sharded_agg import SMALL_LEAF_D
     from repro_torch.models import param_shapes
     tag = f"lm {arch} reduced twin"
-    twin = {**LM_SPEC, "arch": arch,
-            "data_kwargs": {**LM_SPEC["data_kwargs"], "reduced": True}}
+    twin = _twin_spec(arch)
     sizes = [math.prod(s)
              for s in param_shapes(get_config(arch).reduced()).values()]
     small = sum(1 for d in sizes if d < SMALL_LEAF_D)
     segs = len(sizes) - small + (1 if small >= 2 else 0)
     res, _, counts, _, _ = _lm_run(dev, twin, LM_TWIN_STEPS, tag[3:], card)
     full, vr = _rounds(res.history)
-    want = _lm_counts(1 + full, segs, "dense", vr, len(sizes))
+    want = _lm_counts(1 + full, {"dense": segs}, vr, len(sizes))
     if counts != want:
         raise AssertionError(f"{tag}: launches {nonzero(counts)}, expected "
                              f"{nonzero(want)}")
-    cpu = run(RunSpec(**{**twin, "steps": LM_TWIN_STEPS}), device="cpu",
-              log_every=1)
+    cpu_hist = CPU_RUNS.history({**twin, "steps": LM_TWIN_STEPS})
     ck = [int(h["c_k"]) for h in res.history]
-    cpu_ck = [int(h["c_k"]) for h in cpu.history]
+    cpu_ck = [int(h["c_k"]) for h in cpu_hist]
     diff = float(np.max(np.abs(np.array([h["loss"] for h in res.history])
-                               - np.array([h["loss"] for h in
-                                           cpu.history]))))
+                               - np.array([h["loss"] for h in cpu_hist]))))
     print(f"[{tag}] {LM_TWIN_STEPS} rounds vs the CPU plain path: c_k {ck} "
           f"(CPU {cpu_ck}), max |loss diff| {diff:.3e} (limit {TRAJ_TOL}) "
           f"[{card}]", flush=True)
@@ -2316,10 +2385,10 @@ def _lm_twin(dev, card, arch) -> dict:
     return {"launches": counts, "cpu_loss_diff": diff}
 
 
-def _lm_full_width(dev, card, spec, steps, leaves, cut) -> tuple:
+def _lm_full_width(dev, card, spec, steps, segments, cut) -> tuple:
     """``spec``'s arch at full width through api.run: ``steps`` rounds
-    (the launches exact: ``leaves`` dense-bf16 robust_agg launches an
-    aggregation, the init's included; ms a round p50 over the rounds
+    (the launches exact: ``segments`` robust_agg launches an aggregation
+    by load, the init's included; ms a round p50 over the rounds
     after the first, tokens a second, peak memory), then the first
     LM_REPEAT_STEPS rounds again, equal bit for bit (params and g), with
     the last of them held to the plain versions leaf by leaf. ``cut``
@@ -2327,7 +2396,8 @@ def _lm_full_width(dev, card, spec, steps, leaves, cut) -> tuple:
     arch = spec["arch"]
     res, round_ms, counts, kept, peak = _lm_run(dev, spec, steps, arch, card,
                                                 keep_at=LM_REPEAT_STEPS - 1)
-    want = _lm_counts(1 + steps, leaves, "dense_bf16")
+    want = _lm_counts(1 + steps, segments)
+    leaves = sum(segments.values())
     if counts != want:
         raise AssertionError(f"lm {arch}: launches {nonzero(counts)}, "
                              f"expected {nonzero(want)}: an aggregation "
@@ -2348,9 +2418,8 @@ def _lm_full_width(dev, card, spec, steps, leaves, cut) -> tuple:
           f"{[round(t, 3) for t in round_ms]}); {row['tokens_per_s']:.1f} "
           f"tokens/s ({LM_TOKENS} a round); peak "
           f"{peak / 2**30:.2f} GiB allocated (torch.cuda."
-          f"max_memory_allocated); launches {leaves} robust_agg (dense "
-          f"bf16) a round, {counts['robust_agg/dense_bf16']} in all [{card}]",
-          flush=True)
+          f"max_memory_allocated); launches {segments} robust_agg a round, "
+          f"{nonzero(counts)} in all [{card}]", flush=True)
     del res
     with _PlainCheck() as plain:
         res, _, counts2, _, peak2 = _lm_run(
@@ -2361,7 +2430,7 @@ def _lm_full_width(dev, card, spec, steps, leaves, cut) -> tuple:
     if not same:
         raise AssertionError(f"lm {arch}: the first rounds do not repeat bit "
                              "for bit")
-    if counts2 != _lm_counts(1 + LM_REPEAT_STEPS, leaves, "dense_bf16"):
+    if counts2 != _lm_counts(1 + LM_REPEAT_STEPS, segments):
         raise AssertionError(f"lm {arch} repeat: launches {nonzero(counts2)}")
     bad = [r for r in plain.rows if not r["max_abs_err"] <= r["limit"]]
     if len(plain.rows) != leaves or bad:
@@ -2380,7 +2449,7 @@ def _lm_full_width(dev, card, spec, steps, leaves, cut) -> tuple:
                  f"lm {arch} repeat": {"launches": counts2}}
 
 
-def _lm_cli(card, arch, leaves) -> dict:
+def _lm_cli(card, arch, segments) -> dict:
     """LM_CLI_STEPS rounds of LM_SPEC on ``arch`` through
     ``launch.train.main`` in process, launches exact."""
     from repro_torch.launch import train
@@ -2394,7 +2463,7 @@ def _lm_cli(card, arch, leaves) -> dict:
     reset_counts()
     hist = train.main(args)
     counts = read_counts()
-    if counts != _lm_counts(1 + LM_CLI_STEPS, leaves, "dense_bf16") or \
+    if counts != _lm_counts(1 + LM_CLI_STEPS, segments) or \
             not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"lm launch.train {arch}: launches "
                              f"{nonzero(counts)}, losses "
@@ -2416,10 +2485,12 @@ def lm_phase(dev, card) -> dict:
     t_phase = time.time()
     out = {"kernel_rows": [kernel_case(c, dev) for c in LM_KERNEL_CASES]}
     out["paths"] = {"lm reduced twin": _lm_twin(dev, card, "qwen3-1.7b")}
-    row, paths = _lm_full_width(dev, card, LM_SPEC, LM_STEPS, LM_LEAVES,
+    row, paths = _lm_full_width(dev, card, LM_SPEC, LM_STEPS,
+                                {"dense_bf16": LM_LEAVES},
                                 "28 layers (no depth cut)")
     out["paths"].update(paths)
-    out["paths"]["lm launch.train"] = _lm_cli(card, "qwen3-1.7b", LM_LEAVES)
+    out["paths"]["lm launch.train"] = _lm_cli(card, "qwen3-1.7b",
+                                              {"dense_bf16": LM_LEAVES})
     out["full_width"] = row
     out["phase_s"] = time.time() - t_phase
     print(f"[lm] phase {out['phase_s']:.1f} s [{card}]", flush=True)
@@ -2439,16 +2510,166 @@ def lm_moe_phase(dev, card) -> dict:
     out["paths"] = {f"lm {arch} reduced twin": _lm_twin(dev, card, arch)
                     for arch in LM_MOE_TWINS}
     row, paths = _lm_full_width(
-        dev, card, LM_MOE_SPEC, LM_MOE_STEPS, LM_MOE_LEAVES,
+        dev, card, LM_MOE_SPEC, LM_MOE_STEPS, {"dense_bf16": LM_MOE_LEAVES},
         f"{LM_MOE_LAYERS} of 27 layers (depth cut; every width, the 64 "
         "routed and 2 shared experts, top-6 and vocab as published)")
     out["paths"].update(paths)
     out["paths"][f"lm launch.train {LM_MOE_ARCH}"] = _lm_cli(
-        card, LM_MOE_ARCH, LM_MOE_LEAVES)
+        card, LM_MOE_ARCH, {"dense_bf16": LM_MOE_LEAVES})
     out["full_width"] = row
     out["phase_s"] = time.time() - t_phase
     print(f"[lm_moe] phase {out['phase_s']:.1f} s [{card}]", flush=True)
     return out
+
+
+def lm_ssm_phase(dev, card) -> dict:
+    """The Mamba2 SSD and RG-LRU slice on the card: robust_agg's bf16 load
+    at recurrentgemma-2b's embedding width against its plain version; the
+    reduced float32 twins of mamba2-130m and recurrentgemma-2b against the
+    CPU path; mamba2-130m at full width (no depth cut) through api.run as
+    the LM phase runs qwen3-1.7b, and through launch.train.main; and
+    recurrentgemma-2b at its published widths cut to LM_SSM_RG_LAYERS
+    layers through api.run. The launches an aggregation are the packing
+    rule's (``lm_segments``), checked against the stated counts."""
+    t_phase = time.time()
+    register_ssm_cut()
+    for arch, want in ((LM_SSM_MAMBA, LM_SSM_MAMBA_SEGMENTS),
+                       (LM_SSM_RG_ARCH, LM_SSM_RG_SEGMENTS)):
+        if lm_segments(arch) != want:
+            raise AssertionError(f"{arch}: segments {lm_segments(arch)}, "
+                                 f"stated {want}")
+    out = {"kernel_rows": [kernel_case(c, dev) for c in LM_SSM_KERNEL_CASES]}
+    out["paths"] = {f"lm {arch} reduced twin": _lm_twin(dev, card, arch)
+                    for arch in LM_SSM_TWINS}
+    rows = {}
+    for arch, segments, cut in (
+            (LM_SSM_MAMBA, LM_SSM_MAMBA_SEGMENTS,
+             "24 layers (no depth cut)"),
+            (LM_SSM_RG_ARCH, LM_SSM_RG_SEGMENTS,
+             f"{LM_SSM_RG_LAYERS} of 26 layers (depth cut: 2 groups of "
+             "RG-LRU, RG-LRU, local attention and the 2-block tail; every "
+             "width, the heads, the window and vocab as published)")):
+        rows[arch], paths = _lm_full_width(
+            dev, card, dict(LM_SPEC, arch=arch), LM_SSM_STEPS, segments, cut)
+        out["paths"].update(paths)
+    out["paths"][f"lm launch.train {LM_SSM_MAMBA}"] = _lm_cli(
+        card, LM_SSM_MAMBA, LM_SSM_MAMBA_SEGMENTS)
+    out["full_width"] = rows
+    out["phase_s"] = time.time() - t_phase
+    print(f"[lm_ssm] phase {out['phase_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
+# the CPU checks' plain runs: CPU_POOL_WORKERS processes of
+# CPU_POOL_THREADS threads each compute them while the card runs
+CPU_POOL_WORKERS = 3
+CPU_POOL_THREADS = 2
+
+
+def _spec_key(spec) -> str:
+    return json.dumps(spec, sort_keys=True, default=str)
+
+
+def _cpu_history(spec, threads=None) -> list:
+    """The history of ``api.run(spec)`` on the CPU."""
+    from repro_torch.api import RunSpec, run
+    if threads is not None:
+        torch.set_num_threads(threads)
+        share_cpu_data()
+    return run(RunSpec(**spec), device="cpu", log_every=1).history
+
+
+class _CpuRuns:
+    """The plain CPU runs the checks compare the card with. Each depends
+    on its spec alone (a worker's thread count can move a reduced LM
+    twin's sums by an ulp, inside the checks' tolerances; never a coin),
+    so a pool of worker processes computes those handed to ``start``
+    while the card runs: the script's time is the card's, not the sum. A
+    spec not handed over runs here when asked for."""
+
+    def __init__(self):
+        self.pool, self.futures = None, {}
+
+    def start(self, specs):
+        import concurrent.futures as cf
+        import multiprocessing as mp
+        self.pool = cf.ProcessPoolExecutor(
+            CPU_POOL_WORKERS, mp_context=mp.get_context("spawn"))
+        for spec in specs:
+            key = _spec_key(spec)
+            if key not in self.futures:
+                self.futures[key] = self.pool.submit(_cpu_history, spec,
+                                                     CPU_POOL_THREADS)
+
+    def history(self, spec) -> list:
+        fut = self.futures.pop(_spec_key(spec), None)
+        return _cpu_history(spec) if fut is None else fut.result()
+
+    def close(self):
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+            self.pool = None
+
+
+CPU_RUNS = _CpuRuns()
+
+
+def main_path_cases() -> list:
+    """(tag, spec, launches(full, vr, rounds), options) of each main path
+    of the whole run, in order."""
+    cases = [(agg, {**MAIN_SPEC, "aggregator": agg},
+              lambda f, v, r, a=agg: expected_counts(a, f, v), {})
+             for agg in ("cm", "rfa", "krum")]
+    cases += [(f"{agg} n=256", {**MAIN_SPEC, **GIANT_SPEC, "aggregator": agg},
+               lambda f, v, r, a=agg: expected_counts(a, f, v, giant=True),
+               {}) for agg in ("rfa", "krum")]
+    cases.append(("byz_ef21 topk", dict(EF21_SPEC),
+                  lambda f, v, r: ef21_counts(r), {}))
+    cases += [(f"{agg} chaos", {**MAIN_SPEC, **CHAOS_SPEC, "aggregator": agg},
+               lambda f, v, r, a=agg: expected_counts(a, f, v, guard=True),
+               {}) for agg in ("cm", "rfa", "krum")]
+    cases.append(("cm participation 0.8", {**MAIN_SPEC, **PART_SPEC},
+                  lambda f, v, r: expected_counts("cm", f, v, cohort=True),
+                  {}))
+    cases += [(f"{agg} n=256 participation 0.75",
+               {**MAIN_SPEC, **GIANT_PART_SPEC, "aggregator": agg},
+               lambda f, v, r, a=agg: expected_counts(a, f, v, giant=True),
+               {}) for agg in ("rfa", "krum")]
+    quant = {"traj_tol": QUANT_TRAJ_TOL}
+    cases += [(f"marina int8 {agg}", {**INT8_SPEC, "aggregator": agg},
+               lambda f, v, r, a=agg: expected_counts(a, f, v, fmt="int8"),
+               quant) for agg in ("cm", "rfa", "krum")]
+    cases.append(("byz_ef21 sign", dict(SIGN_SPEC),
+                  lambda f, v, r: ef21_counts(r, fmt="sign"), quant))
+    cases.append(("byz_ef21 bf16", dict(BF16_SPEC),
+                  lambda f, v, r: ef21_counts(r, fmt="bf16"), quant))
+    # corrupt_wire flips 8-bit levels and float32 norms; the guard admits a
+    # finite garbled norm by design, and with ALIE's statistics taking it
+    # in the run diverges, in the reference as here
+    cases.append(("marina int8 cm chaos", {**INT8_SPEC, **CHAOS_SPEC},
+                  lambda f, v, r: expected_counts("cm", f, v, guard=True,
+                                                  fmt="int8"),
+                  {**quant, "diverges": True}))
+    cases.append(("byz_ef21 bf16 krum chaos",
+                  {**BF16_SPEC, **CHAOS_SPEC, "aggregator": "krum"},
+                  lambda f, v, r: ef21_counts(r, fmt="bf16",
+                                              aggregator="krum", guard=True),
+                  quant))
+    for tag, over, load in ZOO_PATHS:
+        spec = {**MAIN_SPEC, **over}
+        cases.append((tag, spec,
+                      lambda f, v, r, a=spec["aggregator"], ld=load:
+                      zoo_counts(a, r, ld), {}))
+    cases.append(("marina RN cm", RN_SPEC,
+                  lambda f, v, r: expected_counts("cm", f, v, dense_vr=True),
+                  {"diverges": True}))
+    return cases
+
+
+def zoo_rest_specs() -> list:
+    """The specs of ``zoo_obs_paths``' main paths, in its order."""
+    return [SPARSE_SPEC] + [{**MAIN_SPEC, **over}
+                            for _, over in ZOO_REST_PATHS]
 
 
 def share_cpu_data():
@@ -2458,6 +2679,8 @@ def share_cpu_data():
     their own."""
     import repro_torch.data as D
     make, cache = D.make_logreg_data, {}
+    if getattr(make, "shared", False):
+        return
 
     def cached(key, **kw):
         if key.device.type != "cpu":
@@ -2467,6 +2690,7 @@ def share_cpu_data():
             cache[k] = make(key, **kw)
         return cache[k]
 
+    cached.shared = True
     D.make_logreg_data = cached
 
 
@@ -2475,7 +2699,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", choices=("all", "kernels", "tracer",
                                          "zoo_obs", "exec", "serve", "lm",
-                                         "lm_moe"),
+                                         "lm_moe", "lm_ssm"),
                     default="all",
                     help="'kernels': the kernel phases alone (no paths, "
                          "no kernels line), e.g. to time another tree's "
@@ -2491,7 +2715,9 @@ def main(argv=None) -> int:
                          "service's phase alone (no kernels line); 'lm': "
                          "the build and the LM phase alone (no kernels "
                          "line); 'lm_moe': the build and the MLA and MoE "
-                         "phase alone (no kernels line)")
+                         "phase alone (no kernels line); 'lm_ssm': the build "
+                         "and the SSD and RG-LRU phase alone (no kernels "
+                         "line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2535,8 +2761,9 @@ def main(argv=None) -> int:
         print(f"[done] the serve phase alone, {time.time() - t_start:.1f} s",
               flush=True)
         return 0
-    if args.phases in ("lm", "lm_moe"):
-        got = (lm_phase if args.phases == "lm" else lm_moe_phase)(dev, card)
+    if args.phases in ("lm", "lm_moe", "lm_ssm"):
+        got = {"lm": lm_phase, "lm_moe": lm_moe_phase,
+               "lm_ssm": lm_ssm_phase}[args.phases](dev, card)
         (out_dir / f"chip_smoke_{args.phases}.json").write_text(json.dumps(
             {"card": card, "torch": torch.__version__, **got,
              "wall_s": time.time() - t_start}, indent=1, default=str))
@@ -2559,6 +2786,15 @@ def main(argv=None) -> int:
         print(f"[phase] {what} at {marks[what]:.1f} s", flush=True)
 
     mark("build done")
+    path_cases = main_path_cases()
+    if args.phases == "all":
+        CPU_RUNS.start([{**spec, "steps": CPU_CHECK_STEPS}
+                        for _, spec, _, _ in path_cases]
+                       + [{**spec, "steps": CPU_CHECK_STEPS}
+                          for spec in zoo_rest_specs()]
+                       + [{**_twin_spec(arch), "steps": LM_TWIN_STEPS}
+                          for arch in ("qwen3-1.7b",) + LM_MOE_TWINS
+                          + LM_SSM_TWINS])
     main_rows = [kernel_case(c, dev) for c in MAIN_CASES]
     wide_rows = [kernel_case(c, dev) for c in WIDE_CASES]
     norm_main = [r for c in NORM_MAIN_CASES for r in norm_case(c, dev)]
@@ -2619,68 +2855,10 @@ def main(argv=None) -> int:
     mark("ops path done")
     cases["sparse_bounds_cases"] = [bounds_case(c, dev)
                                     for c in BOUNDS_CASES]
-    paths = {}
-    for agg in ("cm", "rfa", "krum"):
-        paths[agg] = main_path(
-            dev, card, agg, {**MAIN_SPEC, "aggregator": agg},
-            lambda f, v, r, a=agg: expected_counts(a, f, v))
-    for agg in ("rfa", "krum"):
-        paths[f"{agg} n=256"] = main_path(
-            dev, card, f"{agg} n=256",
-            {**MAIN_SPEC, **GIANT_SPEC, "aggregator": agg},
-            lambda f, v, r, a=agg: expected_counts(a, f, v, giant=True))
-    paths["byz_ef21 topk"] = main_path(dev, card, "byz_ef21 topk",
-                                       dict(EF21_SPEC),
-                                       lambda f, v, r: ef21_counts(r))
+    paths = {tag: main_path(dev, card, tag, spec, want, **kw)
+             for tag, spec, want, kw in path_cases}
     paths["ops.block_quantize"] = {"launches": quant["launches"]}
-    for agg in ("cm", "rfa", "krum"):
-        paths[f"{agg} chaos"] = main_path(
-            dev, card, f"{agg} chaos",
-            {**MAIN_SPEC, **CHAOS_SPEC, "aggregator": agg},
-            lambda f, v, r, a=agg: expected_counts(a, f, v, guard=True))
-    paths["cm participation 0.8"] = main_path(
-        dev, card, "cm participation 0.8", {**MAIN_SPEC, **PART_SPEC},
-        lambda f, v, r: expected_counts("cm", f, v, cohort=True))
-    for agg in ("rfa", "krum"):
-        paths[f"{agg} n=256 participation 0.75"] = main_path(
-            dev, card, f"{agg} n=256 participation 0.75",
-            {**MAIN_SPEC, **GIANT_PART_SPEC, "aggregator": agg},
-            lambda f, v, r, a=agg: expected_counts(a, f, v, giant=True))
-
-    for agg in ("cm", "rfa", "krum"):
-        paths[f"marina int8 {agg}"] = main_path(
-            dev, card, f"marina int8 {agg}", {**INT8_SPEC, "aggregator": agg},
-            lambda f, v, r, a=agg: expected_counts(a, f, v, fmt="int8"),
-            traj_tol=QUANT_TRAJ_TOL)
-    paths["byz_ef21 sign"] = main_path(
-        dev, card, "byz_ef21 sign", dict(SIGN_SPEC),
-        lambda f, v, r: ef21_counts(r, fmt="sign"), traj_tol=QUANT_TRAJ_TOL)
-    paths["byz_ef21 bf16"] = main_path(
-        dev, card, "byz_ef21 bf16", dict(BF16_SPEC),
-        lambda f, v, r: ef21_counts(r, fmt="bf16"), traj_tol=QUANT_TRAJ_TOL)
-    # corrupt_wire flips 8-bit levels and float32 norms; the guard admits a
-    # finite garbled norm by design, and with ALIE's statistics taking it
-    # in the run diverges, in the reference as here
-    paths["marina int8 cm chaos"] = main_path(
-        dev, card, "marina int8 cm chaos", {**INT8_SPEC, **CHAOS_SPEC},
-        lambda f, v, r: expected_counts("cm", f, v, guard=True, fmt="int8"),
-        diverges=True, traj_tol=QUANT_TRAJ_TOL)
-    paths["byz_ef21 bf16 krum chaos"] = main_path(
-        dev, card, "byz_ef21 bf16 krum chaos",
-        {**BF16_SPEC, **CHAOS_SPEC, "aggregator": "krum"},
-        lambda f, v, r: ef21_counts(r, fmt="bf16", aggregator="krum",
-                                    guard=True), traj_tol=QUANT_TRAJ_TOL)
     paths["ops wire"] = ops_wire_path(dev, card)
-    for tag, over, load in ZOO_PATHS:
-        spec = {**MAIN_SPEC, **over}
-        paths[tag] = main_path(
-            dev, card, tag, spec,
-            lambda f, v, r, a=spec["aggregator"], ld=load: zoo_counts(a, r,
-                                                                      ld))
-    paths["marina RN cm"] = main_path(
-        dev, card, "marina RN cm", RN_SPEC,
-        lambda f, v, r: expected_counts("cm", f, v, dense_vr=True),
-        diverges=True)
     mark("main paths done")
     zoo_obs = zoo_obs_paths(dev, card)
     mark("zoo_obs paths done")
@@ -2699,6 +2877,9 @@ def main(argv=None) -> int:
     moe_got = lm_moe_phase(dev, card)
     paths.update(moe_got["paths"])
     mark("lm_moe phase done")
+    ssm_got = lm_ssm_phase(dev, card)
+    paths.update(ssm_got["paths"])
+    mark("lm_ssm phase done")
     path_specs = {"cm": MAIN_SPEC, "rfa": {**MAIN_SPEC, "aggregator": "rfa"},
                   "krum": {**MAIN_SPEC, "aggregator": "krum"},
                   "cm chaos": {**MAIN_SPEC, **CHAOS_SPEC},
@@ -2747,6 +2928,7 @@ def main(argv=None) -> int:
                 # the LM paths' leaves are its rows too
                 lm_rows = (lm_got["kernel_rows"][1:]
                            + moe_got["kernel_rows"]
+                           + ssm_got["kernel_rows"]
                            if (name, load, tag) == ("robust_agg",
                                                     "dense_bf16", "")
                            else [])
@@ -2778,6 +2960,7 @@ def main(argv=None) -> int:
          "serve": {k: v for k, v in serve_got.items() if k != "paths"},
          "lm": {k: v for k, v in lm_got.items() if k != "paths"},
          "lm_moe": {k: v for k, v in moe_got.items() if k != "paths"},
+         "lm_ssm": {k: v for k, v in ssm_got.items() if k != "paths"},
          "phase_marks_s": marks,
          "no_library": NO_LIBRARY, "kernels": kernels,
          "wall_s": time.time() - t_start}, indent=1))
@@ -2791,4 +2974,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        CPU_RUNS.close()

@@ -11,9 +11,7 @@ enumerate from one source of truth:
     check("aggregator", "krun")     -> ValueError: ... did you mean 'krum'?
 
 The names and descriptions are the reference's. ``arch`` lists all ten
-registered configs; ``check`` and ``resolve`` succeed for the attention
-decoders (dense, MLA, MoE) and raise ``NotImplementedError`` for the
-configs whose blocks are not ported yet, naming their ROADMAP item.
+registered configs, and ``check`` and ``resolve`` succeed for each.
 """
 from __future__ import annotations
 
@@ -149,8 +147,8 @@ def _describe_arch(name):
 
 
 def _resolve_arch(name, **kw):
-    """The ``ArchConfig``; raises ``NotImplementedError`` for a config
-    whose blocks are not ported yet."""
+    """The ``ArchConfig``; raises ``ValueError`` for a block kind the
+    models do not know."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import check_supported
     cfg = get_config(name)

@@ -3,9 +3,7 @@ and ``ServeSpec``, its streaming twin (port of ``repro/api/spec.py``).
 
 The fields, defaults and JSON form are the reference's, so one
 ``to_dict()`` drives both packages. Names are validated through
-``api.registry``, as in the reference; an ``arch`` whose blocks are not
-ported yet raises ``NotImplementedError`` there, naming its ROADMAP
-item.
+``api.registry``, as in the reference.
 """
 from __future__ import annotations
 

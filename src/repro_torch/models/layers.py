@@ -1,17 +1,19 @@
-"""Model building blocks of the attention decoders: init helpers,
-RMSNorm, RoPE / M-RoPE, GQA causal attention (optionally sliding-window)
-with its query-chunked and online-softmax forms, multi-head latent
-attention (MLA), the gated MLP and the sort-based MoE FFN (port of the
-attention and FFN parts of ``repro/models/layers.py``).
+"""Model building blocks: init helpers, RMSNorm, RoPE / M-RoPE, GQA
+causal attention (optionally sliding-window) with its query-chunked and
+online-softmax forms, multi-head latent attention (MLA), the gated MLP,
+the sort-based MoE FFN, the depthwise causal conv, the Mamba2 SSD block
+and the RG-LRU block (port of ``repro/models/layers.py``).
 
 Everything is a plain function of a flat ``dict[str, Tensor]``. The
 operations are the reference's, in its order and dtypes: projections in
 the parameters' dtype, attention scores and softmax in float32, norms in
 float32 and cast back. Initializers draw with ``repro_torch.random``,
-so a leaf equals the reference's bit for bit.
+so a leaf equals the reference's bit for bit; the SSD and RG-LRU inits'
+constants go through ``xla_math``'s linspace, log and expm1 for the
+same reason.
 
-The Mamba2 SSD and RG-LRU blocks and the decode caches are not ported
-yet (``models.transformer`` names their ROADMAP items).
+The decode paths and caches are not ported yet (ROADMAP queue 1, item
+16).
 """
 from __future__ import annotations
 
@@ -431,3 +433,266 @@ def moe_ffn(params, cfg, x):
     pmean = r["probs"].mean(dim=0)
     aux = e * torch.sum(frac * pmean) * m.router_aux_weight
     return y, aux
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv1d (shared by the Mamba2 and RG-LRU blocks)
+# ---------------------------------------------------------------------------
+
+def _fma64(a, b, c):
+    """a·b + c rounded once to float32, as the reference's compiled code
+    fuses it: the float32 product is exact in float64, and so is the sum
+    but where the operands' exponents lie far apart; there the float64
+    sum can round onto a float32 tie (about 2⁻²⁹ of such inputs) and
+    round twice. It runs under ``torch.func``'s vmap and grad, which
+    ``attacks.fma_f32``'s bit view does not in every PyTorch release."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def causal_conv1d(x, w):
+    """x: (B, T, C); w: (W, C) depthwise causal filter. The taps add in
+    float32 from the first, as the reference's loop adds them from zeros;
+    XLA drops the zeros and fuses each later tap's product into its sum,
+    the first tap's product into the second's sum. In bfloat16 every
+    product is exact in float32, so the plain sum is that sum."""
+    width, t = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0)).float()
+    wf = w.float()
+    taps = [xp[:, i:i + t, :] for i in range(width)]
+    if x.dtype != torch.float32:
+        out = taps[0] * wf[0]
+        for i in range(1, width):
+            out = out + taps[i] * wf[i]
+        return out.to(x.dtype)
+    out = taps[0] * wf[0] if width == 1 else _fma64(taps[0], wf[0],
+                                                    taps[1] * wf[1])
+    for i in range(2, width):
+        out = _fma64(taps[i], wf[i], out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD block (arXiv:2405.21060): chunked state-space duality
+# ---------------------------------------------------------------------------
+
+def mamba2_shapes(cfg) -> dict:
+    d = cfg.d_model
+    di, n = cfg.ssm_expand * d, cfg.ssm_state
+    nh = di // cfg.ssm_headdim
+    return {"w_in": (d, 2 * di + 2 * n + nh),
+            "conv_w": (cfg.conv_width, di + 2 * n), "a_log": (nh,),
+            "dt_bias": (nh,), "d_skip": (nh,), "out_norm": (di,),
+            "w_out": (di, d)}
+
+
+def ssd_a_log(nh: int, device=None):
+    """float32 log(linspace(1, 16, nh)) as the reference's eager init
+    computes it (XLA's linspace and log)."""
+    return X.log(X.linspace(1.0, 16.0, nh, device=device))
+
+
+def init_mamba2(key, cfg) -> dict:
+    """The key split 6 ways, the first three drawn (in_proj, conv, out);
+    ``a_log`` from ``ssd_a_log``."""
+    ks = R.split(key, 6)
+    shapes = mamba2_shapes(cfg)
+    dt, dev = cfg.torch_dtype, key.device
+    nh = shapes["a_log"][0]
+    return {
+        "w_in": _dense_init(ks[0], shapes["w_in"], dt),
+        "conv_w": _dense_init(ks[1], shapes["conv_w"], dt, scale=0.5),
+        "a_log": ssd_a_log(nh, dev).to(dt),
+        "dt_bias": torch.zeros((nh,), dtype=dt, device=dev),
+        "d_skip": torch.ones((nh,), dtype=dt, device=dev),
+        "out_norm": torch.zeros(shapes["out_norm"], dtype=dt, device=dev),
+        "w_out": _dense_init(ks[2], shapes["w_out"], dt),
+    }
+
+
+def _inter_chunk(cr, prev_states, decay_in):
+    """y_inter = Σ_n C · prev · exp(cum), the reference's three-operand
+    einsum in the pair order ``jnp.einsum`` takes (opt_einsum's cheapest
+    by flops: the outer product of decay and C first while the state
+    width n is under the head width p, else C against the states over n
+    first)."""
+    if cr.shape[-1] < prev_states.shape[-1]:
+        outer = torch.einsum("bcqh,bcqn->bcqhn", decay_in, cr)
+        return torch.einsum("bcqhn,bchnp->bcqhp", outer, prev_states)
+    cs = torch.einsum("bchnp,bcqn->bchpq", prev_states, cr)
+    return torch.einsum("bcqh,bchpq->bcqhp", decay_in, cs)
+
+
+def _ssd_chunked(xh, bmat, cmat, dt, a_log, chunk=64):
+    """SSD over chunks. xh: (B, T, H, P), bmat / cmat: (B, T, N), dt:
+    (B, T, H).
+
+    h_t = exp(dt_t · A_h) h_{t-1} + dt_t · B_t ⊗ x_t ;  y_t = C_t · h_t.
+    Returns y (B, T, H, P) and the final state (B, H, N, P), float32. The
+    chunks' states pass on in a sequential loop, as the reference's scan
+    passes them. The within-chunk cumsum takes XLA's order: the decays
+    exp(cum_q − cum_k) difference running sums of up to some 700, where
+    an ulp of the sum is most of the difference's error."""
+    b, t, h, p = xh.shape
+    n = bmat.shape[-1]
+    chunk = min(chunk, t)
+    nc = t // chunk
+    assert t % chunk == 0, (t, chunk)
+    a = -torch.exp(a_log.float())                        # (H,) negative
+    dt = dt.float()
+    da = dt * a                                          # log decay
+    xr = xh.reshape(b, nc, chunk, h, p).float()
+    br = bmat.reshape(b, nc, chunk, n).float()
+    cr = cmat.reshape(b, nc, chunk, n).float()
+    dar = da.reshape(b, nc, chunk, h)
+    dtr = dt.reshape(b, nc, chunk, h)
+    cum = X.cumsum(dar, dim=2)                           # (B, nc, Lc, H)
+    # intra-chunk, quadratic within the chunk
+    g = torch.einsum("bcqn,bckn->bcqk", cr, br)
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # q - k
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=xh.device).tril()
+    # masked in log space before the exp: the exp of an acausal (positive)
+    # rel would overflow, and inf · 0 poison the gradient through the where
+    rel = torch.where(causal[None, None, :, :, None], rel, -math.inf)
+    decay = torch.exp(rel)
+    m = g[..., None] * decay * dtr[:, :, None, :, :]      # (B, nc, q, k, H)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", m, xr)
+    # the chunks' states
+    tail = cum[:, :, -1:, :] - cum                       # decay to chunk end
+    sx = xr * (dtr * torch.exp(tail))[..., None]
+    states = torch.einsum("bckn,bckhp->bchnp", br, sx)   # (B, nc, H, N, P)
+    chunk_decay = torch.exp(cum[:, :, -1, :])            # (B, nc, H)
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=xh.device)
+    prevs = []
+    for c in range(nc):
+        prevs.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    y_inter = _inter_chunk(cr, torch.stack(prevs, dim=1), torch.exp(cum))
+    y = (y_intra + y_inter).reshape(b, t, h, p)
+    return y, state
+
+
+def mamba2_block(params, cfg, x, *, chunk=64):
+    b, t, d = x.shape
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state
+    nh = di // cfg.ssm_headdim
+    ph = cfg.ssm_headdim
+    zxbcdt = torch.einsum("btd,de->bte", x, params["w_in"])
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    xbc = causal_conv1d(F.silu(xbc), params["conv_w"])
+    xi, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+    dt = _softplus(dt.float() + params["dt_bias"].float())
+    xh = xi.reshape(b, t, nh, ph)
+    y, _ = _ssd_chunked(xh, bmat, cmat, dt, params["a_log"], chunk=chunk)
+    y = y + xh.float() * params["d_skip"].float()[None, None, :, None]
+    y = y.reshape(b, t, di).to(x.dtype)
+    y = y * F.silu(z)
+    y = rms_norm(y, params["out_norm"], cfg.norm_eps)
+    return torch.einsum("bte,ed->btd", y, params["w_out"])
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log(eˣ + 1) as ``logaddexp(x, 0)``, with no
+    switch to x above a threshold as ``F.softplus`` has."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427)
+# ---------------------------------------------------------------------------
+
+_RGLRU_C = 8.0
+
+
+def rglru_shapes(cfg) -> dict:
+    d = cfg.d_model
+    w = cfg.rglru_width or d
+    return {"w_gate_branch": (d, w), "w_rec_branch": (d, w),
+            "conv_w": (cfg.conv_width, w), "w_a": (w, w), "b_a": (w,),
+            "w_i": (w, w), "b_i": (w,), "lam": (w,), "w_out": (w, d)}
+
+
+def rglru_lambda(w: int, device=None):
+    """float32 Λ = log(expm1(−log(linspace(0.9, 0.999, w)) / c)), so that
+    a = exp(−c·softplus(Λ)) spans [0.9, 0.999], as the reference's eager
+    init computes it (XLA's linspace, log and expm1)."""
+    return X.log(X.expm1(-X.log(X.linspace(0.9, 0.999, w, device=device))
+                         / _RGLRU_C))
+
+
+def init_rglru(key, cfg) -> dict:
+    """The key split 7 ways, the first six drawn; Λ from
+    ``rglru_lambda``."""
+    ks = R.split(key, 7)
+    shapes = rglru_shapes(cfg)
+    dt, dev = cfg.torch_dtype, key.device
+    w = shapes["lam"][0]
+    p = {name: _dense_init(ks[i], shapes[name], dt,
+                           scale=0.5 if name == "conv_w" else None)
+         for i, name in enumerate(("w_gate_branch", "w_rec_branch",
+                                   "conv_w", "w_a", "w_i", "w_out"))}
+    p["b_a"] = torch.zeros((w,), dtype=dt, device=dev)
+    p["b_i"] = torch.zeros((w,), dtype=dt, device=dev)
+    p["lam"] = rglru_lambda(w, dev).to(dt)
+    return p
+
+
+def _rglru_gates(params, u):
+    """-> (a, gated), float32: the recurrence and input gates, a =
+    exp(−c·softplus(Λ)·r) and √max(1 − a², 1e-12) · i · u."""
+    r = torch.sigmoid(torch.einsum("btw,wv->btv", u, params["w_a"]).float()
+                      + params["b_a"].float())
+    i = torch.sigmoid(torch.einsum("btw,wv->btv", u, params["w_i"]).float()
+                      + params["b_i"].float())
+    log_a = -_RGLRU_C * _softplus(params["lam"].float()) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.float())
+    return a, gated
+
+
+def _combine(a1, b1, a2, b2):
+    """The linear recurrence's operator: (a1·a2, a2·b1 + b2), the sum
+    fused as XLA fuses it."""
+    return a1 * a2, _fma64(a2, b1, b2)
+
+
+def _linear_scan(a, b):
+    """h_t = a_t · h_{t-1} + b_t over axis 1, from h = 0: the recursion of
+    ``lax.associative_scan`` (pairs combined, the odd positions scanned
+    recursively, the even ones combined from them, then interleaved), so
+    each h_t has the reference's rounding tree, in about 2·log₂ T levels
+    of strided slices."""
+    t = a.shape[1]
+    if t < 2:
+        return a, b
+    ra, rb = _combine(a[:, 0:t - 1:2], b[:, 0:t - 1:2], a[:, 1::2],
+                      b[:, 1::2])
+    oa, ob = _linear_scan(ra, rb)
+    k = oa.shape[1] - (1 if t % 2 == 0 else 0)
+    ea, eb = _combine(oa[:, :k], ob[:, :k], a[:, 2::2], b[:, 2::2])
+    ea, eb = torch.cat([a[:, :1], ea], 1), torch.cat([b[:, :1], eb], 1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _interleave(even, odd):
+    """even[0], odd[0], even[1], ... along axis 1 (even may be one
+    longer)."""
+    m = odd.shape[1]
+    pairs = torch.stack([even[:, :m], odd], dim=2)
+    out = pairs.reshape((pairs.shape[0], 2 * m) + tuple(pairs.shape[3:]))
+    return torch.cat([out, even[:, m:]], dim=1)
+
+
+def rglru_block(params, cfg, x):
+    """Griffin's recurrent block: gelu(gate branch) · RG-LRU(conv(recurrent
+    branch)). ``jax.nn.gelu`` is the tanh form."""
+    gate = F.gelu(torch.einsum("btd,dw->btw", x, params["w_gate_branch"]),
+                  approximate="tanh")
+    u = torch.einsum("btd,dw->btw", x, params["w_rec_branch"])
+    u = causal_conv1d(u, params["conv_w"])
+    a, gated = _rglru_gates(params, u)
+    _, h = _linear_scan(a, gated)
+    y = h.to(x.dtype) * gate
+    return torch.einsum("btw,wd->btd", y, params["w_out"])

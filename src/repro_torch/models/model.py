@@ -30,7 +30,7 @@ from repro_torch.models import transformer as T
 def param_shapes(cfg) -> dict:
     """{flat key: shape} of ``init_params(key, cfg)``, without drawing
     (the port's ``jax.eval_shape`` of the init), for every registered
-    config, the block kinds this slice does not build included."""
+    config."""
     d, v, kk = cfg.d_model, cfg.vocab_size, cfg.num_codebooks
     shapes = {"embed": (v, d) if kk == 1 else (kk, v, d),
               "final_norm": (d,), **T.stack_shapes(cfg)}

@@ -8,11 +8,11 @@ aggregation kernels see (28 × 2048 × 2048 for qwen3-1.7b's ``wq``) are
 the reference's, and the sorted keys walk the tree in
 ``jax.tree.flatten``'s order.
 
-The port builds the attention blocks (``ATTN``, ``SWA``, ``MLA``) with
-dense gated MLPs or the MoE FFN, whose load-balance loss the stack
-carries in float32 through the layers, as the reference's scan does. The
-Mamba2 SSD and RG-LRU blocks (ROADMAP queue 1, item 15) raise
-``NotImplementedError``.
+Every block kind of the reference is built: the attention blocks
+(``ATTN``, ``SWA``, ``MLA``) and the RG-LRU block with a dense gated MLP
+or the MoE FFN, whose load-balance loss the stack carries in float32
+through the layers, as the reference's scan does, and the Mamba2 SSD
+block, which has no second norm and no FFN.
 """
 from __future__ import annotations
 
@@ -24,19 +24,15 @@ from repro_torch import random as R
 from repro_torch.configs.base import ATTN, MAMBA2, MLA, RGLRU, SWA
 from repro_torch.models import layers as L
 
-_ITEM = {RGLRU: 15, MAMBA2: 15}
-_NAMES = {RGLRU: "the RG-LRU block", MAMBA2: "the Mamba2 SSD block"}
+_MIXER_INIT = {ATTN: L.init_attention, SWA: L.init_attention,
+               MLA: L.init_mla, RGLRU: L.init_rglru, MAMBA2: L.init_mamba2}
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for the block kinds the port does not
-    build yet."""
+    """Raise ``ValueError`` for a block kind the reference does not
+    know."""
     for kind in dict.fromkeys(cfg.block_pattern):
-        if kind in _ITEM:
-            raise NotImplementedError(
-                f"{cfg.name}: {_NAMES[kind]} is not ported yet (ROADMAP "
-                f"queue 1, item {_ITEM[kind]})")
-        if kind not in (ATTN, SWA, MLA):
+        if kind not in _MIXER_INIT:
             raise ValueError(kind)
 
 
@@ -45,25 +41,15 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 def _mixer_shapes(cfg, kind: str) -> dict:
-    """The mixer's leaf shapes for every block kind of the reference,
-    the kinds the port does not build included (shapes are data)."""
-    d = cfg.d_model
+    """The mixer's leaf shapes for every block kind of the reference."""
     if kind in (ATTN, SWA):
         return L.attention_shapes(cfg)
     if kind == MLA:
         return L.mla_shapes(cfg)
     if kind == RGLRU:
-        w = cfg.rglru_width or d
-        return {"w_gate_branch": (d, w), "w_rec_branch": (d, w),
-                "conv_w": (cfg.conv_width, w), "w_a": (w, w), "b_a": (w,),
-                "w_i": (w, w), "b_i": (w,), "lam": (w,), "w_out": (w, d)}
+        return L.rglru_shapes(cfg)
     if kind == MAMBA2:
-        di, n = cfg.ssm_expand * d, cfg.ssm_state
-        nh = di // cfg.ssm_headdim
-        return {"w_in": (d, 2 * di + 2 * n + nh),
-                "conv_w": (cfg.conv_width, di + 2 * n), "a_log": (nh,),
-                "dt_bias": (nh,), "d_skip": (nh,), "out_norm": (di,),
-                "w_out": (di, d)}
+        return L.mamba2_shapes(cfg)
     raise ValueError(kind)
 
 
@@ -83,15 +69,17 @@ def block_shapes(cfg, kind: str) -> dict:
 
 
 def _init_block(key, cfg, kind: str) -> dict:
-    """The mixer from the first of three keys, the FFN from the second."""
+    """The mixer from the first of three keys, the FFN (none in a Mamba2
+    block) from the second."""
     check_supported(cfg)
     k1, k2, _ = R.split(key, 3)
     d = cfg.d_model
-    p = {"norm1": torch.zeros((d,), dtype=cfg.torch_dtype, device=key.device),
-         "norm2": torch.zeros((d,), dtype=cfg.torch_dtype, device=key.device)}
-    mixer = L.init_mla(k1, cfg) if kind == MLA else L.init_attention(k1, cfg)
+    p = {"norm1": torch.zeros((d,), dtype=cfg.torch_dtype, device=key.device)}
+    p.update({f"mixer/{k}": v for k, v in _MIXER_INIT[kind](k1, cfg).items()})
+    if kind == MAMBA2:
+        return p
+    p["norm2"] = torch.zeros((d,), dtype=cfg.torch_dtype, device=key.device)
     ffn = L.init_mlp(k2, cfg) if cfg.moe is None else L.init_moe(k2, cfg)
-    p.update({f"mixer/{k}": v for k, v in mixer.items()})
     p.update({f"ffn/{k}": v for k, v in ffn.items()})
     return p
 
@@ -103,6 +91,10 @@ def _apply_block(params: dict, cfg, kind: str, x, positions, aux):
     mixer = L.subtree(params, "mixer/")
     if kind == MLA:
         x = x + L.mla_attention(mixer, cfg, h, positions)
+    elif kind == RGLRU:
+        x = x + L.rglru_block(mixer, cfg, h)
+    elif kind == MAMBA2:
+        return x + L.mamba2_block(mixer, cfg, h), aux
     else:
         window = cfg.sliding_window if kind == SWA else None
         x = x + L.attention(mixer, cfg, h, positions, window=window)

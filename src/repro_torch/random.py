@@ -108,6 +108,13 @@ def fold_in(key, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+# a draw of more elements than this from one key hashes its counters a
+# block at a time: the int64 counters and float64 temporaries of a whole
+# 655 M-entry leaf (recurrentgemma-2b's embedding) would not fit beside
+# the model on one card
+DRAW_BLOCK = [1 << 24]
+
+
 def random_bits(key, shape: Sequence[int] = ()) -> torch.Tensor:
     """32 random bits per element (as int64 in [0, 2³²)), shape
     key.shape[:-1] + shape."""
@@ -120,6 +127,14 @@ def random_bits(key, shape: Sequence[int] = ()) -> torch.Tensor:
     return y0 ^ y1
 
 
+def _bits_range(key, start: int, stop: int) -> torch.Tensor:
+    """Elements [start, stop) of ``random_bits(key, (size,))`` for a
+    single key: each element hashes its own flat index."""
+    lo = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    y0, y1 = _hash_counters(key, lo, (stop - start,))
+    return y0 ^ y1
+
+
 def _bits_to_unit(bits):
     """uint32 bits -> float32 in [0, 1) through the mantissa of [1, 2)."""
     fb = (bits >> 9) | 0x3F800000
@@ -129,10 +144,13 @@ def _bits_to_unit(bits):
 def uniform(key, shape: Sequence[int] = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniform on [minval, maxval)."""
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    floats = _bits_to_unit(random_bits(key, shape))
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return _uniform_of_bits(random_bits(key, shape), minval, maxval)
+
+
+def _uniform_of_bits(bits, minval: float, maxval: float):
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, _bits_to_unit(bits) * (hi - lo) + lo)
 
 
 def bernoulli(key, p: float, shape: Sequence[int] = ()) -> torch.Tensor:
@@ -247,9 +265,25 @@ def normal(key, shape: Sequence[int] = (), scale: float = 1.0) -> torch.Tensor:
     u uniform on (-1, 1), times ``scale`` as compiled code takes
     ``scale * normal(...)``: XLA folds the two constants into one float32
     product first."""
+    shape = tuple(shape)
+    size = math.prod(shape)
+    block = DRAW_BLOCK[0]
+    if key.dim() > 1 or size <= block:
+        return _normal_of_bits(random_bits(key, shape), scale)
+    if size >= 2 ** 32:
+        raise NotImplementedError("random_bits beyond 2**32 elements")
+    out = torch.empty(size, dtype=torch.float32, device=key.device)
+    for start in range(0, size, block):
+        stop = min(start + block, size)
+        out[start:stop] = _normal_of_bits(_bits_range(key, start, stop),
+                                          scale)
+    return out.reshape(shape)
+
+
+def _normal_of_bits(bits, scale):
+    """``normal``'s map from 32 random bits to a float32 normal."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0)
-    return erfinv(u) * float(np.float32(np.float32(scale)
+    return erfinv(_uniform_of_bits(bits, lo, 1.0)) * float(np.float32(np.float32(scale)
                                         * np.float32(np.sqrt(2))))
 
 

@@ -1,5 +1,6 @@
-"""float32 ``log``, ``log1p``, ``exp`` and ``sqrt`` as XLA's CPU backend
-emits them, in plain PyTorch.
+"""float32 ``log``, ``log1p``, ``exp``, ``expm1``, ``tanh``, ``sqrt``,
+``jnp.linspace`` and ``jnp.cumsum`` as XLA's CPU backend emits them, in
+plain PyTorch.
 
 The reference's compiled code does not call libm: XLA expands each of
 these HLO ops into its own polynomial, and LLVM contracts a product
@@ -134,6 +135,122 @@ def exp(x):
     y = fma_f32(y, r * r, r) + 1.0
     scale = ((torch.nan_to_num(n).int() + 127) << 23).view(torch.float32)
     return ftz(y * scale)
+
+
+_TANH_SMALL = _f32(0x3F3A36E2E0000000)  # 4e-4: tanh(x) = x below it
+_TANH_CLAMP = _f32(0x401FFEC880000000)  # 7.9988...: tanh is ±1 in float32
+_TANH_P = [_f32(b) for b in (
+    0xBCB3E4B800000000, 0x3D4C266FC0000000, 0xBDD7A6FFE0000000,
+    0x3E6B800820000000, 0x3EEF286940000000, 0x3F44E1BDA0000000,
+    0x3F740B3B80000000)]
+_TANH_Q = [_f32(b) for b in (
+    0x3EB41A7B00000000, 0x3F1F12BAC0000000, 0x3F629540A0000000,
+    0x3F740B3BA0000000)]
+
+
+def tanh(x):
+    """float32 tanh, XLA's (Eigen's rational approximation): x·P(x²)/Q(x²)
+    on x clamped to ±7.9988, x itself where |x| < 4e-4, ±1 where |x| ≥
+    20. Where it returns x itself, a subnormal x stays (a select moves its
+    bits; only arithmetic flushes)."""
+    raw = x.float()
+    x = ftz(raw)
+    xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    p = _c(x, _TANH_P[0])
+    for v in _TANH_P[1:]:
+        p = fma_f32(x2, p, _c(x, v))
+    q = _c(x, _TANH_Q[0])
+    for v in _TANH_Q[1:]:
+        q = fma_f32(x2, q, _c(x, v))
+    out = ftz((xc * p) / q)
+    out = torch.where(x.abs() < _TANH_SMALL, raw, out)
+    return torch.where(x.abs() >= 20.0, torch.sign(x), out)
+
+
+def expm1(x):
+    """float32 e^x − 1, XLA's ``exponential-minus-one``: ``exp(x) − 1``
+    where |x| > ½, else tanh(x/2)·(exp(x) + 1) with XLA's tanh, and x
+    itself where x/2 is zero; neither sum is fused with exp's last
+    product, which has two uses."""
+    raw = x.float()
+    x = ftz(raw)
+    e = exp(x)
+    h = ftz(x * 0.5)
+    out = ftz(torch.where(x.abs() > 0.5, e - 1.0, tanh(h) * (e + 1.0)))
+    return torch.where(h == 0, raw, out)
+
+
+# a linspace of more than this many steps stays a loop in XLA's CPU code;
+# up to it LLVM unrolls the loop and folds each 1 - i/div into a constant
+_LINSPACE_UNROLL = 351
+_LINSPACE_BLOCK = 32               # entries a vectorized iteration
+
+
+def linspace(start: float, stop: float, num: int, device=None):
+    """float32 ``jnp.linspace(start, stop, num)`` as its compiled code
+    computes it on the CPU. XLA turns ``i / div`` (div = num − 1) into a
+    product with the rounded reciprocal c and hoists ``stop · c``; each
+    entry is then start·(1 − i·c) + i·(stop·c), ``stop`` appended. In the
+    loop, 1 − i·c is one fused multiply-add and so is the final sum;
+    where LLVM unrolled the loop (up to _LINSPACE_UNROLL steps, and the
+    remainder past the last whole block of _LINSPACE_BLOCK above it) it
+    folded 1 − i·c into a constant with two roundings, and in a loop of
+    under _LINSPACE_BLOCK steps i = 1's product i·(stop·c) folds to
+    stop·c, so that entry fuses the other product. Equal to
+    ``jnp.linspace`` bit for bit up to 4096 entries
+    (``tests/test_torch_xla_math.py``)."""
+    f = dict(dtype=torch.float32, device=device)
+    s, e = torch.tensor(start, **f), torch.tensor(stop, **f)
+    if num <= 1:
+        return s.reshape(1)[:num]
+    div = num - 1
+    i = torch.arange(div, **f)
+    c = torch.tensor(1.0, **f) / div
+    sc = e * c
+    folded = (1.0 - i * c) if div <= _LINSPACE_UNROLL else torch.where(
+        torch.arange(div, device=device) < div // _LINSPACE_BLOCK
+        * _LINSPACE_BLOCK, fma_f32(-i, c.expand(div), _c(i, 1.0)),
+        1.0 - i * c)
+    out = fma_f32(i, sc.expand(div), s * folded)
+    if 1 < div < _LINSPACE_BLOCK:
+        out[1] = fma_f32(s, folded[1], sc)
+    return torch.cat([out, e.reshape(1)])
+
+
+# XLA on the CPU rewrites a cumulative sum over more entries than this
+# into blocks of this many and a cumulative sum of the blocks' totals
+XLA_SCAN_BLOCK = 16
+
+
+def cumsum(x, dim: int):
+    """Cumulative sum along ``dim`` in the order of ``jnp.cumsum``'s
+    compiled code on the CPU: in order within blocks of XLA_SCAN_BLOCK
+    (the last padded with zeros), then each block's running totals,
+    summed the same way, added to it. ``torch.cumsum`` accumulates in
+    float64 on the CPU and parts from it by an ulp or two. Plain ops, so
+    autograd (the gradient a plain reverse sum) and vmap run through it."""
+    return _blocked_cumsum(x.movedim(dim, -1)).movedim(-1, dim)
+
+
+def _blocked_cumsum(x):
+    n, blk = x.shape[-1], XLA_SCAN_BLOCK
+    if n <= blk:
+        return _running_sum(x)
+    m = -(-n // blk) * blk
+    local = _running_sum(F.pad(x, (0, m - n)).reshape(
+        x.shape[:-1] + (m // blk, blk)))
+    prefix = F.pad(_blocked_cumsum(local[..., -1])[..., :-1], (1, 0))
+    return (local + prefix[..., None]).reshape(x.shape[:-1] + (m,))[..., :n]
+
+
+def _running_sum(x):
+    """Σ x[..., :i+1] for each i, added one entry at a time."""
+    cols = x.unbind(-1)
+    acc = [cols[0]]
+    for c in cols[1:]:
+        acc.append(acc[-1] + c)
+    return torch.stack(acc, -1)
 
 
 def sqrt(x):

@@ -5,6 +5,7 @@ giant-n tier, at 130. Trajectories agree to 2e-5, the
 pallas≡gspmd tolerance of the reference's own estimator contract; the c_k
 coins and the communication count agree exactly."""
 import ast
+import dataclasses
 import pathlib
 
 import jax
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro.api import RunSpec as JaxRunSpec
+from repro.api import registry as jax_registry
 from repro.api import run as jax_run
 from repro.api.runner import build as jax_build
 from repro_torch.api import RunSpec, registry, run
@@ -206,15 +208,18 @@ def test_spec_json_is_shared():
 # either task; and, through the registry's resolve and check, those two
 # archs. The MoE configs (deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b) are
 # ported too (tests/test_torch_lm_moe.py, test_torch_lm_moe_train.py):
-# their cases now take the all_to_all backend
-_UNPORTED_ARCHS = {"mamba2-130m": 15, "recurrentgemma-2b": 15}
+# their cases now take the all_to_all backend. So are the state-space and
+# hybrid configs (mamba2-130m, recurrentgemma-2b; tests/test_torch_lm_ssm
+# .py, test_torch_lm_ssm_train.py): their LM cases take the all_to_all
+# backend too, and the registry's check and resolve of them return the
+# reference's
 
 
 @pytest.mark.parametrize("override", [
     {"task": "lm", "arch": "phi3.5-moe-42b-a6.6b", "agg_mode": "all_to_all"},
     {"task": "lm", "arch": "deepseek-v2-lite-16b", "agg_mode": "all_to_all"},
-    {"task": "lm", "arch": "mamba2-130m"},
-    {"task": "lm", "arch": "recurrentgemma-2b"},
+    {"task": "lm", "arch": "mamba2-130m", "agg_mode": "all_to_all"},
+    {"task": "lm", "arch": "recurrentgemma-2b", "agg_mode": "all_to_all"},
     {"agg_mode": "all_to_all"},
     {"task": "lm", "arch": "qwen3-1.7b", "agg_mode": "all_to_all"},
     {"task": "lm", "arch": "qwen2-vl-2b", "agg_mode": "all_to_all"},
@@ -227,14 +232,14 @@ _UNPORTED_ARCHS = {"mamba2-130m": 15, "recurrentgemma-2b": 15}
 def test_unported_components_raise(override):
     if isinstance(override, tuple):
         fn, kind, name = override
-        item = _UNPORTED_ARCHS[name]
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1, item {item}"):
-            getattr(registry, fn)(kind, name)
+        got = getattr(registry, fn)(kind, name)
+        want = getattr(jax_registry, fn)(kind, name)
+        if fn == "resolve":
+            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        assert got == want
         return
-    item = _UNPORTED_ARCHS.get(override.get("arch"), 11)
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1, item {item}"):
+                       match="ROADMAP queue 1, item 11"):
         build(RunSpec(**{**SPEC, **override}), device="cpu")
 
 

@@ -113,6 +113,18 @@ def test_normal_bit_for_bit(seed):
     assert np.array_equal(got.view(np.int32), ref.view(np.int32))
 
 
+@pytest.mark.parametrize("shape", [(333, 61), (4096,)])
+def test_normal_drawn_in_blocks_bit_for_bit(monkeypatch, shape):
+    """A draw larger than ``DRAW_BLOCK`` (here a few hundred elements, a
+    last block short or full) hashes its counters block by block and
+    equals JAX's normal of the whole shape."""
+    monkeypatch.setattr(R, "DRAW_BLOCK", [512])
+    jk, tk = _key(7)
+    got = R.normal(tk, shape).numpy()
+    ref = np.asarray(jax.random.normal(jk, shape))
+    assert np.array_equal(got.view(np.int32), ref.view(np.int32))
+
+
 def test_logreg_features_bit_for_bit_at_a9a_width():
     """The synthetic data at the paper's a9a width (32561 x 123), features
     and labels equal to the reference's."""

@@ -43,7 +43,8 @@ def _bits_equal(got, ref):
 def _inputs(name, seed=0):
     rng = np.random.default_rng(seed)
     lo, hi = {"log": (1e-30, 1e4), "log1p": (-0.999, 50.0),
-              "exp": (-95.0, 95.0)}[name]
+              "exp": (-95.0, 95.0), "expm1": (-95.0, 95.0),
+              "tanh": (-30.0, 30.0)}[name]
     x = np.concatenate([rng.uniform(lo, hi, 100_000),
                         rng.uniform(-0.5, 0.5, 50_000),
                         np.exp(rng.uniform(-80, 80, 50_000)),
@@ -52,13 +53,50 @@ def _inputs(name, seed=0):
     return x.astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["log", "log1p", "exp"])
+@pytest.mark.parametrize("name", ["log", "log1p", "exp", "expm1", "tanh"])
 def test_xla_math_bit_for_bit(name):
     x = _inputs(name)
     with np.errstate(all="ignore"):
         ref = np.asarray(jax.jit(getattr(jnp, name))(x))
     got = getattr(X, name)(torch.from_numpy(x)).numpy()
     assert _bits_equal(got, ref) == 0
+
+
+# jnp.linspace's lengths: every one through the unrolled range and past
+# it, the SSD's and RG-LRU's at reduced and published widths (8, 24; 128,
+# 2560), and block and unroll edges
+LINSPACE_NUMS = (list(range(0, 70)) + [127, 128, 129, 351, 352, 353, 354,
+                                       383, 384, 385, 1000, 2559, 2560,
+                                       4096])
+
+
+@pytest.mark.parametrize("start,stop", [(1.0, 16.0), (0.9, 0.999),
+                                        (-3.0, 7.5)])
+def test_linspace_bit_for_bit(start, stop):
+    """``xla_math.linspace`` against ``jnp.linspace`` (which is jitted):
+    the unrolled loop's folded constants, the vectorized loop's fused
+    ones and the remainder past its last block."""
+    for num in LINSPACE_NUMS:
+        want = np.asarray(jnp.linspace(start, stop, num))
+        got = X.linspace(start, stop, num).numpy()
+        assert got.shape == want.shape, num
+        assert _bits_equal(got, want) == 0, num
+
+
+@pytest.mark.parametrize("n", [7, 16, 17, 64, 100, 300])
+def test_cumsum_bit_for_bit(n):
+    """``xla_math.cumsum`` against the jitted ``jnp.cumsum`` (blocks of
+    16, the blocks' totals summed the same way, one level or two); the
+    SSD's log decays difference its running sums. ``torch.cumsum``
+    accumulates in float64 on the CPU and parts from it."""
+    x = (np.random.default_rng(n).standard_normal((3, n, 5)) * 0.3
+         - 0.1).astype(np.float32)
+    want = np.asarray(jax.jit(lambda v: jnp.cumsum(v, axis=1))(x))
+    got = X.cumsum(torch.from_numpy(x), 1).numpy()
+    assert _bits_equal(got, want) == 0
+    if n > 16:
+        assert _bits_equal(torch.cumsum(torch.from_numpy(x), 1).numpy(),
+                           want) > 0
 
 
 def test_libm_differs_where_xla_math_does_not():
