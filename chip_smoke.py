@@ -66,7 +66,17 @@ reduced float32 twins of mamba2-130m and recurrentgemma-2b against the
 CPU path, mamba2-130m at full width (24 layers, no cut) through
 ``api.run`` and ``launch.train.main``, and recurrentgemma-2b at its
 published widths cut to 8 of its 26 layers (registered here as
-recurrentgemma-2b-8l), checked as qwen3-1.7b is.
+recurrentgemma-2b-8l), checked as qwen3-1.7b is. Each LM phase ends by
+decoding on its last full-width run's parameters through
+``launch.serve.generate`` (greedy, 4 sequences, a 16-token prompt, 32
+generated): ms a decode step, tokens a second, peak memory, no kernel
+launch, the timed call equal to the warm one bit for bit, and (but for
+the MoE model, whose capacity counts a step's tokens) float32 decode
+against the float32 forward; the reduced float32 twin's decode against
+the CPU path; and ``launch.serve.main`` at its defaults. The chaos
+phase runs the port's ``launch.chaos.main(["--smoke"])`` on the card:
+a GREEN report, each cell's launches exact and each cell held to the
+same cell on the CPU.
 The masked kernels (``valid`` in the
 load, the masked coordinate rule) are held to their plain versions beside
 the unmasked ones, and so is every load (dense float32 or bfloat16, the
@@ -1085,14 +1095,15 @@ def expected_counts(aggregator, full, vr, giant=False, guard=False,
     return counts
 
 
-def zoo_counts(aggregator, rounds, fmt="dense") -> dict:
+def zoo_counts(aggregator, rounds, fmt="dense", guard=False) -> dict:
     """Launches of a run of the method zoo: no aggregation at init, one
     a round, on the packed b+w segment (``fmt`` "dense") or on each of
-    the two leaves' wire payloads."""
+    the two leaves' wire payloads; every one masked under the fault
+    guard."""
     counts = dict.fromkeys(COUNTED, 0)
     leaves = 1 if fmt == "dense" else 2
     for name, times in PER_AGG[aggregator].items():
-        _add(counts, name, fmt, times * leaves * rounds)
+        _add(counts, name, fmt, times * leaves * rounds, guard)
     return counts
 
 
@@ -2392,7 +2403,8 @@ def _lm_full_width(dev, card, spec, steps, segments, cut) -> tuple:
     after the first, tokens a second, peak memory), then the first
     LM_REPEAT_STEPS rounds again, equal bit for bit (params and g), with
     the last of them held to the plain versions leaf by leaf. ``cut``
-    states the depth. -> (row, {path: launches})."""
+    states the depth. -> (row, {path: launches}, the repeat's params, for
+    the decode check; the rest of its state freed)."""
     arch = spec["arch"]
     res, round_ms, counts, kept, peak = _lm_run(dev, spec, steps, arch, card,
                                                 keep_at=LM_REPEAT_STEPS - 1)
@@ -2445,8 +2457,11 @@ def _lm_full_width(dev, card, spec, steps, segments, cut) -> tuple:
           f"{worst:.3e} of KERNEL_TOL x scale [{card}]", flush=True)
     row.update(repeat_bitwise=True, plain_rows=plain.rows,
                repeat_peak_bytes=peak2)
+    params = res.state["params"]
+    del res, kept
+    torch.cuda.empty_cache()
     return row, {f"lm {arch}": {"launches": counts},
-                 f"lm {arch} repeat": {"launches": counts2}}
+                 f"lm {arch} repeat": {"launches": counts2}}, params
 
 
 def _lm_cli(card, arch, segments) -> dict:
@@ -2481,14 +2496,19 @@ def lm_phase(dev, card) -> dict:
     CPU path; qwen3-1.7b at full width through api.run (launches a round
     exact, ms a round, tokens a second, peak memory), its first rounds
     again, bit for bit, with one round's aggregation held to the plain
-    versions leaf by leaf; and launch.train.main in process."""
+    versions leaf by leaf; launch.train.main in process; and decoding
+    (``_decode``) on the full-width run's parameters and the twin's."""
     t_phase = time.time()
     out = {"kernel_rows": [kernel_case(c, dev) for c in LM_KERNEL_CASES]}
     out["paths"] = {"lm reduced twin": _lm_twin(dev, card, "qwen3-1.7b")}
-    row, paths = _lm_full_width(dev, card, LM_SPEC, LM_STEPS,
-                                {"dense_bf16": LM_LEAVES},
-                                "28 layers (no depth cut)")
+    row, paths, params = _lm_full_width(dev, card, LM_SPEC, LM_STEPS,
+                                        {"dense_bf16": LM_LEAVES},
+                                        "28 layers (no depth cut)")
     out["paths"].update(paths)
+    out["decode"], paths = _decode(dev, card, "qwen3-1.7b", params,
+                                   "qwen3-1.7b")
+    out["paths"].update(paths)
+    del params
     out["paths"]["lm launch.train"] = _lm_cli(card, "qwen3-1.7b",
                                               {"dense_bf16": LM_LEAVES})
     out["full_width"] = row
@@ -2503,17 +2523,24 @@ def lm_moe_phase(dev, card) -> dict:
     layer) against its plain version; the reduced float32 twins of
     deepseek-v2-lite-16b and phi3.5-moe against the CPU path; deepseek at
     full width, cut to LM_MOE_LAYERS layers, through api.run as the LM
-    phase runs qwen3-1.7b, and through launch.train.main."""
+    phase runs qwen3-1.7b, and through launch.train.main; decoding as
+    the LM phase's, without the float32 check."""
     t_phase = time.time()
     register_moe_cut()
     out = {"kernel_rows": [kernel_case(c, dev) for c in LM_MOE_KERNEL_CASES]}
     out["paths"] = {f"lm {arch} reduced twin": _lm_twin(dev, card, arch)
                     for arch in LM_MOE_TWINS}
-    row, paths = _lm_full_width(
+    row, paths, params = _lm_full_width(
         dev, card, LM_MOE_SPEC, LM_MOE_STEPS, {"dense_bf16": LM_MOE_LEAVES},
         f"{LM_MOE_LAYERS} of 27 layers (depth cut; every width, the 64 "
         "routed and 2 shared experts, top-6 and vocab as published)")
     out["paths"].update(paths)
+    # no float32 check: the MoE capacity int(1.25 t k / e) + 1 counts the
+    # step's B tokens, so a decode step drops what the forward keeps
+    out["decode"], paths = _decode(dev, card, LM_MOE_ARCH, params,
+                                   "deepseek-v2-lite-16b", f32_check=False)
+    out["paths"].update(paths)
+    del params
     out["paths"][f"lm launch.train {LM_MOE_ARCH}"] = _lm_cli(
         card, LM_MOE_ARCH, {"dense_bf16": LM_MOE_LEAVES})
     out["full_width"] = row
@@ -2530,7 +2557,9 @@ def lm_ssm_phase(dev, card) -> dict:
     the LM phase runs qwen3-1.7b, and through launch.train.main; and
     recurrentgemma-2b at its published widths cut to LM_SSM_RG_LAYERS
     layers through api.run. The launches an aggregation are the packing
-    rule's (``lm_segments``), checked against the stated counts."""
+    rule's (``lm_segments``), checked against the stated counts. Each
+    model then decodes as the LM phase's, and ``launch.serve.main`` runs
+    after mamba2-130m's."""
     t_phase = time.time()
     register_ssm_cut()
     for arch, want in ((LM_SSM_MAMBA, LM_SSM_MAMBA_SEGMENTS),
@@ -2541,7 +2570,7 @@ def lm_ssm_phase(dev, card) -> dict:
     out = {"kernel_rows": [kernel_case(c, dev) for c in LM_SSM_KERNEL_CASES]}
     out["paths"] = {f"lm {arch} reduced twin": _lm_twin(dev, card, arch)
                     for arch in LM_SSM_TWINS}
-    rows = {}
+    rows, out["decode"] = {}, {}
     for arch, segments, cut in (
             (LM_SSM_MAMBA, LM_SSM_MAMBA_SEGMENTS,
              "24 layers (no depth cut)"),
@@ -2549,15 +2578,442 @@ def lm_ssm_phase(dev, card) -> dict:
              f"{LM_SSM_RG_LAYERS} of 26 layers (depth cut: 2 groups of "
              "RG-LRU, RG-LRU, local attention and the 2-block tail; every "
              "width, the heads, the window and vocab as published)")):
-        rows[arch], paths = _lm_full_width(
+        rows[arch], paths, params = _lm_full_width(
             dev, card, dict(LM_SPEC, arch=arch), LM_SSM_STEPS, segments, cut)
         out["paths"].update(paths)
+        twin = LM_SSM_MAMBA if arch == LM_SSM_MAMBA else "recurrentgemma-2b"
+        out["decode"][arch], paths = _decode(dev, card, arch, params, twin)
+        out["paths"].update(paths)
+        del params
+        if arch == LM_SSM_MAMBA:
+            out["paths"]["decode launch.serve"] = _serve_cli(card)
     out["paths"][f"lm launch.train {LM_SSM_MAMBA}"] = _lm_cli(
         card, LM_SSM_MAMBA, LM_SSM_MAMBA_SEGMENTS)
     out["full_width"] = rows
     out["phase_s"] = time.time() - t_phase
     print(f"[lm_ssm] phase {out['phase_s']:.1f} s [{card}]", flush=True)
     return out
+
+
+# decoding at the end of each LM phase: ``launch.serve.generate``, greedy,
+# at the serve CLI's defaults (4 sequences, a 16-token prompt fed through
+# decode steps, 32 generated), on the parameters the phase's last
+# full-width run left
+DECODE_BATCH, DECODE_PROMPT, DECODE_GEN = 4, 16, 32
+DECODE_SEED = 0
+DECODE_ATOL, DECODE_RTOL = 2e-4, 2e-3  # decode against the forward, as
+#                                      the reference's tests/test_decode.py
+DECODE_TWIN_TOL = 2e-5                 # x the step's largest |logit|
+DECODE_RESP_FACTOR = 8                 # x the forward's rounding response
+DECODE_TWINS = ("qwen3-1.7b", "deepseek-v2-lite-16b", "mamba2-130m",
+                "recurrentgemma-2b")
+
+
+class _Steps:
+    """While entered, ``launch.serve``'s ``decode_step`` is wrapped: it
+    keeps each step's logits (``keep_all``) or the last, and on the card
+    records CUDA events around each step (no host read between steps)."""
+
+    def __init__(self, keep_all=False, timed=False):
+        self.keep_all, self.timed = keep_all, timed
+        self.logits, self.marks, self.last = [], [], None
+
+    def __enter__(self):
+        from repro_torch.launch import serve
+        self.mod, self.real = serve, serve.decode_step
+        serve.decode_step = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.decode_step = self.real
+
+    def __call__(self, params, cfg, cache, tokens):
+        if self.timed:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+        logits, cache = self.real(params, cfg, cache, tokens)
+        if self.timed:
+            b.record()
+            self.marks.append((a, b))
+        if self.keep_all:
+            self.logits.append(logits)
+        self.last = logits
+        return logits, cache
+
+    def step_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.marks]
+
+
+def _decode_prompt(cfg, device):
+    """The serve CLI's prompt: ``randint`` under the seed's key."""
+    from repro_torch import random as R
+    return R.randint(R.PRNGKey(DECODE_SEED, device=device),
+                     (DECODE_BATCH, DECODE_PROMPT), 0, cfg.vocab_size)
+
+
+def _decode_twin_run(arch, device="cpu", threads=None) -> tuple:
+    """Greedy ``generate`` of ``arch``'s reduced float32 twin, its
+    parameters and prompt made on the CPU from DECODE_SEED, on ``device``
+    -> (tokens, every step's logits) as numpy."""
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    if threads is not None:
+        torch.set_num_threads(threads)
+    cfg = get_config(arch).reduced()
+    params = {k: v.to(device) for k, v in
+              init_params(R.PRNGKey(DECODE_SEED), cfg).items()}
+    prompt = _decode_prompt(cfg, "cpu").to(device)
+    with _Steps(keep_all=True) as steps:
+        out = serve.generate(cfg, params, prompt, DECODE_GEN)
+    return (out.cpu().numpy(),
+            torch.stack(steps.logits, 1).float().cpu().numpy())
+
+
+def _decode_twin(dev, card, arch) -> dict:
+    """The reduced float32 twin's decode on the card against the CPU
+    path: greedy tokens equal, each step's logits within DECODE_TWIN_TOL
+    of that step's largest |logit|; no kernel launch."""
+    reset_counts()
+    toks, logits = _decode_twin_run(arch, dev)
+    counts = read_counts()
+    want_toks, want = CPU_RUNS.result(f"decode {arch}", _decode_twin_run,
+                                      arch)
+    scale = np.abs(want).max(axis=(0, 2))            # (B, step, V)
+    worst = float((np.abs(logits - want).max(axis=(0, 2)) / scale).max())
+    print(f"[decode {arch} reduced twin] {DECODE_BATCH} x "
+          f"({DECODE_PROMPT} + {DECODE_GEN}) tokens vs the CPU plain path: "
+          f"tokens equal {np.array_equal(toks, want_toks)}, worst logit err "
+          f"{worst:.3e} of the step's largest |logit| (limit "
+          f"{DECODE_TWIN_TOL}); launches {nonzero(counts)} [{card}]",
+          flush=True)
+    if not np.array_equal(toks, want_toks) or not worst <= DECODE_TWIN_TOL:
+        raise AssertionError(f"decode {arch} twin: differs from the CPU "
+                             f"path (logit err {worst})")
+    if nonzero(counts):
+        raise AssertionError(f"decode {arch} twin: launches "
+                             f"{nonzero(counts)}")
+    return {"launches": counts, "worst_logit_err": worst}
+
+
+def _block_overs(cfg, params, seq) -> list:
+    """Each block's teacher-forced decode against its own forward on the
+    forward's input to it (so no block inherits another's rounding):
+    per block in depth order, max(|decode - forward| - DECODE_RTOL
+    |forward|) over the sequence."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    pat, n_groups, tail = T._split_depth(cfg)
+    blocks = [(f"groups/{j}/", r, kind) for r in range(n_groups)
+              for j, kind in enumerate(pat)]
+    blocks += [(f"tail/{i}/", None, kind) for i, kind in enumerate(tail)]
+    b, s = seq.shape[:2]
+    x = M._embed(params, cfg, seq)
+    positions = M._positions(cfg, {"tokens": seq}, s, seq.device)
+    aux = torch.zeros((), dtype=torch.float32, device=seq.device)
+    overs = []
+    for prefix, r, kind in blocks:
+        bp = L.subtree(params, prefix)
+        if r is not None:
+            bp = {k: v[r] for k, v in bp.items()}
+        y, aux = T._apply_block(bp, cfg, kind, x, positions, aux)
+        cache = T._init_block_cache(cfg, kind, b, s, seq.device)
+        dec = []
+        for t in range(s):
+            o, cache = T._decode_block(bp, cfg, kind, x[:, t:t + 1], cache)
+            dec.append(o)
+        dec = torch.cat(dec, 1)
+        overs.append(float(((dec - y).abs() - DECODE_RTOL * y.abs()).max()))
+        x = y
+    return overs
+
+
+def _rounding_response(cfg, params, seq, full) -> tuple:
+    """How far the float32 forward itself moves when its embedding table
+    is perturbed at float32's rounding scale (each entry times 1 ± 2⁻²³,
+    the sign from a seeded draw) -> (max |logits - ``full``|, max of
+    |logits - ``full``| - DECODE_RTOL |``full``|)."""
+    from repro_torch.models import forward
+    gen = torch.Generator(device=seq.device).manual_seed(DECODE_SEED)
+    emb = params["embed"]
+    sign = torch.randint(0, 2, emb.shape, generator=gen,
+                         device=emb.device).to(emb.dtype) * 2 - 1
+    pert = dict(params, embed=emb * (1 + sign * 2.0 ** -23))
+    del sign
+    moved, _ = forward(pert, cfg, {"tokens": seq, "labels": seq})
+    err = (moved - full).abs()
+    return float(err.max()), float((err - DECODE_RTOL * full.abs()).max())
+
+
+def _decode_f32(cfg, params, seq, arch, card) -> dict:
+    """``params`` upcast to float32 and ``seq`` teacher-forced through
+    decode steps against the float32 forward on the card. Every block's
+    own decode (``_block_overs``) must hold DECODE_ATOL / DECODE_RTOL, and
+    so must the logits; but where the float32 forward itself leaves that
+    tolerance when its embedding moves by one rounding
+    (``_rounding_response``), so that no float32 sum in another order
+    could meet it, the logits' gap is held to DECODE_RESP_FACTOR times
+    that response instead."""
+    import dataclasses
+    from repro_torch.models import decode_step, forward, init_cache
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    b, s = seq.shape[:2]
+    cache = init_cache(cfg32, b, s, seq.device)
+    dec = []
+    for t in range(s):
+        lg, cache = decode_step(p32, cfg32, cache, seq[:, t])
+        dec.append(lg)
+    dec = torch.stack(dec, 1)
+    full, _ = forward(p32, cfg32, {"tokens": seq, "labels": seq})
+    gap = float((dec - full).abs().max())
+    over = float(((dec - full).abs() - DECODE_RTOL * full.abs()).max())
+    resp, resp_over = _rounding_response(cfg32, p32, seq, full)
+    del dec, cache
+    blocks = _block_overs(cfg32, p32, seq)
+    del p32, full
+    torch.cuda.empty_cache()
+    conditioned = resp_over > DECODE_ATOL
+    held = (gap <= DECODE_RESP_FACTOR * resp if conditioned
+            else over <= DECODE_ATOL)
+    print(f"[decode {arch}] float32 (parameters upcast), {s} teacher-forced "
+          f"steps against the float32 forward on the card: logits max "
+          f"|err| {gap:.3e}, max of |err| - rtol |forward| {over:.3e}; the "
+          f"forward's own move under a one-rounding embedding change "
+          f"{resp:.3e}; each of {len(blocks)} blocks' decode on its forward "
+          f"input: max of |err| - rtol |forward| {max(blocks):.3e} (limit "
+          f"atol {DECODE_ATOL}, rtol {DECODE_RTOL}"
+          + (f"; the forward's rounding response alone passes atol, so the "
+             f"logits are held to {DECODE_RESP_FACTOR} x it"
+             if conditioned else "") + f") [{card}]", flush=True)
+    if not held or not max(blocks) <= DECODE_ATOL:
+        raise AssertionError(f"decode {arch}: float32 decode differs from "
+                             f"the forward (logits {gap}, over {over}, "
+                             f"blocks {max(blocks)})")
+    return {"f32_max_abs_err": gap, "f32_over": over,
+            "f32_rounding_response": resp, "f32_conditioned": conditioned,
+            "f32_block_overs": blocks}
+
+
+def _decode_full_width(dev, card, arch, params, f32_check=True) -> tuple:
+    """``launch.serve.generate`` on ``arch`` at full width on ``params``
+    (the phase's last full-width run's): a warm call, then a timed one
+    (ms a decode step p50 from CUDA events around each step, generated
+    tokens a second over the call, synchronised at its end, peak memory);
+    the timed call's tokens and last logits equal to the warm call's bit
+    for bit; no kernel launch. With ``f32_check``, the 48 tokens in
+    float32 against the forward (``_decode_f32``). -> (row, {path:
+    launches})."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = get_config(arch)
+    prompt = _decode_prompt(cfg, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    with _Steps() as warm:
+        first = serve.generate(cfg, params, prompt, DECODE_GEN)
+    torch.cuda.synchronize(dev)
+    with _Steps(timed=True) as steps:
+        t0 = time.perf_counter()
+        out = serve.generate(cfg, params, prompt, DECODE_GEN)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = steps.step_ms()
+    p50 = statistics.median(step_ms)
+    tps = DECODE_BATCH * DECODE_GEN / wall
+    same = torch.equal(out, first) and torch.equal(steps.last, warm.last)
+    finite = bool(torch.isfinite(steps.last).all())
+    aggs = sum(v for k, v in counts.items() if k.startswith("robust_agg"))
+    print(f"[decode {arch}] full width, bfloat16, generate greedy at "
+          f"batch {DECODE_BATCH}, prompt {DECODE_PROMPT}, gen "
+          f"{DECODE_GEN}: ms per decode step p50 {p50:.3f} over "
+          f"{len(step_ms)} steps (CUDA events around each step; min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}); {tps:.1f} "
+          f"generated tokens/s (the timed call {wall * 1e3:.1f} ms, "
+          f"synchronised); peak {peak / 2**30:.2f} GiB allocated; tokens "
+          f"and last logits equal to the warm call's: {same}; robust_agg "
+          f"launches {aggs}, all kernels {nonzero(counts)} [{card}]",
+          flush=True)
+    if not same or not finite:
+        raise AssertionError(f"decode {arch}: the timed call does not "
+                             f"repeat the warm one bit for bit (finite "
+                             f"{finite})")
+    if nonzero(counts):
+        raise AssertionError(f"decode {arch}: serving launched "
+                             f"{nonzero(counts)}")
+    row = {"arch": arch, "batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+           "gen": DECODE_GEN, "step_ms": step_ms, "ms_per_step_p50": p50,
+           "tokens_per_s": tps, "wall_s": wall, "peak_bytes": peak,
+           "repeat_bitwise": same}
+    if f32_check:
+        row.update(_decode_f32(cfg, params, torch.cat([prompt, out], dim=1),
+                               arch, card))
+    return row, {f"decode {arch}": {"launches": counts}}
+
+
+def _decode(dev, card, arch, params, twin, f32_check=True) -> tuple:
+    """The decode checks of one LM phase's model: full width on
+    ``params``, and the reduced twin of ``twin``."""
+    row, paths = _decode_full_width(dev, card, arch, params, f32_check)
+    paths[f"decode {twin} reduced twin"] = _decode_twin(dev, card, twin)
+    return row, paths
+
+
+def _serve_cli(card) -> dict:
+    """``launch.serve.main`` in process at its defaults (mamba2-130m at
+    full width, on the card): tokens of the CLI's shape, no launch."""
+    from repro_torch.launch import serve
+    torch.cuda.empty_cache()
+    reset_counts()
+    res = serve.main([])
+    counts = read_counts()
+    print(f"[decode launch.serve] mamba2-130m in process: tokens "
+          f"{tuple(res['tokens'].shape)}, steady {res['steady_s']:.3f} s, "
+          f"{res['tokens_per_s']:.1f} tokens/s; launches {nonzero(counts)} "
+          f"[{card}]", flush=True)
+    if tuple(res["tokens"].shape) != (DECODE_BATCH, DECODE_GEN) or \
+            nonzero(counts):
+        raise AssertionError(f"launch.serve: tokens "
+                             f"{tuple(res['tokens'].shape)}, launches "
+                             f"{nonzero(counts)}")
+    return {"launches": counts, "tokens_per_s": res["tokens_per_s"]}
+
+
+# the chaos phase: ``launch.chaos.main(["--smoke"])`` in process on the
+# card at the CLI's defaults (12 workers, 2 Byzantine, 2 faulty, 8
+# rounds; cm and rfa x gspmd and pallas x nan_grad, stale_replay, and
+# corrupt_wire on pallas alone)
+CHAOS_CFG = dict(n_workers=12, n_byz=2, n_faulty=2, steps=8, seed=0)
+CHAOS_LOG_EVERY = 2                # the smoke grid's
+CHAOS_CELLS = [(kind, rule, backend)
+               for kind in ("nan_grad", "stale_replay", "corrupt_wire")
+               for rule in ("cm", "rfa") for backend in ("gspmd", "pallas")
+               if kind != "corrupt_wire" or backend == "pallas"]
+CHAOS_TOL = 2e-5                   # final loss, relative, card vs CPU
+
+
+def _chaos_cpu(threads=None) -> dict:
+    """Each smoke cell's ``run_cell`` on the CPU, and a MARINA cell's
+    coins round by round (``log_every`` 1: the trajectory is the same)."""
+    from repro_torch.api import run
+    from repro_torch.launch import chaos
+    if threads is not None:
+        torch.set_num_threads(threads)
+    out = {}
+    for kind, rule, backend in CHAOS_CELLS:
+        spec = chaos.cell_spec(rule, backend, kind, **CHAOS_CFG)
+        cell = chaos.run_cell(spec, kind, log_every=CHAOS_LOG_EVERY,
+                              device="cpu")
+        if spec.method == "marina":
+            cell["c_k"] = [int(h["c_k"]) for h in
+                           run(spec, device="cpu", log_every=1).history]
+        out[f"{kind} {rule} {backend}"] = cell
+    return out
+
+
+def chaos_counts(spec, ck) -> dict:
+    """Launches of a chaos cell: none off pallas; on it, the warm-up's
+    steps (an untraced one and, under the trace, a traced one: each round
+    0 again) and every round, with every launch masked by the guard:
+    sgd aggregates the packed b+w segment once a round, MARINA on the
+    TopK wire as ``expected_counts`` (``ck``: its coins round by
+    round)."""
+    if spec.agg_mode != "pallas":
+        return dict.fromkeys(COUNTED, 0)
+    warm = 2 if spec.trace else 1
+    if spec.method == "sgd":
+        return zoo_counts(spec.aggregator, spec.steps + warm, guard=True)
+    ck = list(ck) + [ck[0]] * warm
+    return expected_counts(spec.aggregator, sum(ck), len(ck) - sum(ck),
+                           guard=True)
+
+
+def chaos_phase(dev, card) -> dict:
+    """The port's chaos CLI on the card: ``--smoke`` exits 0 with a GREEN
+    report and a verified stream; each cell's launches exact by
+    ``chaos_counts``, the guard-off control's none; each cell held to the
+    same cell on the CPU (final loss within CHAOS_TOL relative, finite,
+    recall and precision equal)."""
+    from repro_torch.api import RunSpec
+    from repro_torch.launch import chaos
+    t_phase = time.time()
+    out_dir = ROOT / "build" / "chip_smoke_chaos"
+    real_cell, real_run, got = chaos.run_cell, RunSpec.run, {}
+
+    def counted_cell(spec, kind, **kw):
+        res = {}
+
+        def run(self, *a, **k):
+            res["run"] = real_run(self, *a, **k)
+            return res["run"]
+
+        reset_counts()
+        RunSpec.run = run
+        try:
+            cell = real_cell(spec, kind, **kw)
+        finally:
+            RunSpec.run = real_run
+        got[f"{kind} {spec.aggregator} {spec.agg_mode}"] = (
+            spec, cell, read_counts(), res["run"].history)
+        return cell
+
+    chaos.run_cell = counted_cell
+    try:
+        rc = chaos.main(["--smoke", "--out-dir", str(out_dir)])
+    finally:
+        chaos.run_cell = real_cell
+    ctrl_counts = read_counts()          # the last cell's and the control's
+    report = json.loads((out_dir / "fault_report.json").read_text())
+    if rc != 0 or not report["green"]:
+        raise AssertionError(f"chaos --smoke on the card: exit {rc}, "
+                             f"green {report['green']}")
+    if sorted(got) != sorted(f"{k} {r} {b}" for k, r, b in CHAOS_CELLS):
+        raise AssertionError(f"chaos: cells {sorted(got)}")
+    cpu = CPU_RUNS.result("chaos cpu", _chaos_cpu)
+    paths, rows = {}, {}
+    for tag, (spec, cell, counts, hist) in got.items():
+        want_cell = cpu[tag]
+        ck = want_cell.get("c_k")
+        if ck is not None and [int(h["c_k"]) for h in hist] != [
+                ck[h["step"]] for h in hist]:
+            raise AssertionError(f"chaos {tag}: coins differ from the CPU")
+        want = chaos_counts(spec, ck)
+        a, b = cell["final_loss"], want_cell["final_loss"]
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        same = all(cell[k] == want_cell[k] for k in
+                   ("finite", "fault_recall", "fault_precision",
+                    "rounds_traced"))
+        print(f"[chaos {tag}] launches {nonzero(counts)} (expected "
+              f"{nonzero(want)}); final loss {a:.6f} vs the CPU's {b:.6f} "
+              f"(rel {rel:.3e}, limit {CHAOS_TOL}); recall "
+              f"{cell['fault_recall']}, precision {cell['fault_precision']}"
+              f", finite {cell['finite']}: equal to the CPU's {same} "
+              f"[{card}]", flush=True)
+        if counts != want:
+            raise AssertionError(f"chaos {tag}: launches {nonzero(counts)}, "
+                                 f"expected {nonzero(want)}")
+        if not same or not rel <= CHAOS_TOL:
+            raise AssertionError(f"chaos {tag}: differs from the CPU cell "
+                                 f"({cell} vs {want_cell})")
+        paths[f"chaos {tag}"] = {"launches": counts}
+        rows[tag] = {**cell, "cpu_final_loss": b, "rel_loss_diff": rel}
+    if ctrl_counts != got[next(reversed(got))][2]:
+        raise AssertionError("chaos: the guard-off control launched "
+                             f"{nonzero(ctrl_counts)}")
+    if report["device"] != "cuda":
+        raise AssertionError(f"chaos: ran on {report['device']}")
+    phase_s = time.time() - t_phase
+    print(f"[chaos] phase {phase_s:.1f} s: GREEN, {len(rows)} cells held "
+          f"to the CPU, the control non-finite [{card}]", flush=True)
+    return {"paths": paths, "cells": rows, "phase_s": phase_s,
+            "control_guard_off_nonfinite":
+            report["control_guard_off_nonfinite"]}
 
 
 # the CPU checks' plain runs: CPU_POOL_WORKERS processes of
@@ -2590,20 +3046,27 @@ class _CpuRuns:
     def __init__(self):
         self.pool, self.futures = None, {}
 
-    def start(self, specs):
+    def start(self, specs, jobs=()):
+        """Hand over the runs of ``specs``, and ``jobs``: (key, fn, args)
+        whose ``fn(*args, threads)`` is a plain CPU check's result."""
         import concurrent.futures as cf
         import multiprocessing as mp
         self.pool = cf.ProcessPoolExecutor(
             CPU_POOL_WORKERS, mp_context=mp.get_context("spawn"))
-        for spec in specs:
-            key = _spec_key(spec)
+        jobs = [(_spec_key(spec), _cpu_history, (spec,)) for spec in specs
+                ] + list(jobs)
+        for key, fn, args in jobs:
             if key not in self.futures:
-                self.futures[key] = self.pool.submit(_cpu_history, spec,
+                self.futures[key] = self.pool.submit(fn, *args,
                                                      CPU_POOL_THREADS)
 
+    def result(self, key, fn, *args):
+        """``fn(*args)``: the pool's result for ``key``, or run here."""
+        fut = self.futures.pop(key, None)
+        return fn(*args) if fut is None else fut.result()
+
     def history(self, spec) -> list:
-        fut = self.futures.pop(_spec_key(spec), None)
-        return _cpu_history(spec) if fut is None else fut.result()
+        return self.result(_spec_key(spec), _cpu_history, spec)
 
     def close(self):
         if self.pool is not None:
@@ -2698,8 +3161,8 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", choices=("all", "kernels", "tracer",
-                                         "zoo_obs", "exec", "serve", "lm",
-                                         "lm_moe", "lm_ssm"),
+                                         "zoo_obs", "exec", "serve", "chaos",
+                                         "lm", "lm_moe", "lm_ssm"),
                     default="all",
                     help="'kernels': the kernel phases alone (no paths, "
                          "no kernels line), e.g. to time another tree's "
@@ -2712,12 +3175,13 @@ def main(argv=None) -> int:
                          "the checkpoint, resume, warm-up, worker-pool "
                          "sweep and seed-group checks alone (no kernels "
                          "line); 'serve': the build and the streaming "
-                         "service's phase alone (no kernels line); 'lm': "
-                         "the build and the LM phase alone (no kernels "
-                         "line); 'lm_moe': the build and the MLA and MoE "
-                         "phase alone (no kernels line); 'lm_ssm': the build "
-                         "and the SSD and RG-LRU phase alone (no kernels "
-                         "line)")
+                         "service's phase alone (no kernels line); 'chaos': "
+                         "the build and the chaos CLI's phase alone (no "
+                         "kernels line); 'lm': the build and the LM phase "
+                         "alone, its decode included (no kernels line); "
+                         "'lm_moe': the build and the MLA and MoE phase "
+                         "alone (no kernels line); 'lm_ssm': the build and "
+                         "the SSD and RG-LRU phase alone (no kernels line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2742,6 +3206,8 @@ def main(argv=None) -> int:
     for name, log in _build.build().items():
         print(f"[build] {name}.cu ({time.time() - t0:.1f} s):\n{log.strip()}",
               flush=True)
+    print(f"[build] every kernel built in {time.time() - t0:.1f} s",
+          flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     share_cpu_data()
@@ -2753,13 +3219,14 @@ def main(argv=None) -> int:
         print(f"[done] the zoo_obs paths alone, "
               f"{time.time() - t_start:.1f} s", flush=True)
         return 0
-    if args.phases == "serve":
-        got = serve_phase(dev, card)
-        (out_dir / "chip_smoke_serve.json").write_text(json.dumps(
+    if args.phases in ("serve", "chaos"):
+        got = {"serve": serve_phase,
+               "chaos": chaos_phase}[args.phases](dev, card)
+        (out_dir / f"chip_smoke_{args.phases}.json").write_text(json.dumps(
             {"card": card, "torch": torch.__version__, **got,
              "wall_s": time.time() - t_start}, indent=1, default=str))
-        print(f"[done] the serve phase alone, {time.time() - t_start:.1f} s",
-              flush=True)
+        print(f"[done] the {args.phases} phase alone, "
+              f"{time.time() - t_start:.1f} s", flush=True)
         return 0
     if args.phases in ("lm", "lm_moe", "lm_ssm"):
         got = {"lm": lm_phase, "lm_moe": lm_moe_phase,
@@ -2794,7 +3261,10 @@ def main(argv=None) -> int:
                           for spec in zoo_rest_specs()]
                        + [{**_twin_spec(arch), "steps": LM_TWIN_STEPS}
                           for arch in ("qwen3-1.7b",) + LM_MOE_TWINS
-                          + LM_SSM_TWINS])
+                          + LM_SSM_TWINS],
+                       [("chaos cpu", _chaos_cpu, ())]
+                       + [(f"decode {arch}", _decode_twin_run, (arch, "cpu"))
+                          for arch in DECODE_TWINS])
     main_rows = [kernel_case(c, dev) for c in MAIN_CASES]
     wide_rows = [kernel_case(c, dev) for c in WIDE_CASES]
     norm_main = [r for c in NORM_MAIN_CASES for r in norm_case(c, dev)]
@@ -2871,6 +3341,9 @@ def main(argv=None) -> int:
     serve_got = serve_phase(dev, card)
     paths.update(serve_got["paths"])
     mark("serve phase done")
+    chaos_got = chaos_phase(dev, card)
+    paths.update(chaos_got["paths"])
+    mark("chaos phase done")
     lm_got = lm_phase(dev, card)
     paths.update(lm_got["paths"])
     mark("lm phase done")
@@ -2958,6 +3431,7 @@ def main(argv=None) -> int:
          "profile_trace": zoo_obs["profile_trace"], "path_profiles": profiles,
          "exec": {k: v for k, v in exec_got.items() if k != "paths"},
          "serve": {k: v for k, v in serve_got.items() if k != "paths"},
+         "chaos": {k: v for k, v in chaos_got.items() if k != "paths"},
          "lm": {k: v for k, v in lm_got.items() if k != "paths"},
          "lm_moe": {k: v for k, v in moe_got.items() if k != "paths"},
          "lm_ssm": {k: v for k, v in ssm_got.items() if k != "paths"},

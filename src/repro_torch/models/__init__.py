@@ -1,3 +1,3 @@
 from repro_torch.models.model import (  # noqa: F401
-    forward, init_params, loss_fn, param_shapes,
+    decode_step, forward, init_cache, init_params, loss_fn, param_shapes,
 )

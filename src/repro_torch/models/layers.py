@@ -12,8 +12,14 @@ so a leaf equals the reference's bit for bit; the SSD and RG-LRU inits'
 constants go through ``xla_math``'s linspace, log and expm1 for the
 same reason.
 
-The decode paths and caches are not ported yet (ROADMAP queue 1, item
-16).
+Each mixer also has its one-token decode step and its cache (a flat
+dict of tensors with the reference's leaf names): the attention kinds
+keep keys, values and positions in a buffer of ``capacity`` slots (a
+ring of ``min(capacity, window)`` under a sliding window), MLA only its
+normed latent and its RoPE key (the absorbed form), Mamba2 and the
+RG-LRU a float32 state and the causal conv's last inputs. ``len``, the
+tokens seen, is a 0-d int32 tensor on the cache's device: a step writes
+its slot by tensor indexing and reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -228,6 +234,64 @@ def attention(params, cfg, x, positions, *, window=None, q_chunk=None):
                         params["wo"])
 
 
+def _step_position(cur, b):
+    """The (b, 1) int32 positions of the token at ``cur``, a 0-d
+    tensor."""
+    return cur.to(torch.int32).reshape(1, 1).expand(b, 1)
+
+
+def attention_decode(params, cfg, x, cache, *, window=None):
+    """One-token decode with a KV cache. x: (B, 1, d).
+
+    cache: {"k": (B, L, Hkv, D), "v": ..., "pos": (B, L) int32 absolute
+    positions (-1 an empty slot), "len": () int32 tokens seen so far}.
+    The token goes to slot ``len mod L``, so under a sliding window the
+    cache is a ring buffer of L slots. -> (y (B, 1, d), new cache)."""
+    b, s, _ = x.shape
+    assert s == 1
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    cur = cache["len"]
+    cap = cache["k"].shape[1]
+    q = torch.einsum("bsd,de->bse", x, params["wq"]).reshape(b, 1, nq, hd)
+    k = torch.einsum("bsd,de->bse", x, params["wk"]).reshape(b, 1, nkv, hd)
+    v = torch.einsum("bsd,de->bse", x, params["wv"]).reshape(b, 1, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    pos = _step_position(cur, b)
+    if cfg.mrope_sections is not None:
+        pos3 = pos[..., None].expand(b, 1, 3)
+        q = apply_rope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    # the reference's dynamic_update_slice, out of place, at a slot that
+    # stays on the device: no host read in a step
+    slot = torch.remainder(cur, cap).long().reshape(1)
+    ck = cache["k"].index_copy(1, slot, k)
+    cv = cache["v"].index_copy(1, slot, v)
+    cpos = cache["pos"].index_copy(1, slot, pos)
+    out = _attend(q, ck, cv, pos, cpos, window=window, k_valid=cpos >= 0)
+    y = torch.einsum("bse,ed->bsd", out.reshape(b, 1, nq * hd), params["wo"])
+    return y, {"k": ck, "v": cv, "pos": cpos, "len": cur + 1}
+
+
+def init_attention_cache(cfg, batch, capacity, *, window=None,
+                         device=None) -> dict:
+    """Empty KV cache of ``min(capacity, window)`` slots (``capacity``
+    without a window)."""
+    hd = cfg.resolved_head_dim
+    cap = min(capacity, window) if window else capacity
+    kv = (batch, cap, cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(kv, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(kv, dtype=cfg.torch_dtype, device=device),
+            "pos": torch.full((batch, cap), -1, dtype=torch.int32,
+                              device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
 # ---------------------------------------------------------------------------
 # MLA: multi-head latent attention (DeepSeek-V2, arXiv:2405.04434)
 # ---------------------------------------------------------------------------
@@ -280,6 +344,60 @@ def mla_attention(params, cfg, x, positions, *, q_chunk=1024):
     out = _attend(qf, kf, v, pos, pos)
     return torch.einsum("bse,ed->bsd", out.reshape(b, s, nq * hd),
                         params["wo"])
+
+
+def mla_decode(params, cfg, x, cache):
+    """Absorbed-form MLA decode: the cache holds only the normed latent
+    ``c_kv`` (B, L, r) and the RoPE'd shared key ``k_rope`` (B, L, rd);
+    W_uk folds into the query and W_uv into the output, in float32 and
+    in the reference's einsum pairs, so no per-head K or V is built."""
+    b, s, _ = x.shape
+    assert s == 1
+    hd, nq = cfg.resolved_head_dim, cfg.num_heads
+    r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+    cur = cache["len"]
+    cap = cache["c_kv"].shape[1]
+    q = torch.einsum("bsd,de->bse", x, params["wq"]).reshape(b, 1, nq,
+                                                            hd + rd)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    pos = _step_position(cur, b)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    c_new = rms_norm(torch.einsum("bsd,dr->bsr", x, params["w_dkv"]),
+                     params["kv_norm"], cfg.norm_eps)
+    kr_new = apply_rope(
+        torch.einsum("bsd,dr->bsr", x, params["w_kr"])[:, :, None, :], pos,
+        cfg.rope_theta)[:, :, 0, :]
+    slot = torch.remainder(cur, cap).long().reshape(1)
+    c_kv = cache["c_kv"].index_copy(1, slot, c_new)
+    k_rope = cache["k_rope"].index_copy(1, slot, kr_new)
+    cpos = cache["pos"].index_copy(1, slot, pos)
+    # W_uk absorbed into q: score = (q_nope W_uk^T) . c + q_rope . k_rope
+    w_uk = params["w_uk"].reshape(r, nq, hd).float()
+    q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk)
+    scores = (torch.einsum("bqhr,blr->bhql", q_eff, c_kv.float())
+              + torch.einsum("bqhr,blr->bhql", q_rope.float(),
+                             k_rope.float()))
+    scores = scores / math.sqrt(hd + rd)
+    mask = (cpos >= 0) & (cpos <= cur)
+    scores = torch.where(mask[:, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhql,blr->bqhr", probs, c_kv.float())
+    w_uv = params["w_uv"].reshape(r, nq, hd).float()
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, w_uv)
+    out = out.reshape(b, 1, nq * hd).to(x.dtype)
+    y = torch.einsum("bse,ed->bsd", out, params["wo"])
+    return y, {"c_kv": c_kv, "k_rope": k_rope, "pos": cpos, "len": cur + 1}
+
+
+def init_mla_cache(cfg, batch, capacity, device=None) -> dict:
+    dt = cfg.torch_dtype
+    return {"c_kv": torch.zeros((batch, capacity, cfg.kv_lora_rank),
+                                dtype=dt, device=device),
+            "k_rope": torch.zeros((batch, capacity, cfg.qk_rope_dim),
+                                  dtype=dt, device=device),
+            "pos": torch.full((batch, capacity), -1, dtype=torch.int32,
+                              device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +589,15 @@ def causal_conv1d(x, w):
     return out
 
 
+def causal_conv1d_step(x, w, conv_state):
+    """x: (B, 1, C); conv_state: (B, W-1, C), the previous inputs. ->
+    (out (B, 1, C), the new state): the window's taps summed in float32
+    as one contraction over W, as the reference's einsum."""
+    window = torch.cat([conv_state, x], dim=1)            # (B, W, C)
+    out = torch.einsum("bwc,wc->bc", window.float(), w.float())
+    return out[:, None, :].to(x.dtype), window[:, 1:, :]
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 SSD block (arXiv:2405.21060): chunked state-space duality
 # ---------------------------------------------------------------------------
@@ -592,6 +719,49 @@ def mamba2_block(params, cfg, x, *, chunk=64):
     return torch.einsum("bte,ed->btd", y, params["w_out"])
 
 
+def mamba2_decode(params, cfg, x, cache):
+    """O(1) recurrent decode of one token. cache: {"h": (B, H, N, P)
+    float32, "conv": (B, W-1, di + 2N), "len"}. SiLU before the conv
+    step, as in ``mamba2_block``; h ← exp(dt·A)·h + dt·B ⊗ x."""
+    b, s, d = x.shape
+    assert s == 1
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state
+    nh = di // cfg.ssm_headdim
+    ph = cfg.ssm_headdim
+    zxbcdt = torch.einsum("btd,de->bte", x, params["w_in"])
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    xbc, conv_state = causal_conv1d_step(F.silu(xbc), params["conv_w"],
+                                         cache["conv"])
+    xi, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+    dt = _softplus(dt.float() + params["dt_bias"].float())[:, 0]  # (B, H)
+    a = -torch.exp(params["a_log"].float())
+    dec = torch.exp(dt * a)                                       # (B, H)
+    xh = xi[:, 0].reshape(b, nh, ph).float()
+    bm = bmat[:, 0].float()                                       # (B, N)
+    cm = cmat[:, 0].float()
+    hnew = (cache["h"] * dec[..., None, None]
+            + torch.einsum("bn,bhp,bh->bhnp", bm, xh, dt))
+    y = torch.einsum("bn,bhnp->bhp", cm, hnew)
+    y = y + xh * params["d_skip"].float()[None, :, None]
+    y = y.reshape(b, 1, di).to(x.dtype)
+    y = y * F.silu(z)
+    y = rms_norm(y, params["out_norm"], cfg.norm_eps)
+    out = torch.einsum("bte,ed->btd", y, params["w_out"])
+    return out, {"h": hnew, "conv": conv_state, "len": cache["len"] + 1}
+
+
+def init_mamba2_cache(cfg, batch, device=None) -> dict:
+    di = cfg.ssm_expand * cfg.d_model
+    nh = di // cfg.ssm_headdim
+    return {"h": torch.zeros((batch, nh, cfg.ssm_state, cfg.ssm_headdim),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1,
+                                 di + 2 * cfg.ssm_state),
+                                dtype=cfg.torch_dtype, device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
 def _softplus(x):
     """``jax.nn.softplus``: log(eˣ + 1) as ``logaddexp(x, 0)``, with no
     switch to x above a threshold as ``F.softplus`` has."""
@@ -696,3 +866,25 @@ def rglru_block(params, cfg, x):
     _, h = _linear_scan(a, gated)
     y = h.to(x.dtype) * gate
     return torch.einsum("btw,wd->btd", y, params["w_out"])
+
+
+def rglru_decode(params, cfg, x, cache):
+    """One token of the recurrent block: the conv step, the gates of
+    ``_rglru_gates``, h ← a·h + gated in float32."""
+    gate = F.gelu(torch.einsum("btd,dw->btw", x, params["w_gate_branch"]),
+                  approximate="tanh")
+    u = torch.einsum("btd,dw->btw", x, params["w_rec_branch"])
+    u, conv_state = causal_conv1d_step(u, params["conv_w"], cache["conv"])
+    a, gated = _rglru_gates(params, u)
+    h = a[:, 0] * cache["h"] + gated[:, 0]                       # (B, W)
+    y = h[:, None, :].to(x.dtype) * gate
+    out = torch.einsum("btw,wd->btd", y, params["w_out"])
+    return out, {"h": h, "conv": conv_state, "len": cache["len"] + 1}
+
+
+def init_rglru_cache(cfg, batch, device=None) -> dict:
+    w = cfg.rglru_width or cfg.d_model
+    return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, w),
+                                dtype=cfg.torch_dtype, device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}

@@ -15,8 +15,15 @@ Batch dict convention (the reference's)::
     positions optional (B, S) or (B, S, 3) for M-RoPE
 
 For frontend archs the whole sequence is F + S_text; the loss reads the
-text positions only. ``param_specs``, ``cache_specs``, ``init_cache``
-and ``decode_step`` are not ported yet (ROADMAP queue 1, item 16).
+text positions only.
+
+Serving: ``init_cache`` gives the decode caches as a flat dict keyed by
+the reference's cache tree paths (``groups/0/k``, ``tail/1/h``), so
+``convert.flatten_tree`` of the reference's cache has the same keys,
+shapes and dtypes; ``decode_step`` takes one token a sequence and
+returns the logits and a new cache. ``param_specs`` and ``cache_specs``
+(the model-parallel shardings) wait for ``launch/mesh.py`` (ROADMAP
+queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -156,3 +163,24 @@ def loss_fn(params, cfg, batch, *, remat: bool = False,
 def model_logits_last(params, cfg, x):
     """Last-position logits only (prefill output)."""
     return _logits(params, cfg, x[:, -1:, :])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch, capacity, device=None) -> dict:
+    """Empty decode caches for ``batch`` sequences of up to ``capacity``
+    tokens, on ``device`` (the CPU by default)."""
+    return dict(sorted(T.init_stack_cache(cfg, batch, capacity,
+                                          device).items()))
+
+
+def decode_step(params, cfg, cache, tokens):
+    """One decode step. tokens: (B,) int, or (B, K) for codebook archs.
+    -> (logits (B, V) or (B, K, V), new cache)."""
+    tok = tokens[:, None] if cfg.num_codebooks == 1 else tokens[:, None, :]
+    x = _embed(params, cfg, tok)
+    x, cache = T.decode_stack(params, cfg, x, cache)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, x)[:, 0], dict(sorted(cache.items()))

@@ -13,6 +13,12 @@ Every block kind of the reference is built: the attention blocks
 or the MoE FFN, whose load-balance loss the stack carries in float32
 through the layers, as the reference's scan does, and the Mamba2 SSD
 block, which has no second norm and no FFN.
+
+Decoding keeps the reference's cache tree as a flat dict beside the
+parameters: ``groups/{j}/<leaf>`` with a leading ``n_groups`` axis
+(``len`` too, one count a group), ``tail/{i}/<leaf>`` for the tail. A
+step runs the groups in depth order, as ``apply_stack`` does, and
+returns a new cache.
 """
 from __future__ import annotations
 
@@ -105,6 +111,49 @@ def _apply_block(params: dict, cfg, kind: str, x, positions, aux):
     return x + y, aux + a
 
 
+def _decode_block(params: dict, cfg, kind: str, x, cache: dict):
+    """One block's one-token step -> (x, new cache); the MoE FFN's
+    load-balance loss is dropped, as the reference drops it."""
+    h = L.rms_norm(x, params["norm1"], cfg.norm_eps)
+    mixer = L.subtree(params, "mixer/")
+    if kind == ATTN:
+        mixed, cache = L.attention_decode(mixer, cfg, h, cache)
+    elif kind == SWA:
+        mixed, cache = L.attention_decode(mixer, cfg, h, cache,
+                                          window=cfg.sliding_window)
+    elif kind == MLA:
+        mixed, cache = L.mla_decode(mixer, cfg, h, cache)
+    elif kind == RGLRU:
+        mixed, cache = L.rglru_decode(mixer, cfg, h, cache)
+    elif kind == MAMBA2:
+        mixed, cache = L.mamba2_decode(mixer, cfg, h, cache)
+        return x + mixed, cache
+    else:
+        raise ValueError(kind)
+    x = x + mixed
+    h = L.rms_norm(x, params["norm2"], cfg.norm_eps)
+    if cfg.moe is None:
+        return x + L.mlp(L.subtree(params, "ffn/"), h), cache
+    y, _ = L.moe_ffn(L.subtree(params, "ffn/"), cfg, h)
+    return x + y, cache
+
+
+def _init_block_cache(cfg, kind: str, batch, capacity, device=None) -> dict:
+    if kind == ATTN:
+        return L.init_attention_cache(cfg, batch, capacity, device=device)
+    if kind == SWA:
+        return L.init_attention_cache(cfg, batch, capacity,
+                                      window=cfg.sliding_window,
+                                      device=device)
+    if kind == MLA:
+        return L.init_mla_cache(cfg, batch, capacity, device)
+    if kind == RGLRU:
+        return L.init_rglru_cache(cfg, batch, device=device)
+    if kind == MAMBA2:
+        return L.init_mamba2_cache(cfg, batch, device=device)
+    raise ValueError(kind)
+
+
 # ---------------------------------------------------------------------------
 # stack
 # ---------------------------------------------------------------------------
@@ -156,6 +205,13 @@ def init_stack(key, cfg) -> dict:
     return out
 
 
+def _group_rows(tree: dict, j: int) -> dict:
+    """Pattern position ``j``'s stacked leaves, each unbound into its
+    ``n_groups`` rows."""
+    return {k: v.unbind(0)
+            for k, v in L.subtree(tree, f"groups/{j}/").items()}
+
+
 def apply_stack(params: dict, cfg, x, positions, *, remat: bool = False):
     """Every group's blocks in depth order, then the tail -> (x, aux),
     aux the float32 sum of the MoE layers' load-balance losses in layer
@@ -169,11 +225,7 @@ def apply_stack(params: dict, cfg, x, positions, *, remat: bool = False):
     pat, n_groups, tail = _split_depth(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if n_groups > 0:
-        per_pos = []
-        for j in range(len(pat)):
-            sub = L.subtree(params, f"groups/{j}/")
-            rows = {k: v.unbind(0) for k, v in sub.items()}
-            per_pos.append(rows)
+        per_pos = [_group_rows(params, j) for j in range(len(pat))]
         for r in range(n_groups):
             for j, kind in enumerate(pat):
                 block = {k: v[r] for k, v in per_pos[j].items()}
@@ -182,3 +234,44 @@ def apply_stack(params: dict, cfg, x, positions, *, remat: bool = False):
         x, aux = _apply_block(L.subtree(params, f"tail/{i}/"), cfg, kind, x,
                               positions, aux)
     return x, aux
+
+
+def init_stack_cache(cfg, batch, capacity, device=None) -> dict:
+    """Empty caches: each pattern position's broadcast over the
+    ``n_groups`` repeats, then the tail's."""
+    pat, n_groups, tail = _split_depth(cfg)
+    out = {}
+    for j, kind in enumerate(pat):
+        one = _init_block_cache(cfg, kind, batch, capacity, device)
+        out.update({f"groups/{j}/{k}": v[None].expand(
+            (n_groups,) + tuple(v.shape)).clone() for k, v in one.items()})
+    for i, kind in enumerate(tail):
+        one = _init_block_cache(cfg, kind, batch, capacity, device)
+        out.update({f"tail/{i}/{k}": v for k, v in one.items()})
+    return out
+
+
+def decode_stack(params: dict, cfg, x, cache: dict):
+    """One token through every group's blocks in depth order, then the
+    tail -> (x, new cache); each group's new cache rows are stacked back
+    into the ``n_groups`` axis."""
+    pat, n_groups, tail = _split_depth(cfg)
+    new = {}
+    if n_groups > 0:
+        p_rows = [_group_rows(params, j) for j in range(len(pat))]
+        c_rows = [_group_rows(cache, j) for j in range(len(pat))]
+        outs = [[] for _ in pat]
+        for r in range(n_groups):
+            for j, kind in enumerate(pat):
+                x, c = _decode_block({k: v[r] for k, v in p_rows[j].items()},
+                                     cfg, kind, x,
+                                     {k: v[r] for k, v in c_rows[j].items()})
+                outs[j].append(c)
+        for j, rows in enumerate(outs):
+            new.update({f"groups/{j}/{k}": torch.stack([c[k] for c in rows])
+                        for k in rows[0]})
+    for i, kind in enumerate(tail):
+        x, c = _decode_block(L.subtree(params, f"tail/{i}/"), cfg, kind, x,
+                             L.subtree(cache, f"tail/{i}/"))
+        new.update({f"tail/{i}/{k}": v for k, v in c.items()})
+    return x, new

@@ -23,6 +23,9 @@ Layout follows JAX 0.9.0 with ``jax_threefry_partitionable=True``:
   ceil(3·ln(n)/ln(2³²−1)) stable rounds;
 * ``choice`` with ``p`` searches u's place in cumsum(p), the cumsum in
   the blocked order of XLA's CPU code (``cumsum``);
+* ``gumbel`` is −log(−log(u)), u uniform on [tiny, 1), with XLA's
+  ``log``; ``categorical`` the argmax of it plus the logits, ties to
+  the lower index;
 * ``normal`` is sqrt(2)·erfinv(u) with XLA's single-precision erfinv
   polynomial (Giles) and XLA's own ``log-plus-one`` (``xla_math``), so
   the normals equal JAX's bit for bit; ``normal_bf16`` is JAX's
@@ -231,6 +234,34 @@ def permutation(key, n: int) -> torch.Tensor:
                            stable=True).indices
         x = torch.gather(x, -1, order)
     return x.contiguous()
+
+
+def gumbel(key, shape: Sequence[int] = (),
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, dtype)`` in its default ("low")
+    mode: −log(−log(u)) with u uniform on [tiny, 1) and XLA's ``log``.
+    In float32 u takes 23 random bits; in bfloat16 7, from the low 8 of
+    each word, and each log is taken in float32 and rounded to bfloat16,
+    as XLA's CPU code takes a bfloat16 op."""
+    if dtype == torch.float32:
+        u = uniform(key, shape, minval=torch.finfo(torch.float32).tiny)
+        return -X.log(-X.log(u))
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(f"gumbel in {dtype}")
+    bits = random_bits(key, shape) & 0xFF
+    unit = ((bits >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16) - 1.0
+    tiny = torch.finfo(torch.bfloat16).tiny
+    u = torch.clamp(unit + tiny, min=tiny)
+    inner = (-X.log(u)).to(torch.bfloat16)
+    return (-X.log(inner)).to(torch.bfloat16)
+
+
+def categorical(key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)``: one draw a row by
+    the Gumbel-max trick, argmax of gumbel + logits in the logits'
+    dtype, the lower index among equal scores. int64 indices."""
+    g = gumbel(key, tuple(logits.shape), logits.dtype).to(logits.device)
+    return torch.argmax(g + logits, dim=axis)
 
 
 # Giles' single-precision erfinv, as XLA lowers ``lax.erf_inv`` for f32.
